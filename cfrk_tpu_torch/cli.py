@@ -1,0 +1,193 @@
+"""Command-line interface: per-read `.cfrk` rows on a GPU.
+
+The per-read mode of ``cfrk_tpu/cli.py``, with the reference binary's
+positional contract (``cfrk <dataset.fasta> <out.cfrk> <k> [nt]
+[chunkSize]``, reference ``src/main.cu:239-250``)::
+
+    python -m cfrk_tpu_torch reads.fasta out.cfrk 8 --nonzero
+
+``--device cuda`` (the default) runs the CUDA kernels and refuses to run
+without a visible GPU; ``--device cpu`` runs the plain PyTorch route.
+The JAX package's other modes and flags are not ported yet: each exits
+with an error that says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+__all__ = ["main", "build_parser"]
+
+# Flags of cfrk_tpu's CLI this package does not serve yet.
+_NOT_PORTED = (
+    "--list-devices", "--out-dir", "--impl", "--spectrum-format",
+    "--min-count", "--profile", "--stream", "--resume", "--checkpoint-every",
+    "--mem-budget-mb", "--packed", "--max-parallel-tasks", "--retries",
+    "--no-lazy-errors", "--provenance", "--devices", "--tp", "--seqpar",
+    "--slack", "--distributed", "--config",
+)
+_FASTA_EXTS = (".fasta", ".fa", ".fna", ".fastq", ".fq")
+
+
+def _not_ported(what: str) -> SystemExit:
+    return SystemExit(f"{what} is not yet ported to cfrk_tpu_torch")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from .version import __version__
+
+    p = argparse.ArgumentParser(
+        prog="cfrk-tpu-torch",
+        description="GPU k-mer counting (reference-compatible .cfrk output)",
+        allow_abbrev=False,
+    )
+    p.add_argument(
+        "--version", action="version", version=f"cfrk-tpu-torch {__version__}"
+    )
+    p.add_argument(
+        "paths",
+        nargs="*",
+        help=(
+            "FASTA/FASTQ file, optionally gzipped; reference-style trailing "
+            "positionals <out.cfrk> <k> [nt] [chunkSize] are also accepted"
+        ),
+    )
+    p.add_argument("-k", type=int, default=None, help="k-mer length")
+    p.add_argument("-o", "--output", default=None, help="output path")
+    p.add_argument(
+        "--mode", choices=["perread", "spectrum", "sparse"], default="perread",
+        help="only perread is ported so far",
+    )
+    p.add_argument("--canonical", action="store_true", help="strand-neutral k-mers")
+    p.add_argument(
+        "--nonzero", action="store_true",
+        help="per-read rows list only nonzero idx:count cells",
+    )
+    p.add_argument(
+        "--batch-size", type=int, default=None,
+        help="reads per device batch (default 8192; chunkSize overrides it)",
+    )
+    p.add_argument("--max-len", type=int, default=None, help="pad reads to this length")
+    p.add_argument(
+        "--min-qual", type=int, default=0, metavar="Q",
+        help="FASTQ: treat bases with Phred+33 quality < Q as N (0 = off)",
+    )
+    p.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="cuda runs the CUDA kernels; cpu runs the plain PyTorch route",
+    )
+    p.add_argument("--stats", action="store_true", help="print a JSON stats line to stderr")
+    return p
+
+
+def _looks_like_input(p: str) -> bool:
+    """True for FASTA/FASTQ paths, optionally gzipped (a bare ``.gz``,
+    such as ``out.cfrk.gz``, stays an output positional)."""
+    if p.endswith(".gz"):
+        p = p[:-3]
+    return p.endswith(_FASTA_EXTS)
+
+
+def _split_reference_positionals(args) -> None:
+    """Split ``paths`` into inputs + reference-style trailing positionals
+    ``<out> <k> [nt] [chunkSize]``.  The first path is always an input;
+    later paths count as inputs while they look like FASTA/FASTQ."""
+    paths = list(args.paths)
+    args.inputs = [paths.pop(0)]
+    while paths and _looks_like_input(paths[0]):
+        args.inputs.append(paths.pop(0))
+    if paths and args.output is None and not paths[0].isdigit():
+        args.output = paths.pop(0)
+    if paths and args.k is None:
+        args.k = int(paths.pop(0))
+    if paths:
+        paths.pop(0)  # nt: host copy threads — obsolete, ignored
+    if paths:
+        args.batch_size = int(paths.pop(0))  # chunkSize
+    if paths:
+        raise SystemExit(f"unexpected extra positional arguments: {paths}")
+
+
+def _out_path(inp: str) -> str:
+    """Default output: the input's base name with ``.cfrk``, in the cwd."""
+    base = os.path.basename(inp)
+    for ext in (".gz",) + _FASTA_EXTS:
+        if base.endswith(ext):
+            base = base[: -len(ext)]
+    return base + ".cfrk"
+
+
+def _resolve_device(name: str):
+    import torch
+
+    if name == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            "--device cuda: no CUDA device is visible "
+            "(torch.cuda.is_available() is False); --device cpu runs the "
+            "plain PyTorch route"
+        )
+    return torch.device(name)
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args, unknown = parser.parse_known_args(argv)
+    for tok in unknown:
+        if tok.split("=", 1)[0] in _NOT_PORTED:
+            raise _not_ported(tok.split("=", 1)[0])
+    if unknown:
+        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    if args.mode != "perread":
+        raise _not_ported(f"--mode {args.mode}")
+    if not args.paths:
+        parser.error("the following arguments are required: paths")
+    _split_reference_positionals(args)
+    if len(args.inputs) > 1:
+        raise _not_ported("a multi-file run")
+    inp = args.inputs[0]
+    if inp == "-":
+        raise _not_ported("stdin input ('-')")
+    if not os.path.exists(inp):
+        raise SystemExit(f"input not found: {inp}")
+    if args.k is None:
+        raise SystemExit("k is required (positional or -k)")
+    if not 1 <= args.k <= 31:
+        raise SystemExit(f"k={args.k} out of range: 1 <= k <= 31")
+    if args.k > 8 and not args.nonzero:
+        raise SystemExit(
+            f"per-read k={args.k} > 8 requires --nonzero "
+            "(dense 4**k rows would be gigabytes per read)"
+        )
+    device = _resolve_device(args.device)
+    from .pipeline.count import count_file_sparse_rows
+
+    t0 = time.perf_counter()
+    reads = count_file_sparse_rows(
+        inp, args.output or _out_path(inp), args.k,
+        device=device,
+        canonical=args.canonical,
+        batch_size=args.batch_size,
+        max_len=args.max_len,
+        min_qual=args.min_qual,
+        nonzero=args.nonzero,
+    )
+    if args.stats:
+        print(
+            json.dumps({
+                "files": 1,
+                "reads": reads,
+                "k": args.k,
+                "mode": args.mode,
+                "wall_s": round(time.perf_counter() - t0, 3),
+            }),
+            file=sys.stderr,
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

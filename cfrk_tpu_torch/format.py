@@ -1,0 +1,231 @@
+"""The `.cfrk` output format (host side, numpy).
+
+A numpy copy of ``cfrk_tpu/format.py`` for the per-read path; its bytes
+are identical (pinned by tests/test_torch_format.py and the goldens).
+The contract, from the reference writer (``src/main.cu:26-62``):
+
+* one row per read, in input order;
+* a row is ``"<index>:<count> "`` cells, each with a trailing space —
+  every index in ``[0, 4**k)`` for dense rows, only nonzero cells for
+  ``--nonzero`` rows (an empty row is empty);
+* rows are joined by a single ``"\\n"``; no trailing newline.
+
+The JAX package formats through a C++ extension.  Here every cell is
+formatted by one vectorised numpy pass (:func:`_cells_bytes`): decimal
+digits are written into a preallocated byte buffer one digit position
+at a time, so the cost is a few array passes per digit, not a Python
+f-string per cell.  Rows go through in slabs of about
+:data:`_SLAB_CELLS` cells to bound the temporaries.
+"""
+
+from __future__ import annotations
+
+import gzip
+import os
+from typing import IO
+
+import numpy as np
+
+__all__ = [
+    "CfrkWriter",
+    "format_file_bytes",
+    "format_rows_pairs",
+    "format_pairs_bytes",
+    "format_dense_pairs_bytes",
+    "format_rows_bytes",
+]
+
+# Cells per formatting slab: ~25 bytes of temporaries per cell.
+_SLAB_CELLS = 1 << 22
+_POW10 = [np.uint64(10**p) for p in range(20)]
+
+
+def _n_digits(v: np.ndarray) -> np.ndarray:
+    """Decimal digit count (>= 1) of each uint64 value."""
+    nd = np.ones(v.shape, dtype=np.int64)
+    top = int(v.max(initial=0))
+    for p in range(1, 20):
+        if 10**p > top:
+            break
+        nd += v >= _POW10[p]
+    return nd
+
+
+def _put_decimal(out: np.ndarray, end: np.ndarray, v: np.ndarray,
+                 nd: np.ndarray) -> None:
+    """Write each ``v`` in ASCII decimal into ``out[end - nd : end]``."""
+    pos = end - 1
+    for d in range(int(nd.max(initial=0))):
+        if d:
+            keep = nd > d
+            pos, v, nd = pos[keep], v[keep], nd[keep]
+        out[pos] = 48 + (v % 10).astype(np.uint8)
+        v = v // 10
+        pos = pos - 1
+
+
+def _cells_bytes(n_rows: int, row_of_cell: np.ndarray, keys: np.ndarray,
+                 counts: np.ndarray, first: bool) -> bytes:
+    """``"key:count "`` cells grouped into rows, rows joined by ``\\n``.
+
+    Cells come in row-major order (``row_of_cell`` ascending); a row
+    with no cells is an empty row.  ``first=False`` prefixes a newline
+    (the continuation of a started file).
+    """
+    if n_rows == 0:
+        return b""
+    keys = keys.astype(np.uint64, copy=False)
+    counts = counts.astype(np.uint64, copy=False)
+    nd_k = _n_digits(keys)
+    nd_c = _n_digits(counts)
+    width = nd_k + nd_c + 2
+    # Newlines before row r: r, or r + 1 when continuing a file.
+    nl_before = np.arange(n_rows, dtype=np.int64) + (0 if first else 1)
+    row_len = np.bincount(row_of_cell, weights=width, minlength=n_rows)
+    row_len = row_len.astype(np.int64)
+    row_start = np.zeros(n_rows, dtype=np.int64)
+    np.cumsum(row_len[:-1], out=row_start[1:])
+    row_start += nl_before
+    cell_start = np.zeros(width.size, dtype=np.int64)
+    np.cumsum(width[:-1], out=cell_start[1:])
+    cell_start += nl_before[row_of_cell]
+    total = int(row_start[-1] + row_len[-1])
+    out = np.empty(total, dtype=np.uint8)
+    newline_rows = row_start[(1 if first else 0):]
+    out[newline_rows - 1] = ord("\n")
+    colon = cell_start + nd_k
+    out[colon] = ord(":")
+    space = colon + 1 + nd_c
+    out[space] = ord(" ")
+    _put_decimal(out, colon, keys, nd_k)
+    _put_decimal(out, space, counts, nd_c)
+    return out.tobytes()
+
+
+def format_pairs_bytes(idx: np.ndarray, counts: np.ndarray, *,
+                       first: bool = True) -> bytes:
+    """`.cfrk` bytes of sparse per-read (idx, counts) pair rows.
+
+    idx/counts: [B, W]; cells with count <= 0 are skipped (they carry
+    the sparse sentinel, which may have wrapped in a narrowed dtype).
+    Rows must already be ascending in idx, as the sort-based per-read
+    ops emit them.  idx may be int32 or the uint64 combined code of
+    k > 15.
+    """
+    idx = np.asarray(idx)
+    counts = np.asarray(counts)
+    if idx.shape != counts.shape or idx.ndim != 2:
+        raise ValueError("idx/counts must be equal-shape 2-D")
+    n = idx.shape[0]
+    rows = max(1, _SLAB_CELLS // max(idx.shape[1], 1))
+    parts = []
+    for s in range(0, n, rows):
+        cnt = counts[s : s + rows]
+        r, c = np.nonzero(cnt > 0)
+        parts.append(_cells_bytes(
+            cnt.shape[0], r, idx[s : s + rows][r, c], cnt[r, c],
+            first and s == 0,
+        ))
+    return b"".join(parts)
+
+
+def format_rows_bytes(counts: np.ndarray, *, first: bool = True) -> bytes:
+    """`.cfrk` bytes of a dense ``[n, 4**k]`` count block (every cell)."""
+    counts = np.asarray(counts)
+    if counts.ndim != 2:
+        raise ValueError(f"counts must be 2-D [n_reads, 4**k], got {counts.shape}")
+    n, fk = counts.shape
+    rows = max(1, _SLAB_CELLS // max(fk, 1))
+    parts = []
+    for s in range(0, n, rows):
+        block = counts[s : s + rows]
+        m = block.shape[0]
+        parts.append(_cells_bytes(
+            m, np.repeat(np.arange(m), fk), np.tile(np.arange(fk), m),
+            block.reshape(-1), first and s == 0,
+        ))
+    return b"".join(parts)
+
+
+def format_dense_pairs_bytes(idx: np.ndarray, counts: np.ndarray, fk: int,
+                             *, first: bool = True) -> bytes:
+    """DENSE rows (all ``fk`` bins) from sparse (idx, counts) pair rows —
+    byte-identical to :func:`format_rows_bytes` on the densified block.
+    Densifies one slab at a time, never the whole matrix."""
+    idx = np.asarray(idx)
+    counts = np.asarray(counts)
+    if idx.shape != counts.shape or idx.ndim != 2:
+        raise ValueError("idx/counts must be equal-shape 2-D")
+    rows = max(1, _SLAB_CELLS // max(fk, 1))
+    parts = []
+    for s in range(0, idx.shape[0], rows):
+        cnt = counts[s : s + rows]
+        r, c = np.nonzero(cnt > 0)
+        dense = np.zeros((cnt.shape[0], fk), dtype=np.int64)
+        dense[r, idx[s : s + rows][r, c].astype(np.int64)] = cnt[r, c]
+        parts.append(format_rows_bytes(dense, first=first and s == 0))
+    return b"".join(parts)
+
+
+def format_rows_pairs(idx: np.ndarray, counts: np.ndarray) -> list[bytes]:
+    """Per-read row bytes from (idx, counts) pair matrices (the cells of
+    :func:`format_pairs_bytes`, one list entry per row)."""
+    if np.asarray(idx).shape[0] == 0:
+        return []
+    return format_pairs_bytes(idx, counts).split(b"\n")
+
+
+def format_file_bytes(counts: np.ndarray) -> bytes:
+    """A full dense `.cfrk` file: rows joined by b"\\n", no trailing newline."""
+    return format_rows_bytes(counts)
+
+
+class CfrkWriter:
+    """Streaming `.cfrk` writer: batches arrive one at a time while the
+    file contract holds — a newline before every row but the first.
+    A path ending in ``.gz`` is written gzip-compressed."""
+
+    def __init__(self, f: IO[bytes] | str | os.PathLike):
+        if isinstance(f, (str, os.PathLike)):
+            self._f: IO[bytes] = (
+                gzip.open(f, "wb") if str(f).endswith(".gz") else open(f, "wb")
+            )
+            self._owns = True
+        else:
+            self._f = f
+            self._owns = False
+        self._first = True
+
+    def _write(self, data: bytes, n_rows: int) -> None:
+        if n_rows:
+            self._f.write(data)
+            self._first = False
+
+    def write_batch(self, counts: np.ndarray) -> None:
+        """Dense rows from a ``[n, 4**k]`` count block."""
+        counts = np.asarray(counts)
+        self._write(format_rows_bytes(counts, first=self._first), counts.shape[0])
+
+    def write_pairs(self, idx: np.ndarray, counts: np.ndarray) -> None:
+        """Nonzero rows from (idx, counts) pair matrices."""
+        self._write(
+            format_pairs_bytes(idx, counts, first=self._first), len(idx)
+        )
+
+    def write_pairs_dense(self, idx: np.ndarray, counts: np.ndarray,
+                          fk: int) -> None:
+        """Dense rows (all ``fk`` bins) from (idx, counts) pair matrices."""
+        self._write(
+            format_dense_pairs_bytes(idx, counts, fk, first=self._first),
+            len(idx),
+        )
+
+    def close(self) -> None:
+        if self._owns:
+            self._f.close()
+
+    def __enter__(self) -> "CfrkWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -1,0 +1,123 @@
+"""FASTA/FASTQ parsing and 2-bit base encoding (host side, numpy).
+
+A numpy copy of the parts of ``cfrk_tpu/io/fasta.py`` the per-read path
+needs.  The port cannot import that module: any ``cfrk_tpu`` import runs
+the JAX package's ``__init__``, which imports jax.  The native C++
+parser of the JAX package is not used; this pure-Python path gives the
+same records (the JAX package pins the two byte-identical).
+
+Encoding contract: A/a→0, C/c→1, G/g→2, T/t→3, anything else→-1.
+Multi-line records are concatenated without their newlines; gzip (and
+BGZF, which is multi-member gzip) inputs are read transparently.
+"""
+
+from __future__ import annotations
+
+import gzip
+import os
+from typing import IO, Iterator
+
+import numpy as np
+
+__all__ = [
+    "ENCODE_LUT",
+    "encode_seq",
+    "iter_fasta",
+    "iter_fastq",
+    "iter_reads",
+    "read_fasta_encoded",
+]
+
+# 256-entry LUT: byte -> 2-bit code, -1 for anything not in ACGTacgt.
+ENCODE_LUT = np.full(256, -1, dtype=np.int8)
+for _b, _v in ((b"Aa", 0), (b"Cc", 1), (b"Gg", 2), (b"Tt", 3)):
+    ENCODE_LUT[_b[0]] = _v
+    ENCODE_LUT[_b[1]] = _v
+
+
+def encode_seq(seq: bytes | np.ndarray) -> np.ndarray:
+    """Encode raw bases into int8 codes (0..3 valid, -1 invalid)."""
+    buf = (
+        np.frombuffer(seq, dtype=np.uint8)
+        if isinstance(seq, (bytes, bytearray))
+        else seq
+    )
+    return ENCODE_LUT[buf]
+
+
+def _mask_low_qual(seq: bytes, qual: bytes, min_qual: int) -> bytes:
+    """Replace bases whose Phred+33 quality is below ``min_qual`` with
+    ``N`` (so every window covering them is invalid)."""
+    s = np.frombuffer(seq, dtype=np.uint8).copy()
+    q = np.frombuffer(qual, dtype=np.uint8)
+    s[q < 33 + min_qual] = ord("N")
+    return s.tobytes()
+
+
+def _open_maybe_gzip(path: str | os.PathLike) -> IO[bytes]:
+    f = open(path, "rb")
+    magic = f.read(2)
+    f.seek(0)
+    if magic == b"\x1f\x8b":
+        return gzip.open(f, "rb")  # type: ignore[return-value]
+    return f
+
+
+def iter_fasta(f: IO[bytes]) -> Iterator[tuple[bytes, bytes]]:
+    """Yield ``(header, sequence)`` pairs from an open FASTA stream;
+    header excludes ``>``, sequence joins all its lines."""
+    header: bytes | None = None
+    parts: list[bytes] = []
+    for line in f:
+        line = line.rstrip(b"\r\n")
+        if line.startswith(b">"):
+            if header is not None:
+                yield header, b"".join(parts)
+            header = line[1:]
+            parts = []
+        elif line:
+            parts.append(line)
+    if header is not None:
+        yield header, b"".join(parts)
+
+
+def iter_fastq(f: IO[bytes], min_qual: int = 0) -> Iterator[tuple[bytes, bytes]]:
+    """Yield ``(header, sequence)`` from an open 4-line-record FASTQ
+    stream; ``min_qual`` > 0 masks bases below that Phred quality to N."""
+    while True:
+        hdr = f.readline()
+        if not hdr:
+            return
+        hdr = hdr.rstrip(b"\r\n")
+        if not hdr:
+            continue
+        if not hdr.startswith(b"@"):
+            raise ValueError(f"malformed FASTQ header: {hdr[:40]!r}")
+        seq = f.readline().rstrip(b"\r\n")
+        plus = f.readline()
+        if not plus.startswith(b"+"):
+            raise ValueError("malformed FASTQ record: missing '+' line")
+        qual = f.readline().rstrip(b"\r\n")
+        if len(qual) != len(seq):
+            raise ValueError("malformed FASTQ record: quality length mismatch")
+        if min_qual:
+            seq = _mask_low_qual(seq, qual, min_qual)
+        yield hdr[1:], seq
+
+
+def iter_reads(
+    path: str | os.PathLike, min_qual: int = 0
+) -> Iterator[tuple[bytes, bytes]]:
+    """Yield ``(header, sequence)`` from a FASTA or FASTQ file, sniffed by
+    the first non-blank byte (``>`` vs ``@``); gzip is transparent."""
+    with _open_maybe_gzip(path) as f:
+        first = f.peek(64).lstrip(b"\r\n")[:1]
+        if first == b"@":
+            yield from iter_fastq(f, min_qual)
+        else:
+            yield from iter_fasta(f)
+
+
+def read_fasta_encoded(path, min_qual: int = 0) -> list[np.ndarray]:
+    """Read and encode all records into a ragged list of int8 code arrays."""
+    return [encode_seq(s) for _, s in iter_reads(path, min_qual)]

@@ -1,0 +1,234 @@
+"""Per-read sort + run-length encode: hand-written CUDA kernels and their
+plain PyTorch twins.
+
+* :func:`rowsort_rle` (1 <= k <= 15) replaces ``rowsort_rle_pallas``
+  (cfrk_tpu/ops/pallas/rowsort.py:569);
+* :func:`rowsort_rle_large` (16 <= k <= 31) replaces
+  ``rowsort_rle_pallas_large`` (rowsort.py:655).
+
+Both take the int8 code batch ``[B, L]`` and build the window keys in the
+kernel (``csrc/rowsort.cu`` explains the design and its bounds on the
+H100).  Their output is array-equal to the plain twins
+:func:`rowsort_rle_plain` / :func:`rowsort_rle_large_plain`, which sort
+with ``torch.sort`` on any device; ``ops/perread_sparse.py`` exports them
+as ``count_perread_sparse`` / ``count_perread_sparse_large``.
+
+This module owns the device decision: a wrapper takes its plain twin
+only for a tensor on the CPU.  For a CUDA tensor it launches its kernel
+or raises; a build or launch failure is never replaced by the plain
+route.  Each wrapper counts its launches in its ``launches`` attribute,
+so a run can show it went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..encode import window_indices
+from ..sparse import INVALID_SENTINEL, LO_BASES, kmer_keys
+from .build import load_library
+
+__all__ = [
+    "MAX_SPARSE_PERREAD_K",
+    "KEY64_SENTINEL",
+    "LO_MASK",
+    "ROWSORT_MAX_WINDOWS",
+    "ROWSORT_MAX_WINDOWS_LARGE",
+    "rowsort_max_windows",
+    "rle_rows",
+    "rowsort_rle",
+    "rowsort_rle_large",
+    "rowsort_rle_plain",
+    "rowsort_rle_large_plain",
+]
+
+MAX_SPARSE_PERREAD_K = 15
+LO_MASK = (1 << (2 * LO_BASES)) - 1
+# The k > 15 sort key is one int64 ``hi << 30 | lo`` (< 4**31 = 2**62 for
+# a real window); invalid windows take the largest int64 so they sort
+# last.  The uint32 pair sentinel cannot serve: its combined value
+# equals the all-T 31-mer's.
+KEY64_SENTINEL = (1 << 63) - 1
+
+# Window ceilings of one row in one thread block: the padded row of keys
+# lives in shared memory (227 KB per block on the H100), 128 KB of uint32
+# or uint64 keys.
+ROWSORT_MAX_WINDOWS = 32768
+ROWSORT_MAX_WINDOWS_LARGE = 16384
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+
+
+def rowsort_max_windows(k: int) -> int:
+    """The kernel's windows-per-row ceiling at this k."""
+    return ROWSORT_MAX_WINDOWS if k <= MAX_SPARSE_PERREAD_K else ROWSORT_MAX_WINDOWS_LARGE
+
+
+# ---------------------------------------------------------------- plain twins
+
+
+def rle_rows(keys: torch.Tensor, is_real: torch.Tensor, sentinel: int):
+    """Run-length-encode SORTED key rows.
+
+    keys: [B, W]; is_real: [B, W] bool, False for sentinel positions
+    (sorted to the row tails).  Returns ``(masked_keys, counts)``:
+    position j holds a distinct key and its int32 count iff it is the
+    first of its run, else ``sentinel`` and 0.  The run length is the
+    distance to the next boundary, found by a suffix minimum (the JAX
+    package's reversed ``associative_scan`` is ``flip``/``cummin``/``flip``).
+    """
+    b, w = keys.shape
+    first = torch.ones((b, w), dtype=torch.bool, device=keys.device)
+    first[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    first &= is_real
+    pos = torch.arange(w, dtype=torch.int32, device=keys.device).expand(b, w)
+    boundary = torch.where(first | ~is_real, pos, w)
+    suffix_min = torch.flip(
+        torch.cummin(torch.flip(boundary, [-1]), dim=-1).values, [-1]
+    )
+    nxt_after = torch.cat(
+        [suffix_min[:, 1:],
+         torch.full((b, 1), w, dtype=torch.int32, device=keys.device)],
+        dim=-1,
+    )
+    counts = torch.where(first, nxt_after - pos, 0).to(torch.int32)
+    return torch.where(first, keys, sentinel), counts
+
+
+def rowsort_rle_plain(codes: torch.Tensor, k: int, canonical: bool = False):
+    """Per-read sparse rows for k <= 15, plain route on any device.
+
+    codes: [B, L] int8 → (idx, counts), both [B, W] int32 with
+    W = L-k+1; the sentinel is ``4**k``.
+    """
+    if not 1 <= k <= MAX_SPARSE_PERREAD_K:
+        raise ValueError(f"k must be in [1, {MAX_SPARSE_PERREAD_K}]")
+    sent = 4**k
+    idx = window_indices(codes, k, canonical)  # [B, W], -1 invalid
+    x = torch.where(idx < 0, sent, idx)
+    x = torch.sort(x, dim=-1).values
+    return rle_rows(x, x != sent, sent)
+
+
+def rowsort_rle_large_plain(codes: torch.Tensor, k: int,
+                            canonical: bool = False):
+    """Per-read sparse rows for 16 <= k <= 31, plain route on any device.
+
+    codes: [B, L] int8 → (hi, lo, counts), each [B, W] int32; hi and lo
+    are bit views of the uint32 (hi, lo) split of ``ops/sparse.py``,
+    sorted lexicographically, with sentinel 0xFFFFFFFF at non-run-start
+    cells.  Validity is judged on lo: a 16-T prefix makes a real hi equal
+    the sentinel.
+    """
+    if not 16 <= k <= 31:
+        raise ValueError("count_perread_sparse_large needs 16 <= k <= 31")
+    hi, lo = kmer_keys(codes, k, canonical)
+    key = torch.where(
+        lo != INVALID_SENTINEL, (hi << (2 * LO_BASES)) | lo, KEY64_SENTINEL
+    )
+    key = torch.sort(key, dim=-1).values
+    key, counts = rle_rows(key, key != KEY64_SENTINEL, KEY64_SENTINEL)
+    real = key != KEY64_SENTINEL
+    hi = torch.where(real, key >> (2 * LO_BASES), INVALID_SENTINEL)
+    lo = torch.where(real, key & LO_MASK, INVALID_SENTINEL)
+    return hi.to(torch.int32), lo.to(torch.int32), counts
+
+
+# ---------------------------------------------------------------- kernels
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = load_library("rowsort")
+    lib.cfrk_rowsort_rle.argtypes = [_PTR, _PTR, _PTR] + [_INT] * 5 + [_PTR]
+    lib.cfrk_rowsort_rle.restype = _INT
+    lib.cfrk_rowsort_rle_large.argtypes = (
+        [_PTR, _PTR, _PTR, _PTR] + [_INT] * 5 + [_PTR]
+    )
+    lib.cfrk_rowsort_rle_large.restype = _INT
+    return lib
+
+
+def _check(codes: torch.Tensor, k: int, lo: int, hi: int) -> int:
+    """Validate a code batch; returns W = L-k+1."""
+    if codes.ndim != 2 or codes.dtype != torch.int8:
+        raise ValueError(
+            f"codes must be a [B, L] int8 tensor, got {tuple(codes.shape)} "
+            f"{codes.dtype}"
+        )
+    if not lo <= k <= hi:
+        raise ValueError(f"k={k} outside [{lo}, {hi}]")
+    w = codes.shape[1] - k + 1
+    if w <= 0:
+        raise ValueError(f"read length {codes.shape[1]} < k={k}")
+    if codes.device.type != "cuda":
+        raise ValueError(f"codes on {codes.device}: the kernel needs CUDA")
+    if w > rowsort_max_windows(k):
+        raise ValueError(
+            f"{w} windows/read exceeds the kernel ceiling "
+            f"{rowsort_max_windows(k)}; use count_perread_rows_tiled"
+        )
+    return w
+
+
+def _launch(fn, codes: torch.Tensor, outs, k: int, w: int,
+            canonical: bool) -> None:
+    b, length = codes.shape
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = fn(
+            codes.data_ptr(), *(o.data_ptr() for o in outs),
+            b, length, w, k, int(canonical), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
+def rowsort_rle(codes: torch.Tensor, k: int, canonical: bool = False):
+    """Per-read sparse rows for 1 <= k <= 15, fused CUDA kernel.
+
+    codes [B, L] int8 → (idx, counts) [B, W] int32, W = L-k+1: rows
+    ascending, a run start holds the index and its count, every other
+    cell the sentinel ``4**k`` and 0.
+    """
+    if codes.device.type == "cpu":
+        return rowsort_rle_plain(codes, k, canonical)
+    w = _check(codes, k, 1, MAX_SPARSE_PERREAD_K)
+    codes = codes.contiguous()
+    idx = torch.empty((codes.shape[0], w), dtype=torch.int32, device=codes.device)
+    cnt = torch.empty_like(idx)
+    if codes.shape[0]:
+        _launch(_library().cfrk_rowsort_rle, codes, (idx, cnt), k, w, canonical)
+        rowsort_rle.launches += 1
+    return idx, cnt
+
+
+def rowsort_rle_large(codes: torch.Tensor, k: int, canonical: bool = False):
+    """Per-read sparse rows for 16 <= k <= 31, fused CUDA kernel.
+
+    codes [B, L] int8 → (hi, lo, counts) [B, W] int32: hi and lo are bit
+    views of the uint32 (hi, lo) key words, sorted lexicographically,
+    sentinel 0xFFFFFFFF (-1 as int32) at non-run-start cells.
+    """
+    if codes.device.type == "cpu":
+        return rowsort_rle_large_plain(codes, k, canonical)
+    w = _check(codes, k, 16, 31)
+    codes = codes.contiguous()
+    hi = torch.empty((codes.shape[0], w), dtype=torch.int32, device=codes.device)
+    lo = torch.empty_like(hi)
+    cnt = torch.empty_like(hi)
+    if codes.shape[0]:
+        _launch(
+            _library().cfrk_rowsort_rle_large, codes, (hi, lo, cnt), k, w,
+            canonical,
+        )
+        rowsort_rle_large.launches += 1
+    return hi, lo, cnt
+
+
+rowsort_rle.launches = 0
+rowsort_rle_large.launches = 0

@@ -21,7 +21,16 @@ setup(
         "cfrk_tpu.parallel",
         "cfrk_tpu.pipeline",
         "cfrk_tpu.runtime",
+        "cfrk_tpu_torch",
+        "cfrk_tpu_torch.io",
+        "cfrk_tpu_torch.ops",
+        "cfrk_tpu_torch.ops.cuda",
+        "cfrk_tpu_torch.pipeline",
+        "cfrk_tpu_torch.tools",
     ],
+    # The CUDA kernels of cfrk_tpu_torch are not ext_modules: they build
+    # from csrc/ with nvcc at first use (cfrk_tpu_torch/ops/cuda/build.py).
+    package_data={"cfrk_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[
         Extension(
             "cfrk_tpu.io.native._fastaio",
@@ -30,7 +39,10 @@ setup(
         )
     ],
     entry_points={
-        "console_scripts": ["cfrk-tpu = cfrk_tpu.cli:main"],
+        "console_scripts": [
+            "cfrk-tpu = cfrk_tpu.cli:main",
+            "cfrk-tpu-torch = cfrk_tpu_torch.cli:main",
+        ],
     },
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],

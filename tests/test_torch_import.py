@@ -1,0 +1,124 @@
+"""cfrk_tpu_torch imports without JAX, cfrk_tpu, nvcc or a GPU.
+
+The GPU machine the port runs on has no JAX, so no module of the port
+may import it (or cfrk_tpu, whose ``__init__`` imports jax).  Each check
+runs in a fresh interpreter, since this test process has jax loaded.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_MODULES = [
+    "cfrk_tpu_torch",
+    "cfrk_tpu_torch.cli",
+    "cfrk_tpu_torch.format",
+    "cfrk_tpu_torch.io.fasta",
+    "cfrk_tpu_torch.pipeline.batch",
+    "cfrk_tpu_torch.pipeline.count",
+    "cfrk_tpu_torch.ops.encode",
+    "cfrk_tpu_torch.ops.sparse",
+    "cfrk_tpu_torch.ops.perread_sparse",
+    "cfrk_tpu_torch.ops.reference",
+    "cfrk_tpu_torch.ops.cuda.build",
+    "cfrk_tpu_torch.ops.cuda.rowsort",
+    "cfrk_tpu_torch.tools.stage_breakdown",
+]
+
+
+def _run(code: str, env_extra=None) -> dict:
+    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
+    )
+    env.update(env_extra or {})
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def import_report():
+    """One fresh interpreter imports every module in turn and records,
+    after each, which jax and cfrk_tpu modules are loaded."""
+    return _run(
+        "import importlib, json, sys\n"
+        "def loaded(pkg):\n"
+        "    return sorted(m for m in sys.modules"
+        " if m == pkg or m.startswith(pkg + '.'))\n"
+        "out = {}\n"
+        f"for name in {_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    out[name] = {'jax': loaded('jax'), 'cfrk_tpu': loaded('cfrk_tpu')}\n"
+        "print(json.dumps(out))\n"
+    )
+
+
+@pytest.mark.parametrize("module", _MODULES)
+def test_module_imports_no_jax_no_cfrk_tpu(import_report, module):
+    assert import_report[module] == {"jax": [], "cfrk_tpu": []}
+
+
+def test_kernel_module_needs_no_nvcc_until_launch():
+    """Importing the kernel module and running its CPU route builds
+    nothing: the build happens at the first launch on a CUDA tensor."""
+    got = _run(
+        "import json, torch\n"
+        "from cfrk_tpu_torch.ops.cuda import rowsort, build\n"
+        "c = torch.zeros((2, 40), dtype=torch.int8)\n"
+        "rowsort.rowsort_rle(c, 8)\n"
+        "rowsort.rowsort_rle_large(c, 31)\n"
+        "print(json.dumps({'loaded': build.load_library.cache_info().currsize,"
+        " 'launches': [rowsort.rowsort_rle.launches,"
+        " rowsort.rowsort_rle_large.launches]}))\n",
+        {"PATH": os.path.dirname(sys.executable)},
+    )
+    assert got == {"loaded": 0, "launches": [0, 0]}
+
+
+def test_wrapper_off_cpu_launches_or_raises():
+    """A tensor that is not on the CPU never takes the plain route: off
+    CUDA the wrapper raises instead of computing."""
+    from cfrk_tpu_torch.ops.cuda.rowsort import rowsort_rle, rowsort_rle_large
+
+    codes = torch.zeros((2, 40), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="needs CUDA"):
+        rowsort_rle(codes, 8)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        rowsort_rle_large(codes, 31)
+    assert rowsort_rle.launches == 0 and rowsort_rle_large.launches == 0
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No nvcc: the build raises a clear error (never a silent CPU run)."""
+    from cfrk_tpu_torch.ops.cuda import build
+
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("this machine has nvcc")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build._nvcc()
+
+
+def test_kernel_ceilings_fit_shared_memory():
+    """The padded row of keys must fit one block's shared memory on the
+    H100 (227 KB), uint32 keys for k <= 15 and uint64 keys above."""
+    from cfrk_tpu_torch.ops.cuda.rowsort import rowsort_max_windows
+
+    smem = 227 * 1024
+    assert rowsort_max_windows(15) * 4 <= smem < rowsort_max_windows(15) * 8
+    assert rowsort_max_windows(16) * 8 <= smem < rowsort_max_windows(16) * 16
+    assert np.log2(rowsort_max_windows(8)).is_integer()
