@@ -8,9 +8,10 @@
 // length, every other cell the sentinel and count 0.
 //
 // Design: one thread block per read row.  Each thread builds the keys
-// of its windows straight from the int8 codes (a k-step loop; any code
-// < 0 makes the window invalid; canonical = min(forward, revcomp)), so
-// no [B, W] key array round-trips through device memory.  The keys sit
+// of its windows straight from the int8 codes (cfrk::window_key of
+// kmer_key.cuh: a k-step loop; any code < 0 makes the window invalid;
+// canonical = min(forward, revcomp)), so no [B, W] key array
+// round-trips through device memory.  The keys sit
 // in shared memory, padded with the sentinel to a power of two n, and
 // an in-place bitonic network sorts them.  Each run start then finds
 // its run end by binary search for the first larger key.
@@ -39,25 +40,12 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "kmer_key.cuh"
+
 namespace {
 
 constexpr int kLoBits = 30;  // 15 low bases of a k > 15 key
 constexpr int kMaxThreads = 1024;
-
-template <typename Key>
-__device__ __forceinline__ Key window_key(const int8_t* __restrict__ row,
-                                          int p, int k, bool canonical,
-                                          Key sentinel) {
-  Key fwd = 0;
-  Key rc = 0;
-  for (int j = 0; j < k; ++j) {
-    const int c = row[p + j];
-    if (c < 0) return sentinel;
-    fwd = (fwd << 2) | Key(c);
-    rc |= Key(3 - c) << (2 * j);  // base j of the window is rc's base k-1-j
-  }
-  return (canonical && rc < fwd) ? rc : fwd;
-}
 
 // Ascending bitonic sort of s[0..n), n a power of two, by the block.
 template <typename Key>
@@ -108,7 +96,8 @@ __global__ void rowsort_rle_kernel(const int8_t* __restrict__ codes,
   const int8_t* row = codes + int64_t(blockIdx.x) * L;
 
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    s[i] = i < W ? window_key<Key>(row, i, k, canonical, sentinel) : sentinel;
+    s[i] = i < W ? cfrk::window_key<Key>(row, i, k, canonical, sentinel)
+                 : sentinel;
   }
   __syncthreads();
   bitonic_sort(s, n);

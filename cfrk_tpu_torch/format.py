@@ -1,7 +1,8 @@
-"""The `.cfrk` output format (host side, numpy).
+"""The `.cfrk` output format and the spectrum text writers (host side,
+numpy).
 
-A numpy copy of ``cfrk_tpu/format.py`` for the per-read path; its bytes
-are identical (pinned by tests/test_torch_format.py and the goldens).
+A numpy copy of ``cfrk_tpu/format.py``; its bytes are identical (pinned
+by tests/test_torch_format.py and the goldens).
 The contract, from the reference writer (``src/main.cu:26-62``):
 
 * one row per read, in input order;
@@ -16,6 +17,12 @@ digits are written into a preallocated byte buffer one digit position
 at a time, so the cost is a few array passes per digit, not a Python
 f-string per cell.  Rows go through in slabs of about
 :data:`_SLAB_CELLS` cells to bound the temporaries.
+
+The spectrum modes' tab-separated lines are written the same way:
+:func:`format_spectrum_tsv_bytes` (``index<TAB>count`` of a dense table)
+and :func:`format_kmer_tsv_bytes` (``KMER<TAB>count`` of a sparse
+spectrum; the JAX package's C++ ``format_kmer_tsv``), each byte-equal
+to the JAX CLI's Python line loop.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ __all__ = [
     "format_pairs_bytes",
     "format_dense_pairs_bytes",
     "format_rows_bytes",
+    "format_spectrum_tsv_bytes",
+    "format_kmer_tsv_bytes",
 ]
 
 # Cells per formatting slab: ~25 bytes of temporaries per cell.
@@ -178,6 +187,64 @@ def format_rows_pairs(idx: np.ndarray, counts: np.ndarray) -> list[bytes]:
 def format_file_bytes(counts: np.ndarray) -> bytes:
     """A full dense `.cfrk` file: rows joined by b"\\n", no trailing newline."""
     return format_rows_bytes(counts)
+
+
+def _tsv_lines(first_width: np.ndarray, counts: np.ndarray):
+    """A buffer of lines ``<first field><TAB><count><LF>`` with the tabs,
+    the counts' digits and the newlines written; returns ``(buf,
+    line_start)`` for the caller to fill each line's first
+    ``first_width`` bytes."""
+    counts = counts.astype(np.uint64, copy=False)
+    nd = _n_digits(counts)
+    end = np.cumsum(first_width + nd + 2)
+    start = end - (first_width + nd + 2)
+    buf = np.empty(int(end[-1]) if end.size else 0, dtype=np.uint8)
+    buf[start + first_width] = ord("\t")
+    buf[end - 1] = ord("\n")
+    _put_decimal(buf, end - 1, counts, nd)
+    return buf, start
+
+
+def format_spectrum_tsv_bytes(table: np.ndarray, min_count: int = 1) -> bytes:
+    """``index<TAB>count`` lines of a dense spectrum, one for each bin
+    with count >= max(min_count, 1), in index order."""
+    table = np.asarray(table)
+    (nz,) = np.nonzero(table >= max(min_count, 1))
+    parts = []
+    for s in range(0, nz.size, _SLAB_CELLS):
+        idx = nz[s : s + _SLAB_CELLS].astype(np.uint64)
+        nd = _n_digits(idx)
+        buf, start = _tsv_lines(nd, table[nz[s : s + _SLAB_CELLS]])
+        _put_decimal(buf, start + nd, idx, nd)
+        parts.append(buf.tobytes())
+    return b"".join(parts)
+
+
+_BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def format_kmer_tsv_bytes(keys: np.ndarray, counts: np.ndarray, k: int,
+                          min_count: int = 1) -> bytes:
+    """``KMER<TAB>count`` lines of a sparse spectrum, one for each key
+    with count >= max(min_count, 1), in the given order.  A key is the
+    k-mer's base-4 code, first base most significant."""
+    keys = np.asarray(keys, dtype=np.uint64)
+    counts = np.asarray(counts)
+    if keys.shape != counts.shape:
+        raise ValueError("keys/counts size mismatch")
+    mask = counts >= max(min_count, 1)
+    keys, counts = keys[mask], counts[mask]
+    # About k + 20 bytes of temporaries per line and base.
+    slab = max(1, _SLAB_CELLS // k)
+    parts = []
+    for s in range(0, keys.size, slab):
+        kk = keys[s : s + slab]
+        buf, start = _tsv_lines(np.full(kk.size, k, np.int64), counts[s : s + slab])
+        for j in range(k):
+            base = (kk >> np.uint64(2 * (k - 1 - j))) & np.uint64(3)
+            buf[start + j] = _BASES[base]
+        parts.append(buf.tobytes())
+    return b"".join(parts)
 
 
 class CfrkWriter:

@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface, so it compiles with
 ``nvcc`` alone, without PyTorch's headers, in seconds, into
 ``build/cfrk_tpu_torch/lib<name>-<hash>.so`` beside the package (the
-hash covers the source and the flags, so an edited source rebuilds).
-Nothing is built when a module is imported: the first kernel launch
-builds.  A missing ``nvcc`` or a failed build raises.
+hash covers the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header rebuilds).  Nothing is built when
+a module is imported: the first kernel launch builds, and
+:func:`build_libraries` builds several sources at once, one ``nvcc``
+each.  A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_library", "load_library"]
+__all__ = ["NVCC_FLAGS", "build_library", "build_libraries", "load_library"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -57,9 +60,11 @@ def build_library(name: str) -> Path:
     ``-Xptxas=-v``: registers, shared memory and spills per kernel) is
     kept beside it as ``.log``."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     so = BUILD_DIR / f"lib{name}-{digest}.so"
     if so.exists():
         return so
@@ -84,6 +89,16 @@ def build_library(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return so
+
+
+def build_libraries(names) -> dict:
+    """Build several sources at once, one ``nvcc`` process each, all
+    started together; returns {name: library path}.  The first failure
+    raises once every build has ended."""
+    names = list(names)
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        futures = {n: pool.submit(build_library, n) for n in names}
+        return {n: f.result() for n, f in futures.items()}
 
 
 @functools.cache

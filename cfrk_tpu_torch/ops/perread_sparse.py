@@ -19,6 +19,12 @@ Two halves:
   tensor's device: a CUDA tensor launches the hand-written kernel, a CPU
   tensor takes the plain route.
 
+The sorted spectrum routes feed the same rows to the host accumulators
+of ``ops/sparse.py``: :func:`batch_spectrum_triples` and
+:func:`rows_to_triples` (in ``cfrk_tpu/ops/sparse.py`` in the JAX
+package; here beside the drain they run, so that ``ops/sparse.py``
+imports nothing of this module).
+
 Dtypes: torch has few uint16/uint32 operations, so the uint32 (hi, lo)
 words of k > 15 travel as int32 bit views, and :func:`narrow_for_fetch`
 narrows with int16 bit views; :func:`pairs_to_host` reinterprets them
@@ -41,7 +47,7 @@ from .cuda.rowsort import (
     rowsort_rle_large_plain,
     rowsort_rle_plain,
 )
-from .sparse import INVALID_SENTINEL, LO_BASES
+from .sparse import INVALID_SENTINEL, LO_BASES, fetched_to_triples
 
 __all__ = [
     "MAX_SPARSE_PERREAD_K",
@@ -54,6 +60,8 @@ __all__ = [
     "narrow_for_fetch",
     "valid_pair_prefix",
     "pairs_to_host",
+    "rows_to_triples",
+    "batch_spectrum_triples",
 ]
 
 # The plain route lives beside the kernels it checks; these are its
@@ -220,3 +228,28 @@ def pairs_to_host(device_out, n_reads: int):
         lo.view(np.uint32).astype(np.uint64)
     )
     return combined, counts.astype(np.int32, copy=False)
+
+
+def rows_to_triples(rows, k: int):
+    """Per-read sorted-RLE rows (any device) → host (hi, lo, counts)
+    triple for the accumulators of ``ops/sparse.py``."""
+    rows = narrow_for_fetch(rows, k)
+    return fetched_to_triples([a.cpu().numpy() for a in rows], k)
+
+
+def batch_spectrum_triples(codes, k: int, canonical: bool = False,
+                           max_len: int | None = None, *,
+                           device: torch.device | str):
+    """Host (hi, lo, counts) of ONE numpy code batch for the sparse
+    accumulators, counted by per-read row sorts on ``device`` (the
+    rowsort kernels on a GPU): the accumulators merge row-level
+    uniques exactly like batch-level ones.
+
+    ``max_len``: the batch's true longest read, not the padded width;
+    the rows are cut to its window count before the device→host copy
+    (:func:`valid_pair_prefix`; the pad columns hold no run start).
+    """
+    w = max(max_len or codes.shape[-1], k) - k + 1
+    rows = count_perread_rows(torch.from_numpy(codes).to(device), k, canonical)
+    rows = valid_pair_prefix(narrow_for_fetch(rows, k), w)
+    return fetched_to_triples([a.cpu().numpy() for a in rows], k)

@@ -1,7 +1,8 @@
 """Executable NumPy specification of per-read k-mer counting.
 
-A copy of the per-read half of ``cfrk_tpu/ops/reference.py``, the
-semantics every implementation must match; deliberately simple and slow.
+A copy of ``cfrk_tpu/ops/reference.py`` (per-read rows and the global
+spectrum), the semantics every implementation must match; deliberately
+simple and slow.
 
 * a read of length ``L`` has windows at positions ``p`` in ``[0, L-k]``;
 * a window is valid iff all ``k`` of its codes are in ``0..3``;
@@ -13,7 +14,7 @@ semantics every implementation must match; deliberately simple and slow.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -21,6 +22,7 @@ __all__ = [
     "window_indices_np",
     "canonical_indices_np",
     "count_perread_np",
+    "spectrum_np",
 ]
 
 
@@ -74,4 +76,19 @@ def count_perread_np(
         idx = idx[idx >= 0]
         if idx.size:
             out[r] = np.bincount(idx, minlength=four_k).astype(np.int32)
+    return out
+
+
+def spectrum_np(
+    reads: Iterable[np.ndarray], k: int, canonical: bool = False
+) -> np.ndarray:
+    """Global k-mer spectrum: ``[4**k]`` int64 summed over all reads."""
+    four_k = 4**k
+    out = np.zeros(four_k, dtype=np.int64)
+    fn = canonical_indices_np if canonical else window_indices_np
+    for codes in reads:
+        idx = fn(codes, k)
+        idx = idx[idx >= 0]
+        if idx.size:
+            out += np.bincount(idx, minlength=four_k)
     return out

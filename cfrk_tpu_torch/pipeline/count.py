@@ -1,9 +1,18 @@
-"""End-to-end file counting: FASTA in → per-read `.cfrk` rows out.
+"""End-to-end file counting: FASTA in → `.cfrk` rows or spectra out.
 
-The counterpart of the per-read driver of ``cfrk_tpu/pipeline/count.py``
-(``count_file_sparse_rows``): parse → fixed-shape padded batches → the
-per-read sort + RLE on the device → narrowed device→host copy → `.cfrk`
-writer.  The other drivers of that module are not ported yet.
+The counterpart of the single-device, in-memory drivers of
+``cfrk_tpu/pipeline/count.py``; each takes the ``device`` its batches
+run on (a CUDA device goes through the CUDA kernels, the CPU through
+the plain route):
+
+* :func:`count_file_sparse_rows`: parse → fixed-shape padded batches →
+  the per-read sort + RLE → narrowed device→host copy → `.cfrk` writer;
+* :func:`spectrum_file`: one dense ``4**k`` spectrum, either on the
+  device per batch (:class:`DenseSpectrumAccumulator`, int32 table with
+  an int64 host spill) or through the sorted route (per-read row sorts,
+  host fold; :func:`_use_sorted_spectrum`);
+* :func:`sparse_spectrum_arrays` / :func:`sparse_spectrum_file`: the
+  sparse spectrum for any k <= 31 through the sorted route.
 """
 
 from __future__ import annotations
@@ -15,10 +24,106 @@ import torch
 
 from ..format import CfrkWriter
 from ..io.fasta import read_fasta_encoded
-from ..ops.perread_sparse import count_perread_rows, narrow_for_fetch, pairs_to_host
+from ..ops.perread_sparse import (
+    batch_spectrum_triples,
+    count_perread_rows,
+    narrow_for_fetch,
+    pairs_to_host,
+)
+from ..ops.sparse import DenseFoldAccumulator, SparseAccumulator
+from ..ops.spectrum import spectrum as spectrum_op
 from .batch import auto_batch_size, iter_batches, round_up
 
-__all__ = ["count_file_sparse_rows"]
+__all__ = [
+    "count_file_sparse_rows",
+    "spectrum_file",
+    "sparse_spectrum_arrays",
+    "sparse_spectrum_file",
+    "SPILL_LIMIT",
+    "iter_spill_chunks",
+    "DenseSpectrumAccumulator",
+]
+
+# Dense-spectrum device tables accumulate in int32; any single bin is
+# bounded by the windows accumulated since the last spill, so staying
+# below this keeps every bin exact.  The 2**27 headroom keeps the
+# comparison itself safely signed.
+SPILL_LIMIT = 2**31 - 2**27
+
+
+def iter_spill_chunks(codes: np.ndarray, k: int, limit: int = SPILL_LIMIT):
+    """Split one numpy batch so no single dispatch sees >= ``limit``
+    windows.
+
+    A lone batch of long repeat-dominated contigs could otherwise wrap
+    an int32 bin inside one dispatch, before the accumulator's spill
+    guard runs.  Splits rows first; if even one row reaches the limit,
+    slices the position axis with k-1 overlap, which is exact for a
+    global spectrum because every window lands in exactly one slice.
+    """
+    b, length = codes.shape
+    w = length - k + 1
+    if b * w < limit:
+        yield codes
+        return
+    rows = max(1, (limit - 1) // max(w, 1))
+    if rows * w < limit:
+        for s in range(0, b, rows):
+            yield codes[s : s + rows]
+        return
+    step = max(1, (limit - 1) // rows)
+    for r in range(0, b, rows):
+        rchunk = codes[r : r + rows]
+        for s in range(0, w, step):
+            yield rchunk[:, s : min(s + step + k - 1, length)]
+
+
+class DenseSpectrumAccumulator:
+    """int32-on-device dense-spectrum accumulation with int64 host spill.
+
+    The overflow discipline of the JAX package: every dispatch AND the
+    running device table stay below ``limit`` windows, so no int32 bin
+    can wrap.  ``dispatch(codes, table)`` adds a code tensor's counts
+    into ``table`` in place and returns it (``table`` is None for the
+    first batch after a spill, and the dispatch makes a zeroed one), so
+    one device table serves every batch; at k = 15 it is 4 GB.  ``base``
+    is the flattened int64 host table; a spill adds into it in place.
+    """
+
+    def __init__(self, k: int, dispatch, base: np.ndarray, *,
+                 device: torch.device | str, limit: int = SPILL_LIMIT):
+        self.k = k
+        self.base = base
+        self._dispatch = dispatch
+        self._device = torch.device(device)
+        self._dev = None
+        self._windows = 0
+        self._limit = limit
+
+    def add(self, codes: np.ndarray) -> None:
+        for chunk in iter_spill_chunks(codes, self.k, self._limit):
+            bw = chunk.shape[0] * (chunk.shape[1] - self.k + 1)
+            if self._windows + bw >= self._limit:
+                self.spill()
+            arr = torch.from_numpy(np.ascontiguousarray(chunk)).to(self._device)
+            self._dev = self._dispatch(arr, self._dev)
+            self._windows += bw
+
+    @property
+    def windows(self) -> int:
+        """Windows accumulated on the device since the last spill."""
+        return self._windows
+
+    def spill(self) -> None:
+        """Fold the device table into the host int64 base."""
+        if self._dev is not None:
+            np.add(self.base, self._dev.cpu().numpy(), out=self.base)
+            self._dev = None
+        self._windows = 0
+
+    def total(self) -> np.ndarray:
+        self.spill()
+        return self.base
 
 
 def _plan_shapes(reads: Sequence[np.ndarray], k: int, batch_size: int | None,
@@ -76,3 +181,104 @@ def count_file_sparse_rows(
                 w.write_pairs_dense(idx, counts, 4**k)
             n_written += batch.n_reads
     return n_written
+
+
+def spectrum_file(
+    path,
+    k: int,
+    *,
+    device: torch.device | str,
+    canonical: bool = False,
+    impl: str = "auto",
+    batch_size: int | None = None,
+    max_len: int | None = None,
+    min_qual: int = 0,
+) -> np.ndarray:
+    """Global spectrum of a FASTA/FASTQ file: returns [4**k] int64."""
+    device = torch.device(device)
+    reads = read_fasta_encoded(path, min_qual)
+    total = np.zeros(4**k, dtype=np.int64)
+    if not reads:
+        return total
+    bs, ml = _plan_shapes(reads, k, batch_size, max_len)
+    if _use_sorted_spectrum(k, impl, device):
+        keys, counts = _sorted_spectrum_batches(
+            iter_batches(reads, bs, ml), k, canonical, device
+        )
+        total[keys] = counts
+        return total
+
+    def dispatch(arr, table):
+        return spectrum_op(arr, k, canonical=canonical, impl=impl, out=table)
+
+    acc = DenseSpectrumAccumulator(k, dispatch, total, device=device)
+    for batch in iter_batches(reads, bs, ml):
+        acc.add(batch.codes)
+    return acc.total()
+
+
+def _use_sorted_spectrum(k: int, impl: str, device: torch.device) -> bool:
+    """Route a dense spectrum through the per-read sort + RLE rows.
+
+    ``impl='sort'`` forces it for any k on any device.  ``auto`` takes it
+    for k >= 9 on a CUDA device, as the JAX package does on a TPU: there
+    the one-hot kernel's cost grows with 4**ceil(k/2) while the sorted
+    route's does not.  The crossover is the TPU's; its H100 counterpart
+    is measured in PERF.md, and the policy follows the JAX package until
+    a measurement changes it.  At k <= 8 the device table needs no
+    per-batch copy to the host.
+    """
+    if impl == "sort":
+        return True
+    if k <= 8:
+        return False
+    return impl == "auto" and device.type == "cuda"
+
+
+def _sorted_spectrum_batches(batches, k: int, canonical: bool,
+                             device: torch.device):
+    """Accumulate batches through per-read row sorts on ``device``;
+    returns the merged, key-sorted (keys, counts) arrays.  k <= 10 folds
+    into a dense host table (<= 8 MB), larger k merges sparsely."""
+    acc = DenseFoldAccumulator(k) if k <= 10 else SparseAccumulator()
+    for batch in batches:
+        acc.add(*batch_spectrum_triples(
+            batch.codes, k, canonical,
+            max_len=int(batch.lengths.max(initial=0)), device=device,
+        ))
+    return acc.result_arrays()
+
+
+def sparse_spectrum_arrays(
+    path,
+    k: int,
+    *,
+    device: torch.device | str,
+    canonical: bool = False,
+    batch_size: int | None = None,
+    max_len: int | None = None,
+    min_qual: int = 0,
+):
+    """Sparse spectrum of a FASTA/FASTQ file for any k <= 31: the
+    key-sorted (keys uint64, counts int64) arrays of every distinct
+    k-mer, ``key = hi * 4**15 + lo`` (the k-mer's base-4 code).  Each
+    batch's per-read rows are sorted and run-length encoded on
+    ``device``; the batches merge on the host."""
+    device = torch.device(device)
+    reads = read_fasta_encoded(path, min_qual)
+    acc = SparseAccumulator()
+    if reads:
+        bs, ml = _plan_shapes(reads, k, batch_size, max_len)
+        for batch in iter_batches(reads, bs, ml):
+            acc.add(*batch_spectrum_triples(
+                batch.codes, k, canonical,
+                max_len=int(batch.lengths.max(initial=0)), device=device,
+            ))
+    return acc.result_arrays()
+
+
+def sparse_spectrum_file(path, k: int, **kw) -> dict:
+    """:func:`sparse_spectrum_arrays` as the JAX package returns it:
+    {int_kmer_code: count}."""
+    keys, counts = sparse_spectrum_arrays(path, k, **kw)
+    return dict(zip(keys.tolist(), counts.tolist()))

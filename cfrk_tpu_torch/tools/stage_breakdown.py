@@ -1,23 +1,35 @@
-"""Stage breakdown of the per-read main path on one file.
+"""Stage breakdown of one CLI run on one file.
 
-    python -m cfrk_tpu_torch.tools.stage_breakdown IN.fasta OUT.cfrk K \
-        [--canonical] [--nonzero] [--device cuda|cpu]
+    python -m cfrk_tpu_torch.tools.stage_breakdown IN.fasta OUT K \
+        [--mode perread|spectrum|sparse] [--canonical] [--nonzero] \
+        [--impl IMPL] [--spectrum-format FMT] [--device cuda|cpu]
 
-Runs the calls of ``pipeline/count.count_file_sparse_rows`` one by one
+Runs the calls of the mode's driver in ``pipeline/count.py`` one by one
 and prints one JSON object:
 
+* ``route`` — ``perread``, ``dense`` (the spectrum on the device, one
+  running table) or ``sorted`` (per-read row sorts and a host fold: the
+  spectrum at ``--impl sort`` or k >= 9 on CUDA, and ``--mode sparse``);
 * ``host_s`` — host wall seconds of each stage (``time.perf_counter``,
   with a ``torch.cuda.synchronize`` after each device stage, so a stage
-  holds its own device work): parse, pad, h2d, rows (the dispatcher,
-  wrapper and kernel), drain (narrow + device→host copy), format (the
-  `.cfrk` writer), and ``wall`` over all of them;
+  holds its own device work), and ``wall`` over all of them:
+  - perread: parse, pad, h2d, rows (dispatcher, wrapper and kernel),
+    drain (narrow + device→host copy), format (the `.cfrk` writer);
+  - dense: parse, pad, spectrum (host→device copy and the spectrum op
+    into the running table), drain (the table's copy into the int64
+    host table), format;
+  - sorted: parse, pad, h2d, rows, drain (narrow + device→host copy +
+    flat triples), fold (the host accumulator, and the dense table for
+    the spectrum), format;
 * ``device_ms`` — on a CUDA device, a second pass of the device stages
-  (h2d, rows, drain) under ``torch.profiler``, summed by kind from the
-  card's own events: the rowsort kernels, other kernels (the narrowing
-  casts), host→device and device→host copies, and ``busy``, the union
-  of all device intervals;
+  under ``torch.profiler`` (the dense route's pass adds into one
+  running table and copies it to the host once, as the driver does),
+  summed by kind from the card's own events:
+  the rowsort kernels, the spectrum kernel, other kernels, host→device
+  and device→host copies, and ``busy``, the union of all device
+  intervals;
 * ``device_busy_share`` — ``busy`` over the first pass's wall: the share
-  of the main path's run in which the card does any work.
+  of the run in which the card does any work.
 
 On the CPU the device fields are null.  The output file is written by
 the first pass and equals the CLI's output for the same arguments.
@@ -30,34 +42,45 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
-from ..cli import _resolve_device
+from ..cli import _resolve_device, _write_sparse, _write_spectrum
 from ..format import CfrkWriter
 from ..io.fasta import read_fasta_encoded
-from ..ops.perread_sparse import count_perread_rows, narrow_for_fetch, pairs_to_host
+from ..ops.perread_sparse import (
+    count_perread_rows,
+    narrow_for_fetch,
+    pairs_to_host,
+    valid_pair_prefix,
+)
+from ..ops.sparse import DenseFoldAccumulator, SparseAccumulator, fetched_to_triples
+from ..ops.spectrum import spectrum as spectrum_op
 from ..pipeline.batch import iter_batches
-from ..pipeline.count import _plan_shapes
+from ..pipeline.count import DenseSpectrumAccumulator, _plan_shapes, _use_sorted_spectrum
 
 __all__ = ["stage_breakdown"]
 
 
-def _device_ms(batches, device, k: int, canonical: bool) -> dict:
-    """Device time by kind over one pass of the device stages, from the
-    profiler's CUDA events (µs → ms)."""
+def _device_ms(batches, step, finish=None) -> dict:
+    """Device time by kind over one pass of ``step(batch)`` for every
+    batch and then ``finish()``, from the profiler's CUDA events (µs →
+    ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for batch in batches:
-            codes = torch.from_numpy(batch.codes).to(device)
-            pairs_to_host(narrow_for_fetch(count_perread_rows(codes, k, canonical), k),
-                          batch.n_reads)
+            step(batch)
+        if finish is not None:
+            finish()
         torch.cuda.synchronize()
     spans = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
     if not spans:
         raise RuntimeError("torch.profiler recorded no device events")
-    out = dict.fromkeys(("rowsort_kernels", "other_kernels", "h2d", "d2h"), 0.0)
+    out = dict.fromkeys(
+        ("rowsort_kernels", "spectrum_kernels", "other_kernels", "h2d", "d2h"), 0.0
+    )
     for ev in spans:
         if ev.name.startswith("Memcpy HtoD"):
             kind = "h2d"
@@ -65,6 +88,8 @@ def _device_ms(batches, device, k: int, canonical: bool) -> dict:
             kind = "d2h"
         elif "rowsort" in ev.name:
             kind = "rowsort_kernels"
+        elif "spectrum" in ev.name:
+            kind = "spectrum_kernels"
         else:
             kind = "other_kernels"
         out[kind] += ev.time_range.elapsed_us() / 1e3
@@ -76,9 +101,10 @@ def _device_ms(batches, device, k: int, canonical: bool) -> dict:
     return out
 
 
-def stage_breakdown(path, out_path, k: int, *, device, canonical: bool = False,
-                    nonzero: bool = True) -> dict:
-    """The stage times of one main-path run (see the module docstring)."""
+def stage_breakdown(path, out_path, k: int, *, device, mode: str = "perread",
+                    canonical: bool = False, nonzero: bool = True,
+                    impl: str = "auto", spectrum_format: str = "cfrk") -> dict:
+    """The stage times of one run (see the module docstring)."""
     device = torch.device(device)
     cuda = device.type == "cuda"
 
@@ -86,39 +112,93 @@ def stage_breakdown(path, out_path, k: int, *, device, canonical: bool = False,
         if cuda:
             torch.cuda.synchronize()
 
-    host = dict.fromkeys(("parse", "pad", "h2d", "rows", "drain", "format"), 0.0)
+    def timed(stage, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sync()
+        host[stage] = host.get(stage, 0.0) + time.perf_counter() - t0
+        return out
+
+    def h2d(batch):
+        return torch.from_numpy(batch.codes).to(device)
+
+    host: dict = {}
     t_all = time.perf_counter()
-    t0 = time.perf_counter()
-    reads = read_fasta_encoded(path)
-    host["parse"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    reads = timed("parse", read_fasta_encoded, path)
     bs, ml = _plan_shapes(reads, k, None, None)
-    batches = list(iter_batches(reads, bs, ml))
-    host["pad"] = time.perf_counter() - t0
-    with CfrkWriter(out_path) as w:
+    batches = timed("pad", lambda: list(iter_batches(reads, bs, ml)))
+    finish = None
+
+    if mode == "perread":
+        route = "perread"
+
+        def step(batch):
+            rows = count_perread_rows(h2d(batch), k, canonical)
+            return pairs_to_host(narrow_for_fetch(rows, k), batch.n_reads)
+
+        with CfrkWriter(out_path) as w:
+            for batch in batches:
+                codes = timed("h2d", h2d, batch)
+                rows = timed("rows", count_perread_rows, codes, k, canonical)
+                idx, counts = timed("drain", pairs_to_host,
+                                    narrow_for_fetch(rows, k), batch.n_reads)
+                if nonzero:
+                    timed("format", w.write_pairs, idx, counts)
+                else:
+                    timed("format", w.write_pairs_dense, idx, counts, 4**k)
+    elif mode == "sparse" or _use_sorted_spectrum(k, impl, device):
+        route = "sorted"
+
+        def drain(rows, batch):
+            w = max(int(batch.lengths.max(initial=0)) or batch.codes.shape[-1], k) - k + 1
+            rows = valid_pair_prefix(narrow_for_fetch(rows, k), w)
+            return fetched_to_triples([a.cpu().numpy() for a in rows], k)
+
+        def step(batch):
+            return drain(count_perread_rows(h2d(batch), k, canonical), batch)
+
+        acc = (DenseFoldAccumulator(k) if mode == "spectrum" and k <= 10
+               else SparseAccumulator())
         for batch in batches:
-            t0 = time.perf_counter()
-            codes = torch.from_numpy(batch.codes).to(device)
-            sync()
-            t1 = time.perf_counter()
-            rows = count_perread_rows(codes, k, canonical)
-            sync()
-            t2 = time.perf_counter()
-            idx, counts = pairs_to_host(narrow_for_fetch(rows, k), batch.n_reads)
-            t3 = time.perf_counter()
-            if nonzero:
-                w.write_pairs(idx, counts)
-            else:
-                w.write_pairs_dense(idx, counts, 4**k)
-            t4 = time.perf_counter()
-            host["h2d"] += t1 - t0
-            host["rows"] += t2 - t1
-            host["drain"] += t3 - t2
-            host["format"] += t4 - t3
+            codes = timed("h2d", h2d, batch)
+            rows = timed("rows", count_perread_rows, codes, k, canonical)
+            triples = timed("drain", drain, rows, batch)
+            timed("fold", acc.add, *triples)
+        keys, counts = timed("fold", acc.result_arrays)
+        if mode == "sparse":
+            timed("format", _write_sparse, out_path, keys, counts, k,
+                  spectrum_format)
+        else:
+            table = np.zeros(4**k, dtype=np.int64)
+            timed("fold", table.__setitem__, keys, counts)
+            timed("format", _write_spectrum, out_path, table, spectrum_format)
+    else:
+        route = "dense"
+
+        def dispatch(arr, table):
+            return spectrum_op(arr, k, canonical=canonical, impl=impl, out=table)
+
+        running = []
+
+        def step(batch):
+            running[:] = [dispatch(h2d(batch), running[0] if running else None)]
+
+        def finish():
+            return running[0].cpu()
+
+        acc = DenseSpectrumAccumulator(
+            k, dispatch, np.zeros(4**k, dtype=np.int64), device=device
+        )
+        for batch in batches:
+            timed("spectrum", acc.add, batch.codes)
+        table = timed("drain", acc.total)
+        timed("format", _write_spectrum, out_path, table, spectrum_format)
     host["wall"] = time.perf_counter() - t_all
     bases = sum(len(r) for r in reads)
-    dev = _device_ms(batches, device, k, canonical) if cuda else None
+    dev = _device_ms(batches, step, finish) if cuda else None
     return {
+        "mode": mode,
+        "route": route,
         "reads": len(reads),
         "bases": bases,
         "batches": len(batches),
@@ -137,13 +217,20 @@ def main(argv=None) -> int:
     ap.add_argument("input")
     ap.add_argument("output")
     ap.add_argument("k", type=int)
+    ap.add_argument("--mode", choices=("perread", "spectrum", "sparse"),
+                    default="perread")
     ap.add_argument("--canonical", action="store_true")
     ap.add_argument("--nonzero", action="store_true")
+    ap.add_argument("--impl", choices=("auto", "scatter", "matmul", "pallas", "sort"),
+                    default="auto")
+    ap.add_argument("--spectrum-format", choices=("cfrk", "tsv", "npy", "hist"),
+                    default="cfrk")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
     res = stage_breakdown(args.input, args.output, args.k,
-                          device=_resolve_device(args.device),
-                          canonical=args.canonical, nonzero=args.nonzero)
+                          device=_resolve_device(args.device), mode=args.mode,
+                          canonical=args.canonical, nonzero=args.nonzero,
+                          impl=args.impl, spectrum_format=args.spectrum_format)
     print(json.dumps(res))
     return 0
 

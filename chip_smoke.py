@@ -9,10 +9,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU
 Phases, each of which exits non-zero on failure:
 
 1. card: the GPU's name and power limit, torch and CUDA versions;
-2. build: compiles the CUDA kernels from csrc/ (nvcc, at first use);
+2. build: compiles the CUDA kernels from csrc/ (one nvcc per source,
+   all started together);
 3. kernel vs plain: each kernel against its plain PyTorch twin on the
    card's inputs, array-equal, across k, canonical keys, read shapes
-   (150 bp, short, 4 kb, past the kernel ceiling) and edge rows;
+   (150 bp, short, 4 kb, past the kernel ceiling, a 20 000-read batch)
+   and edge rows;
 4. goldens: ``python -m cfrk_tpu_torch <seqN.fasta.gz> <out> 2`` must
    reproduce tests/data/goldens.json;
 5. main path at real size: seeded synthetic reads (100k x 150 bp and
@@ -21,9 +23,19 @@ Phases, each of which exits non-zero on failure:
    --nonzero``, dense k=8 rows of the first 256 reads.  Each must launch
    its kernel, write the same bytes as ``--device cpu`` and agree on
    sampled rows with string-slicing ground truth;
-6. times: each kernel's ms per 8192-read batch beside the plain route's
-   on the card (CUDA events, after warm-up), and the end-to-end bases/s
-   of phase 5.
+6. spectrum legs at real size (BASELINE.json configs 3 and 4): 1M
+   seeded 150 bp reads through ``--mode spectrum`` at k=8 (the
+   histogram kernel; its row must equal the numpy oracle) and at k=15
+   ``--spectrum-format hist`` (the sorted route on the rowsort kernel;
+   sum of count x kmers must equal the valid windows), and the 100k x
+   152 bp reads through ``-k 31 --canonical --mode sparse`` (tsv equal
+   to an independent numpy spectrum on sampled lines).  Each leg's
+   counts are set to 0 just before it, must show its kernel launched,
+   and its bytes must equal ``--device cpu``;
+7. times: each kernel's ms per 8192-read batch beside the plain route's
+   on the card (CUDA events, after warm-up), the spectrum kernel against
+   the sorted route per batch at k = 9 and 10, and the end-to-end
+   bases/s of phases 5 and 6.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON record of the kernels, and the one before that the card's
@@ -45,6 +57,7 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 BATCH = 8192
 READS = 100_000  # BASELINE.json config 2: 100k reads per leg
+SPECTRUM_READS = 1_000_000  # BASELINE.json config 3: a 1M-read metagenome
 _COMP = str.maketrans("ACGT", "TGCA")
 _DIGITS = str.maketrans("ACGT", "0123")
 
@@ -188,7 +201,51 @@ def check_kernels(seed: int) -> dict:
         errs[name] = err
         log(f"kernel vs plain: {name} k={ks} x canonical x "
             f"{sorted(cases) + ['past_ceiling']}: array-equal")
+    errs["spectrum_hist"] = check_spectrum_kernel(cases, batch(20_000, 256))
     return errs
+
+
+def check_spectrum_kernel(cases: dict, big) -> int:
+    """The histogram kernel against its plain twin: every case, one batch
+    of 20 000 reads (more than one 8192-read slice), and a running table
+    that takes two batches in place."""
+    import torch
+
+    from cfrk_tpu_torch.ops.cuda import spectrum as S
+
+    ks = (1, 2, 5, 7, 8, 9, 10)
+    cases = dict(cases, reads_20000=big)
+    err = 0
+
+    def compare(got, want, what):
+        nonlocal err
+        torch.cuda.synchronize()
+        got = got.cpu()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"spectrum_hist {what}: {got.shape}/{got.dtype} vs plain "
+                 f"{want.shape}/{want.dtype}")
+        d = int((got.long() - want.long()).abs().max())
+        if d:
+            fail(f"spectrum_hist {what}: differs from plain by {d}")
+        err = max(err, d)
+
+    for k in ks:
+        for canonical in (False, True):
+            for case, codes in cases.items():
+                if codes.shape[1] < k:
+                    continue
+                compare(S.spectrum_hist(torch.from_numpy(codes).cuda(), k, canonical),
+                        S.spectrum_hist_plain(torch.from_numpy(codes), k, canonical),
+                        f"k={k} canonical={canonical} {case}")
+            a, b = cases["150bp"], cases["edge_rows_odd_batch"]
+            table = S.spectrum_hist(torch.from_numpy(a).cuda(), k, canonical)
+            S.spectrum_hist(torch.from_numpy(b).cuda(), k, canonical, out=table)
+            want = S.spectrum_hist_plain(torch.from_numpy(a), k, canonical)
+            S.spectrum_hist_plain(torch.from_numpy(b), k, canonical, out=want)
+            compare(table, want, f"k={k} canonical={canonical} running table")
+    log(f"kernel vs plain: spectrum_hist k={ks} x canonical x "
+        f"{sorted(cases) + ['running_table']}: array-equal")
+    return err
 
 
 def check_goldens() -> None:
@@ -257,6 +314,191 @@ def run_main_path(label: str, fasta: Path, reads, flags: list, kernel,
     return res
 
 
+def valid_windows(reads, k: int) -> int:
+    """Windows of k codes that are all valid, by a cumulative count of
+    invalid codes (numpy, independent of the package)."""
+    import numpy as np
+
+    bad = np.zeros((reads.shape[0], reads.shape[1] + 1), np.int32)
+    np.cumsum(reads < 0, axis=1, out=bad[:, 1:])
+    return int((bad[:, k:] == bad[:, :-k]).sum())
+
+
+def numpy_kmer_keys(reads, k: int, canonical: bool):
+    """Every valid window's k-mer code (uint64) by a k-step numpy loop."""
+    import numpy as np
+
+    w = reads.shape[1] - k + 1
+    fwd = np.zeros((reads.shape[0], w), np.uint64)
+    rc = np.zeros_like(fwd)
+    for j in range(k):
+        c = np.maximum(reads[:, j : j + w], 0).astype(np.uint64)
+        fwd = (fwd << np.uint64(2)) | c
+        rc |= (np.uint64(3) - c) << np.uint64(2 * j)
+    bad = np.zeros((reads.shape[0], reads.shape[1] + 1), np.int32)
+    np.cumsum(reads < 0, axis=1, out=bad[:, 1:])
+    keys = np.minimum(fwd, rc) if canonical else fwd
+    return keys[bad[:, k:] == bad[:, :-k]]
+
+
+def run_spectrum_leg(label: str, fasta: Path, reads, flags: list,
+                     kernels: dict, check) -> dict:
+    """Phase 6, one leg: every kernel count set to 0 just before the CLI
+    runs on the GPU and read just after (the leg's own kernel must have
+    launched), the same CLI on ``--device cpu``, byte comparison, then
+    ``check(output bytes)``.  Returns the leg's numbers."""
+    from cfrk_tpu_torch.cli import main
+
+    out_gpu = WORK / f"{label}.cuda.out"
+    out_cpu = WORK / f"{label}.cpu.out"
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    if main([str(fasta), "-o", str(out_gpu), *flags]) != 0:
+        fail(f"{label}: CLI exit")
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    t0 = time.perf_counter()
+    if main([str(fasta), "-o", str(out_cpu), *flags, "--device", "cpu"]) != 0:
+        fail(f"{label}: CPU CLI exit")
+    cpu_wall = time.perf_counter() - t0
+    gpu_bytes = out_gpu.read_bytes()
+    if gpu_bytes != out_cpu.read_bytes():
+        fail(f"{label}: GPU bytes differ from --device cpu bytes")
+    checked = check(gpu_bytes)
+    out_gpu.unlink()
+    out_cpu.unlink()
+    res = {
+        "leg": label, "reads": len(reads), "bases": int(reads.size),
+        "cuda_wall_s": wall, "cpu_route_wall_s": cpu_wall,
+        "bases_per_s": int(reads.size) / wall, "launches": launches,
+        "bytes": len(gpu_bytes), "checked": checked,
+    }
+    log(f"spectrum leg {label}: " + json.dumps(res))
+    return res
+
+
+def spectrum_legs(seed: int, r152, fa152: Path) -> list:
+    """Phase 6: the spectrum modes at BASELINE.json config 3's read count
+    and config 4's k = 31 canonical sparse spectrum."""
+    import numpy as np
+
+    from cfrk_tpu_torch.ops.cuda import rowsort as R
+    from cfrk_tpu_torch.ops.cuda import spectrum as S
+    from cfrk_tpu_torch.ops.reference import spectrum_np
+
+    kernels = {"rowsort_rle": R.rowsort_rle,
+               "rowsort_rle_large": R.rowsort_rle_large,
+               "spectrum_hist": S.spectrum_hist}
+    r1m = synthetic_reads(seed + 3, SPECTRUM_READS, 150)
+    fa1m = WORK / "r1m.fa"
+    write_fasta(fa1m, r1m)
+
+    def check_k8(out: bytes) -> str:
+        row = np.array([int(c.split(b":")[1]) for c in out.split()], np.int64)
+        # The oracle over reads joined by -1 separators: windows cannot
+        # cross them, so the spectrum is the same, in 100 long calls.
+        joined = np.pad(r1m, ((0, 0), (0, 1)), constant_values=-1).reshape(100, -1)
+        want = spectrum_np(list(joined), 8)
+        if row.shape != want.shape or not np.array_equal(row, want):
+            fail("spectrum_k8: the row differs from spectrum_np")
+        return f"row of {row.size} cells equals spectrum_np; sum {int(row.sum())}"
+
+    def check_k15(out: bytes) -> str:
+        pairs = np.array([[int(x) for x in line.split(b"\t")]
+                          for line in out.splitlines()], np.int64)
+        total = int((pairs[:, 0] * pairs[:, 1]).sum())
+        want = valid_windows(r1m, 15)
+        if total != want:
+            fail(f"spectrum_k15_hist: sum count x kmers {total} != {want} windows")
+        return f"sum count x kmers = {total} valid windows; {int(pairs[:, 1].sum())} distinct"
+
+    def check_k31(out: bytes) -> str:
+        lines = out.splitlines()
+        keys, counts = np.unique(numpy_kmer_keys(r152, 31, True), return_counts=True)
+        if len(lines) != keys.size:
+            fail(f"sparse_k31_canonical: {len(lines)} lines for {keys.size} k-mers")
+        total = sum(int(line.rsplit(b"\t", 1)[1]) for line in lines)
+        if total != int(counts.sum()) or total != valid_windows(r152, 31):
+            fail(f"sparse_k31_canonical: sum of counts {total} != valid windows")
+        sample = np.random.default_rng(seed).integers(0, keys.size, 20).tolist()
+        for i in sorted({0, keys.size - 1, *sample}):
+            kmer, count = lines[i].split(b"\t")
+            if int(kmer.decode().translate(_DIGITS), 4) != int(keys[i]) or int(count) != counts[i]:
+                fail(f"sparse_k31_canonical: line {i} {lines[i]!r} disagrees with numpy")
+        return f"{keys.size} k-mers, sum {total} = valid windows, sampled lines decode"
+
+    legs = [
+        run_spectrum_leg("spectrum_k8", fa1m, r1m, ["-k", "8", "--mode", "spectrum"],
+                         kernels, check_k8),
+        run_spectrum_leg("spectrum_k15_hist", fa1m, r1m,
+                         ["-k", "15", "--mode", "spectrum", "--spectrum-format", "hist"],
+                         kernels, check_k15),
+        run_spectrum_leg("sparse_k31_canonical", fa152, r152,
+                         ["-k", "31", "--canonical", "--mode", "sparse"],
+                         kernels, check_k31),
+    ]
+    for leg, name in zip(legs, ("spectrum_hist", "rowsort_rle", "rowsort_rle_large")):
+        if leg["launches"][name] <= 0:
+            fail(f"{leg['leg']}: {name} was not launched")
+    fa1m.unlink()
+    return legs
+
+
+def time_spectrum_routes(seed: int, card: str) -> dict:
+    """Phase 7, spectrum: ms per 8192-read batch (150 bp padded to 256)
+    of the histogram kernel against its plain twin at k = 8 (CUDA
+    events), and of the kernel route (H2D + kernel into the running
+    table) against the sorted route (H2D + rowsort kernel + narrowed D2H
+    + host fold) at k = 9 and 10 (host clock, synchronised)."""
+    import numpy as np
+    import torch
+
+    from cfrk_tpu_torch.ops.cuda import spectrum as S
+    from cfrk_tpu_torch.ops.perread_sparse import batch_spectrum_triples
+    from cfrk_tpu_torch.ops.sparse import DenseFoldAccumulator
+
+    codes_np = np.full((BATCH, 256), -1, np.int8)
+    codes_np[:, :150] = synthetic_reads(seed + 4, BATCH, 150)
+    codes = torch.from_numpy(codes_np).cuda()
+    p1 = time_kernel(S.spectrum_hist_plain, codes, 8, False)
+    k1 = time_kernel(S.spectrum_hist, codes, 8, False)
+    k2 = time_kernel(S.spectrum_hist, codes, 8, False)
+    p2 = time_kernel(S.spectrum_hist_plain, codes, 8, False)
+    log(f"time spectrum_hist k=8 [{BATCH}, 256]: kernel {k1:.4f}/{k2:.4f} ms, "
+        f"plain {p1:.4f}/{p2:.4f} ms per batch ({card})")
+    out = {"spectrum_hist": ((k1 + k2) / 2, (p1 + p2) / 2)}
+
+    def kernel_route(k, iters=20):
+        table = torch.zeros(4**k, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            S.spectrum_hist(torch.from_numpy(codes_np).cuda(), k, out=table)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    def sorted_route(k, iters=20):
+        acc = DenseFoldAccumulator(k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            acc.add(*batch_spectrum_triples(codes_np, k, max_len=150, device="cuda"))
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    for k in (9, 10):
+        kernel_route(k, 3)
+        sorted_route(k, 3)
+        s1, q1, q2, s2 = sorted_route(k), kernel_route(k), kernel_route(k), sorted_route(k)
+        kern = time_kernel(S.spectrum_hist, codes, k, False)
+        out[f"k{k}"] = {"kernel_route_ms": (q1 + q2) / 2, "sorted_route_ms": (s1 + s2) / 2,
+                        "kernel_only_ms": kern}
+        log(f"time spectrum k={k} [{BATCH}, 256]: kernel route {q1:.4f}/{q2:.4f} ms "
+            f"(kernel alone {kern:.4f} ms), sorted route {s1:.4f}/{s2:.4f} ms "
+            f"per batch ({card})")
+    return out
+
+
 def time_kernel(fn, codes, k: int, canonical: bool, iters: int = 20) -> float:
     """ms per call on the card: CUDA events around ``iters`` calls after
     a warm-up."""
@@ -288,7 +530,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from cfrk_tpu_torch.ops.cuda import rowsort as R
-        from cfrk_tpu_torch.ops.cuda.build import build_library
+        from cfrk_tpu_torch.ops.cuda import spectrum as S
+        from cfrk_tpu_torch.ops.cuda.build import build_libraries
     except ImportError as e:
         print(f"chip_smoke: cfrk_tpu_torch not found beside this script "
               f"({e}); run it from the root of a checkout", file=sys.stderr)
@@ -305,10 +548,13 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    so = build_library("rowsort")
+    built = build_libraries(["rowsort", "spectrum"])
     R._library()
-    log(f"build: {so.name} in {time.perf_counter() - t0:.3f} s")
-    log(so.with_suffix(".log").read_text().strip())
+    S._library()
+    log(f"build: {', '.join(so.name for so in built.values())} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for so in built.values():
+        log(so.with_suffix(".log").read_text().strip())
 
     # 3. kernel vs plain
     errs = check_kernels(args.seed)
@@ -342,7 +588,11 @@ def main() -> int:
         if n <= 0:
             fail(f"main path never launched {name}")
 
-    # 6. times: plain, kernel, kernel, plain at the main path's batch shape
+    # 6. spectrum legs at real size
+    spec_legs = spectrum_legs(args.seed, r152, fa152)
+    launches["spectrum_hist"] = spec_legs[0]["launches"]["spectrum_hist"]
+
+    # 7. times: plain, kernel, kernel, plain at the main path's batch shape
     times = {}
     for name, kern, plain, k, canonical, length in (
         ("rowsort_rle", R.rowsort_rle, R.rowsort_rle_plain, 8, False, 150),
@@ -360,18 +610,25 @@ def main() -> int:
         log(f"time {name} k={k} canonical={canonical} [{BATCH}, 256]: kernel "
             f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms per batch "
             f"({card})")
+    spec_times = time_spectrum_routes(args.seed, card)
+    times["spectrum_hist"] = spec_times.pop("spectrum_hist")
+    log("spectrum_routes: " + json.dumps({"card": card, **spec_times}))
     log("end_to_end: " + json.dumps({
         "card": card,
-        "legs": {leg["leg"]: leg["bases_per_s"] for leg in legs},
+        "legs": {leg["leg"]: leg["bases_per_s"] for leg in legs + spec_legs},
     }))
 
     kernels = []
-    for name, line in (("rowsort_rle", 569), ("rowsort_rle_large", 655)):
+    for name, source, replaces in (
+        ("rowsort_rle", "rowsort.cu", "rowsort.py:569"),
+        ("rowsort_rle_large", "rowsort.cu", "rowsort.py:655"),
+        ("spectrum_hist", "spectrum.cu", "spectrum.py:62"),
+    ):
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "cfrk_tpu_torch/csrc/rowsort.cu",
-            "replaces": f"cfrk_tpu/ops/pallas/rowsort.py:{line}",
+            "source": f"cfrk_tpu_torch/csrc/{source}",
+            "replaces": f"cfrk_tpu/ops/pallas/{replaces}",
             "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": times[name][0],

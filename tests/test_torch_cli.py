@@ -14,6 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from cfrk_tpu.cli import main as jax_main
@@ -116,8 +117,10 @@ def test_stats_line(tmp_path, capsys):
         (["--stream"], "--stream is not yet ported"),
         (["--impl", "pallas"], "--impl is not yet ported"),
         (["--devices=2"], "--devices is not yet ported"),
-        (["--mode", "spectrum"], "--mode spectrum is not yet ported"),
-        (["--mode", "sparse"], "--mode sparse is not yet ported"),
+        (["--mode", "spectrum", "--stream"], "--stream is not yet ported"),
+        (["--mode", "sparse", "--mem-budget-mb", "64"],
+         "--mem-budget-mb is not yet ported"),
+        (["--impl", "scatter"], "--impl is not yet ported .* --mode perread"),
     ],
 )
 def test_unported_flags_fail_clearly(tmp_path, argv, message):
@@ -139,6 +142,101 @@ def test_argument_errors(tmp_path):
         main([str(tmp_path / "missing.fa"), out, "2", "--device", "cpu"])
     with pytest.raises(SystemExit, match="multi-file run is not yet ported"):
         main([fa, fa, "-k", "2", "--device", "cpu"])
+
+
+def _both_spectrum(tmp_path, inp, out_name, *flags):
+    """Output bytes of the port (--device cpu) and of cfrk_tpu's CLI for
+    a spectrum mode, written to ``out_name`` (``.gz`` decompressed)."""
+    a, b = tmp_path / "torch" / out_name, tmp_path / "jax" / out_name
+    a.parent.mkdir(exist_ok=True)
+    b.parent.mkdir(exist_ok=True)
+    assert main([inp, "-o", str(a), *flags, "--device", "cpu"]) == 0
+    assert jax_main([inp, "-o", str(b), *flags]) == 0
+    read = (lambda p: gzip.decompress(p.read_bytes())) if out_name.endswith(".gz") \
+        else (lambda p: p.read_bytes())
+    return read(a), read(b)
+
+
+@pytest.mark.parametrize("fmt", ["cfrk", "tsv", "npy", "hist"])
+@pytest.mark.parametrize(
+    "flags",
+    [("-k", "5"), ("-k", "6", "--canonical", "--impl", "scatter"),
+     ("-k", "4", "--impl", "matmul", "--min-count", "3"),
+     ("-k", "7", "--impl", "pallas"), ("-k", "9", "--impl", "sort", "--canonical")],
+    ids=["k5_auto", "k6_canonical_scatter", "k4_matmul_min3", "k7_pallas",
+         "k9_sort_canonical"],
+)
+def test_spectrum_mode_matches_jax_cli(tmp_path, fmt, flags):
+    inp = str(DATA / "seq2.fasta.gz")
+    got, want = _both_spectrum(tmp_path, inp, "out.spec", *flags,
+                               "--mode", "spectrum", "--spectrum-format", fmt)
+    assert got == want and got
+
+
+@pytest.mark.parametrize("fmt", ["tsv", "npy", "hist"])
+def test_spectrum_gz_outputs_match_jax_cli(tmp_path, fmt):
+    inp = _prefix_fasta(tmp_path, "seq1.fasta.gz", 30)
+    got, want = _both_spectrum(tmp_path, inp, "out.spec.gz", "-k", "6",
+                               "--mode", "spectrum", "--spectrum-format", fmt,
+                               "--min-count", "2")
+    assert got == want and got
+
+
+@pytest.mark.parametrize("fmt", ["tsv", "hist", "cfrk"])
+@pytest.mark.parametrize(
+    "flags",
+    [("-k", "31", "--canonical"), ("-k", "21", "--min-count", "2"),
+     ("-k", "12", "--canonical", "--min-count", "3")],
+    ids=["k31_canonical", "k21_min2", "k12_canonical_min3"],
+)
+def test_sparse_mode_matches_jax_cli(tmp_path, fmt, flags):
+    """--mode sparse writes hist, or KMER<TAB>count tsv for any other
+    --spectrum-format (cfrk included), as the JAX CLI does."""
+    inp = str(DATA / "seq1.fasta.gz")
+    got, want = _both_spectrum(tmp_path, inp, "out.kmers.tsv.gz", *flags,
+                               "--mode", "sparse", "--spectrum-format", fmt)
+    assert got == want and got
+
+
+def test_int64_count_in_the_cfrk_spectrum_row(tmp_path):
+    """A bin of 2**31 or more windows formats as its int64 value, as the
+    JAX CLI's writer does."""
+    from cfrk_tpu import cli as jcli
+    from cfrk_tpu_torch import cli as tcli
+
+    table = np.arange(4**3, dtype=np.int64) * 3
+    table[5] = 2**31
+    table[63] = 2**40 + 7
+    a, b = tmp_path / "a.spectrum", tmp_path / "b.spectrum"
+    tcli._write_spectrum(str(a), table, "cfrk")
+    jcli._write_spectrum(str(b), table, "cfrk")
+    assert a.read_bytes() == b.read_bytes()
+    assert b"5:2147483648 " in a.read_bytes()
+
+
+@pytest.mark.parametrize(
+    "mode,flags,suffix",
+    [("perread", (), ".cfrk"), ("spectrum", (), ".spectrum"),
+     ("sparse", ("--canonical",), ".kmers.tsv")],
+)
+def test_default_output_suffixes(tmp_path, monkeypatch, mode, flags, suffix):
+    monkeypatch.chdir(tmp_path)
+    assert main([str(DATA / "seq2.fasta.gz"), "-k", "3", "--mode", mode,
+                 *flags, "--device", "cpu"]) == 0
+    assert (tmp_path / f"seq2{suffix}").stat().st_size > 0
+
+
+def test_spectrum_argument_errors(tmp_path):
+    """The JAX CLI's messages for k > 15 in the dense spectrum and for
+    --impl sort outside it."""
+    fa = str(DATA / "seq2.fasta.gz")
+    out = str(tmp_path / "o")
+    for cli_main in (main, jax_main):
+        with pytest.raises(SystemExit, match="dense spectrum needs k <= 15"):
+            cli_main([fa, "-o", out, "-k", "16", "--mode", "spectrum"])
+        for mode in ("sparse", "perread"):
+            with pytest.raises(SystemExit, match="only applies to --mode spectrum"):
+                cli_main([fa, "-o", out, "-k", "5", "--mode", mode, "--impl", "sort"])
 
 
 def test_device_cuda_without_gpu_refuses(tmp_path):
@@ -174,3 +272,50 @@ def test_stage_breakdown_writes_the_cli_bytes(tmp_path, capsys, flags):
     assert res["reads"] == 40 and res["batches"] == 1
     assert set(res["host_s"]) == {"parse", "pad", "h2d", "rows", "drain", "format", "wall"}
     assert res["device_ms"] is None and res["device_busy_share"] is None
+
+
+@pytest.mark.parametrize(
+    "flags,route,stages",
+    [
+        (("-k", "6", "--mode", "spectrum"), "dense", {"spectrum"}),
+        (("-k", "5", "--mode", "spectrum", "--impl", "sort", "--spectrum-format", "tsv"),
+         "sorted", {"h2d", "rows", "drain", "fold"}),
+        (("-k", "31", "--canonical", "--mode", "sparse"), "sorted",
+         {"h2d", "rows", "drain", "fold"}),
+    ],
+    ids=["spectrum_dense", "spectrum_sort_tsv", "sparse_k31"],
+)
+def test_stage_breakdown_spectrum_modes_write_the_cli_bytes(tmp_path, capsys, flags,
+                                                           route, stages):
+    """The breakdown runs the spectrum drivers' calls one by one: same
+    bytes as the CLI, its route named, host stages only on the CPU."""
+    from cfrk_tpu_torch.tools.stage_breakdown import main as breakdown_main
+
+    inp = _prefix_fasta(tmp_path, sorted(MANIFEST["files"])[0], 40)
+    a, b = tmp_path / "cli.out", tmp_path / "breakdown.out"
+    assert main([inp, "-o", str(a), *flags, "--device", "cpu"]) == 0
+    capsys.readouterr()
+    k = flags[1]
+    rest = [f for f in flags if f not in ("-k", k)]
+    assert breakdown_main([inp, str(b), k, *rest, "--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert b.read_bytes() == a.read_bytes() and a.read_bytes()
+    assert res["route"] == route and res["reads"] == 40
+    assert set(res["host_s"]) == {"parse", "pad", "format", "wall"} | stages | (
+        {"drain"} if route == "dense" else set())
+    assert res["device_ms"] is None and res["device_busy_share"] is None
+
+
+def test_int64_cfrk_spectrum_row_to_gz_is_compressed(tmp_path):
+    """A `.gz` path always holds gzip bytes, int64 counts included; the
+    JAX CLI writes that row uncompressed (cli.py:373-377, ROADMAP
+    Queue 3), so the port is held to its decompressed bytes."""
+    from cfrk_tpu import cli as jcli
+    from cfrk_tpu_torch import cli as tcli
+
+    table = np.zeros(4**2, dtype=np.int64)
+    table[3] = 2**33
+    a, b = tmp_path / "a.spectrum.gz", tmp_path / "b.spectrum.gz"
+    tcli._write_spectrum(str(a), table, "cfrk")
+    jcli._write_spectrum(str(b), table, "cfrk")
+    assert gzip.decompress(a.read_bytes()) == b.read_bytes()

@@ -30,6 +30,8 @@ _MODULES = [
     "cfrk_tpu_torch.ops.reference",
     "cfrk_tpu_torch.ops.cuda.build",
     "cfrk_tpu_torch.ops.cuda.rowsort",
+    "cfrk_tpu_torch.ops.cuda.spectrum",
+    "cfrk_tpu_torch.ops.spectrum",
     "cfrk_tpu_torch.tools.stage_breakdown",
 ]
 
@@ -75,16 +77,18 @@ def test_kernel_module_needs_no_nvcc_until_launch():
     nothing: the build happens at the first launch on a CUDA tensor."""
     got = _run(
         "import json, torch\n"
-        "from cfrk_tpu_torch.ops.cuda import rowsort, build\n"
+        "from cfrk_tpu_torch.ops.cuda import rowsort, spectrum, build\n"
         "c = torch.zeros((2, 40), dtype=torch.int8)\n"
         "rowsort.rowsort_rle(c, 8)\n"
         "rowsort.rowsort_rle_large(c, 31)\n"
+        "spectrum.spectrum_hist(c, 8)\n"
         "print(json.dumps({'loaded': build.load_library.cache_info().currsize,"
         " 'launches': [rowsort.rowsort_rle.launches,"
-        " rowsort.rowsort_rle_large.launches]}))\n",
+        " rowsort.rowsort_rle_large.launches,"
+        " spectrum.spectrum_hist.launches]}))\n",
         {"PATH": os.path.dirname(sys.executable)},
     )
-    assert got == {"loaded": 0, "launches": [0, 0]}
+    assert got == {"loaded": 0, "launches": [0, 0, 0]}
 
 
 def test_wrapper_off_cpu_launches_or_raises():
@@ -98,6 +102,48 @@ def test_wrapper_off_cpu_launches_or_raises():
     with pytest.raises(ValueError, match="needs CUDA"):
         rowsort_rle_large(codes, 31)
     assert rowsort_rle.launches == 0 and rowsort_rle_large.launches == 0
+
+
+def test_spectrum_wrapper_off_cpu_launches_or_raises():
+    """The spectrum kernel's wrapper, like the rowsort ones, never takes
+    its plain twin for a tensor that is not on the CPU; the dense op's
+    ``pallas`` and ``auto`` routes reach the same wrapper."""
+    from cfrk_tpu_torch.ops.cuda.spectrum import spectrum_hist
+    from cfrk_tpu_torch.ops.spectrum import spectrum
+
+    codes = torch.zeros((2, 40), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="needs CUDA"):
+        spectrum_hist(codes, 8)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        spectrum(codes, 5, impl="pallas")
+    assert spectrum_hist.launches == 0
+
+
+def test_build_hash_covers_shared_headers(monkeypatch, tmp_path):
+    """Editing a shared ``csrc/*.cuh`` header changes every library's
+    build name, so no stale build survives the edit."""
+    from cfrk_tpu_torch.ops.cuda import build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// kernel\n")
+    (csrc / "h.cuh").write_text("// v1\n")
+    seen = []
+
+    def fake_run(cmd, **kw):
+        seen.append(Path(cmd[cmd.index("-o") + 1]))
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "run", fake_run)
+    first = build.build_libraries(["a"])["a"]
+    assert build.build_library("a") == first and len(seen) == 1
+    (csrc / "h.cuh").write_text("// v2\n")
+    second = build.build_library("a")
+    assert second != first and second.exists() and len(seen) == 2
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
