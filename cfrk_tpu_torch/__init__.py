@@ -3,11 +3,11 @@
 The per-read ``.cfrk`` path and the global spectra of the JAX package,
 run on an NVIDIA GPU: FASTA in, per-read k-mer rows, a dense spectrum
 (k <= 15) or a sparse one (k <= 31) out, byte-identical to
-``cfrk_tpu``.  The per-read sort + run-length encode and the dense
-spectrum histogram run in hand-written CUDA kernels (``ops/cuda/``,
-sources in ``csrc/``, built with ``nvcc`` at first use); on CPU tensors
-the same functions take their plain PyTorch route, which is also the
-kernels' oracle.
+``cfrk_tpu``.  The per-read sort + run-length encode, the dense per-read
+histograms and the dense spectrum histogram run in hand-written CUDA
+kernels (``ops/cuda/``, sources in ``csrc/``, built with ``nvcc`` at
+first use); on CPU tensors the same functions take their plain PyTorch
+route, which is also the kernels' oracle.
 
 The package imports torch and numpy only — never jax, never cfrk_tpu —
 so it runs on a machine that has no JAX.  The host modules it shares
@@ -17,14 +17,37 @@ formatter) are numpy copies.
 CLI, compatible with the reference binary's positional form::
 
     python -m cfrk_tpu_torch reads.fasta out.cfrk 8 --nonzero
+    python -m cfrk_tpu_torch reads.fasta out.cfrk 8 --impl pallas
     python -m cfrk_tpu_torch reads.fasta -k 8 --mode spectrum
     python -m cfrk_tpu_torch reads.fasta -k 31 --canonical --mode sparse
 
-The library exports the JAX package's names for the spectrum API.
+The library exports the JAX package's names for the dense per-read API
+(whose file drivers take the ``device`` their batches run on) and the
+spectrum API.
 """
 
+from .format import CfrkWriter, format_file_bytes, parse_cfrk
+from .ops.perread import count_perread
 from .ops.spectrum import spectrum
-from .pipeline.count import sparse_spectrum_file, spectrum_file
+from .pipeline.count import (
+    count_file,
+    count_file_sparse_rows,
+    sparse_spectrum_file,
+    spectrum_file,
+    write_cfrk,
+)
 from .version import __version__
 
-__all__ = ["__version__", "spectrum", "spectrum_file", "sparse_spectrum_file"]
+__all__ = [
+    "__version__",
+    "CfrkWriter",
+    "count_file",
+    "count_file_sparse_rows",
+    "count_perread",
+    "format_file_bytes",
+    "parse_cfrk",
+    "spectrum",
+    "spectrum_file",
+    "sparse_spectrum_file",
+    "write_cfrk",
+]

@@ -6,6 +6,7 @@ the reference binary's positional contract (``cfrk <dataset.fasta>
 <out.cfrk> <k> [nt] [chunkSize]``, reference ``src/main.cu:239-250``)::
 
     python -m cfrk_tpu_torch reads.fasta out.cfrk 8 --nonzero
+    python -m cfrk_tpu_torch reads.fasta out.cfrk 8 --impl pallas [--nonzero]
     python -m cfrk_tpu_torch reads.fa -k 8 --mode spectrum [--impl auto] \
         [--spectrum-format cfrk|tsv|npy|hist] [--min-count N] [-o out]
     python -m cfrk_tpu_torch reads.fa -k 31 --canonical --mode sparse \
@@ -81,10 +82,13 @@ def build_parser() -> argparse.ArgumentParser:
         "--impl", default="auto",
         choices=["auto", "compare", "matmul", "scatter", "pallas", "host", "sort"],
         help=(
-            "--mode spectrum route: auto picks by device and k; pallas is "
-            "the CUDA histogram kernel (its plain twin on --device cpu); "
-            "sort = per-read sort + RLE accumulation, auto for k >= 9 on "
-            "CUDA.  Per-read mode serves only auto so far"
+            "kernel route (auto picks by device and k).  Per-read mode: auto "
+            "= per-read sort + RLE rows; any other value runs the dense "
+            "per-read API, where pallas is the CUDA per-read histogram "
+            "kernel.  --mode spectrum: pallas is the CUDA histogram "
+            "kernel; sort = per-read sort + RLE accumulation, auto for "
+            "k >= 9 on CUDA.  On --device cpu pallas runs the kernels' "
+            "plain twins"
         ),
     )
     p.add_argument(
@@ -255,11 +259,6 @@ def main(argv=None) -> int:
             "it only applies to --mode spectrum"
         )
     if args.mode == "perread":
-        if args.impl != "auto":
-            raise SystemExit(
-                "--impl is not yet ported to cfrk_tpu_torch for --mode "
-                f"perread (--impl {args.impl} selects the dense per-read API)"
-            )
         if args.k > 8 and not args.nonzero:
             raise SystemExit(
                 f"per-read k={args.k} > 8 requires --nonzero "
@@ -274,9 +273,18 @@ def main(argv=None) -> int:
                   min_qual=args.min_qual)
     t0 = time.perf_counter()
     reads = None
-    if args.mode == "perread":
+    if args.mode == "perread" and (
+        (args.nonzero and args.k > 8) or args.impl == "auto"
+    ):
+        # Rows through the per-read sort + RLE whenever the kernel choice
+        # is ours: pairs cross to the host instead of dense rows (the
+        # same bytes either way).
         reads = count.count_file_sparse_rows(
             inp, out, args.k, nonzero=args.nonzero, **common
+        )
+    elif args.mode == "perread":
+        reads = count.count_file_dense_rows(
+            inp, out, args.k, impl=args.impl, nonzero=args.nonzero, **common
         )
     elif args.mode == "spectrum":
         table = count.spectrum_file(inp, args.k, impl=args.impl, **common)

@@ -32,6 +32,18 @@
 // through device memory (L int8 codes in, 8-12 bytes per window out)
 // are small beside that.
 //
+// Step-time probe: the kernel template's Variant parameter swaps the
+// emit for one int64 checksum per row and leaves out stages, so the
+// probe (cfrk_tpu_torch/tools/rowsort_probe.py, the port of
+// tools/rowsort_probe.py) times this production code and nothing else:
+//   kFull      build + sort + run-end search, sum over run starts of
+//              (count & 3) + (key & 3);
+//   kSortOnly  build + sort, sum of ((key ^ i) & 3) over the W cells;
+//   kRleOnly   build + the run-end search on the UNSORTED keys, with
+//              kFull's checksum;
+//   kNoop      build, with kSortOnly's checksum.
+// kEmit is the production kernel; its instantiation is unchanged.
+//
 // The C entry points launch on the stream they are given, allocate
 // nothing and return cudaGetLastError() after the launch.
 
@@ -40,6 +52,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "block_sum.cuh"
 #include "kmer_key.cuh"
 
 namespace {
@@ -83,12 +96,23 @@ __device__ __forceinline__ int upper_bound(const Key* s, int lo, int hi,
   return lo;
 }
 
-template <bool kLarge>
+// The kernel's variants (see the file header); the C entry point of the
+// probe takes their numbers.
+enum Variant : int {
+  kEmit = 0,
+  kFull = 1,
+  kSortOnly = 2,
+  kRleOnly = 3,
+  kNoop = 4
+};
+
+template <bool kLarge, int kVariant>
 __global__ void rowsort_rle_kernel(const int8_t* __restrict__ codes,
                                    int32_t* __restrict__ key_out,
                                    int32_t* __restrict__ lo_out,
-                                   int32_t* __restrict__ cnt_out, int L,
-                                   int W, int n, int k, bool canonical) {
+                                   int32_t* __restrict__ cnt_out,
+                                   int64_t* __restrict__ chk, int L, int W,
+                                   int n, int k, bool canonical) {
   using Key = typename std::conditional<kLarge, uint64_t, uint32_t>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Key* s = reinterpret_cast<Key*>(smem_raw);
@@ -100,28 +124,49 @@ __global__ void rowsort_rle_kernel(const int8_t* __restrict__ codes,
                  : sentinel;
   }
   __syncthreads();
-  bitonic_sort(s, n);
+  if constexpr (kVariant == kEmit || kVariant == kFull ||
+                kVariant == kSortOnly) {
+    bitonic_sort(s, n);
+  }
 
-  const int64_t base = int64_t(blockIdx.x) * W;
-  for (int i = threadIdx.x; i < W; i += blockDim.x) {
-    const Key key = s[i];
-    const bool first = key != sentinel && (i == 0 || s[i - 1] != key);
-    cnt_out[base + i] = first ? upper_bound(s, i + 1, n, key) - i : 0;
-    if constexpr (kLarge) {
-      const Key lo_mask = (Key(1) << kLoBits) - 1;
-      key_out[base + i] =
-          first ? int32_t(uint32_t(key >> kLoBits)) : int32_t(-1);
-      lo_out[base + i] = first ? int32_t(uint32_t(key & lo_mask)) : int32_t(-1);
-    } else {
-      key_out[base + i] = int32_t(first ? key : sentinel);
+  if constexpr (kVariant == kEmit) {
+    const int64_t base = int64_t(blockIdx.x) * W;
+    for (int i = threadIdx.x; i < W; i += blockDim.x) {
+      const Key key = s[i];
+      const bool first = key != sentinel && (i == 0 || s[i - 1] != key);
+      cnt_out[base + i] = first ? upper_bound(s, i + 1, n, key) - i : 0;
+      if constexpr (kLarge) {
+        const Key lo_mask = (Key(1) << kLoBits) - 1;
+        key_out[base + i] =
+            first ? int32_t(uint32_t(key >> kLoBits)) : int32_t(-1);
+        lo_out[base + i] =
+            first ? int32_t(uint32_t(key & lo_mask)) : int32_t(-1);
+      } else {
+        key_out[base + i] = int32_t(first ? key : sentinel);
+      }
     }
+  } else {
+    int64_t acc = 0;
+    for (int i = threadIdx.x; i < W; i += blockDim.x) {
+      const Key key = s[i];
+      if constexpr (kVariant == kFull || kVariant == kRleOnly) {
+        const bool first = key != sentinel && (i == 0 || s[i - 1] != key);
+        if (first) {
+          acc += ((upper_bound(s, i + 1, n, key) - i) & 3) + int(key & 3);
+        }
+      } else {
+        acc += int((key ^ Key(i)) & 3);
+      }
+    }
+    acc = cfrk::block_sum(acc);
+    if (threadIdx.x == 0) chk[blockIdx.x] = acc;
   }
 }
 
-template <bool kLarge>
+template <bool kLarge, int kVariant>
 int launch(const int8_t* codes, int32_t* key_out, int32_t* lo_out,
-           int32_t* cnt_out, int B, int L, int W, int k, int canonical,
-           cudaStream_t stream) {
+           int32_t* cnt_out, int64_t* chk, int B, int L, int W, int k,
+           int canonical, cudaStream_t stream) {
   using Key = typename std::conditional<kLarge, uint64_t, uint32_t>::type;
   int n = 1;
   while (n < W) n <<= 1;
@@ -131,13 +176,25 @@ int launch(const int8_t* codes, int32_t* key_out, int32_t* lo_out,
   const size_t smem = size_t(n) * sizeof(Key);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rowsort_rle_kernel<kLarge>,
+        rowsort_rle_kernel<kLarge, kVariant>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
   }
-  rowsort_rle_kernel<kLarge><<<B, threads, smem, stream>>>(
-      codes, key_out, lo_out, cnt_out, L, W, n, k, canonical != 0);
+  rowsort_rle_kernel<kLarge, kVariant><<<B, threads, smem, stream>>>(
+      codes, key_out, lo_out, cnt_out, chk, L, W, n, k, canonical != 0);
   return int(cudaGetLastError());
+}
+
+template <int kVariant>
+int launch_probe(const void* codes, void* chk, int B, int L, int W, int k,
+                 int canonical, int keys64, void* stream) {
+  const auto* c = static_cast<const int8_t*>(codes);
+  auto* out = static_cast<int64_t*>(chk);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return keys64 ? launch<true, kVariant>(c, nullptr, nullptr, nullptr, out, B,
+                                         L, W, k, canonical, s)
+                : launch<false, kVariant>(c, nullptr, nullptr, nullptr, out,
+                                          B, L, W, k, canonical, s);
 }
 
 }  // namespace
@@ -147,10 +204,11 @@ extern "C" {
 // codes [B, L] int8 → idx, counts [B, W] int32 (W = L-k+1, 1 <= k <= 15).
 int cfrk_rowsort_rle(const void* codes, void* idx_out, void* cnt_out, int B,
                      int L, int W, int k, int canonical, void* stream) {
-  return launch<false>(static_cast<const int8_t*>(codes),
-                       static_cast<int32_t*>(idx_out), nullptr,
-                       static_cast<int32_t*>(cnt_out), B, L, W, k, canonical,
-                       static_cast<cudaStream_t>(stream));
+  return launch<false, kEmit>(static_cast<const int8_t*>(codes),
+                              static_cast<int32_t*>(idx_out), nullptr,
+                              static_cast<int32_t*>(cnt_out), nullptr, B, L,
+                              W, k, canonical,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // codes [B, L] int8 → hi, lo (uint32 bit patterns), counts [B, W] int32
@@ -158,11 +216,35 @@ int cfrk_rowsort_rle(const void* codes, void* idx_out, void* cnt_out, int B,
 int cfrk_rowsort_rle_large(const void* codes, void* hi_out, void* lo_out,
                            void* cnt_out, int B, int L, int W, int k,
                            int canonical, void* stream) {
-  return launch<true>(static_cast<const int8_t*>(codes),
-                      static_cast<int32_t*>(hi_out),
-                      static_cast<int32_t*>(lo_out),
-                      static_cast<int32_t*>(cnt_out), B, L, W, k, canonical,
-                      static_cast<cudaStream_t>(stream));
+  return launch<true, kEmit>(static_cast<const int8_t*>(codes),
+                             static_cast<int32_t*>(hi_out),
+                             static_cast<int32_t*>(lo_out),
+                             static_cast<int32_t*>(cnt_out), nullptr, B, L, W,
+                             k, canonical, static_cast<cudaStream_t>(stream));
+}
+
+// Probe variant `variant` (1 full, 2 sortonly, 3 rleonly, 4 noop) of the
+// kernel: codes [B, L] int8 → chk [B] int64, one checksum per row.
+// keys64 = 0 sorts uint32 keys (k <= 15), 1 uint64 keys (k > 15).
+int cfrk_rowsort_probe(const void* codes, void* chk, int B, int L, int W,
+                       int k, int canonical, int keys64, int variant,
+                       void* stream) {
+  switch (variant) {
+    case kFull:
+      return launch_probe<kFull>(codes, chk, B, L, W, k, canonical, keys64,
+                                 stream);
+    case kSortOnly:
+      return launch_probe<kSortOnly>(codes, chk, B, L, W, k, canonical,
+                                     keys64, stream);
+    case kRleOnly:
+      return launch_probe<kRleOnly>(codes, chk, B, L, W, k, canonical, keys64,
+                                    stream);
+    case kNoop:
+      return launch_probe<kNoop>(codes, chk, B, L, W, k, canonical, keys64,
+                                 stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

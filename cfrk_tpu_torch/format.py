@@ -35,6 +35,7 @@ import numpy as np
 
 __all__ = [
     "CfrkWriter",
+    "parse_cfrk",
     "format_file_bytes",
     "format_rows_pairs",
     "format_pairs_bytes",
@@ -189,6 +190,28 @@ def format_file_bytes(counts: np.ndarray) -> bytes:
     return format_rows_bytes(counts)
 
 
+def _dense_to_pairs(counts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Dense ``[n, 4**k]`` block → rectangular (idx, counts) pair
+    matrices whose count-0 cells are padding (the cell contract of
+    :func:`format_pairs_bytes`).  A row with no nonzero cells stays a
+    row."""
+    counts = np.asarray(counts)
+    n = counts.shape[0]
+    nzr, nzc = np.nonzero(counts)
+    rowcnt = np.bincount(nzr, minlength=n)
+    m = int(rowcnt.max(initial=0))
+    if m == 0:
+        z = np.zeros((n, 1), dtype=np.int32)
+        return z, z
+    starts = np.concatenate([[0], np.cumsum(rowcnt)[:-1]])
+    pos = np.arange(len(nzr)) - starts[nzr]
+    idx = np.zeros((n, m), dtype=np.int32)
+    cnt = np.zeros((n, m), dtype=np.int32)
+    idx[nzr, pos] = nzc
+    cnt[nzr, pos] = counts[nzr, nzc]
+    return idx, cnt
+
+
 def _tsv_lines(first_width: np.ndarray, counts: np.ndarray):
     """A buffer of lines ``<first field><TAB><count><LF>`` with the tabs,
     the counts' digits and the newlines written; returns ``(buf,
@@ -250,9 +273,11 @@ def format_kmer_tsv_bytes(keys: np.ndarray, counts: np.ndarray, k: int,
 class CfrkWriter:
     """Streaming `.cfrk` writer: batches arrive one at a time while the
     file contract holds — a newline before every row but the first.
-    A path ending in ``.gz`` is written gzip-compressed."""
+    A path ending in ``.gz`` is written gzip-compressed.  ``nonzero=True``
+    makes :meth:`write_batch` write only the nonzero cells of each row."""
 
-    def __init__(self, f: IO[bytes] | str | os.PathLike):
+    def __init__(self, f: IO[bytes] | str | os.PathLike, *,
+                 nonzero: bool = False):
         if isinstance(f, (str, os.PathLike)):
             self._f: IO[bytes] = (
                 gzip.open(f, "wb") if str(f).endswith(".gz") else open(f, "wb")
@@ -262,6 +287,7 @@ class CfrkWriter:
             self._f = f
             self._owns = False
         self._first = True
+        self._nonzero = nonzero
 
     def _write(self, data: bytes, n_rows: int) -> None:
         if n_rows:
@@ -269,9 +295,21 @@ class CfrkWriter:
             self._first = False
 
     def write_batch(self, counts: np.ndarray) -> None:
-        """Dense rows from a ``[n, 4**k]`` count block."""
+        """The rows of a ``[n, 4**k]`` count block: every cell, or its
+        nonzero cells with ``nonzero=True``."""
         counts = np.asarray(counts)
-        self._write(format_rows_bytes(counts, first=self._first), counts.shape[0])
+        if counts.shape[0] == 0:
+            return
+        if not self._nonzero:
+            self._write(format_rows_bytes(counts, first=self._first),
+                        counts.shape[0])
+            return
+        # Row slabs of ~64 MB of counts bound the pair matrices.
+        rows = max(1, (1 << 26) // max(counts[0].nbytes, 1))
+        for s in range(0, counts.shape[0], rows):
+            block = counts[s : s + rows]
+            self._write(format_pairs_bytes(*_dense_to_pairs(block), first=self._first),
+                        block.shape[0])
 
     def write_pairs(self, idx: np.ndarray, counts: np.ndarray) -> None:
         """Nonzero rows from (idx, counts) pair matrices."""
@@ -296,3 +334,23 @@ class CfrkWriter:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def parse_cfrk(data: bytes) -> np.ndarray:
+    """Parse dense `.cfrk` bytes back into a ``[n_reads, 4**k]`` int64
+    matrix; tolerant only of the exact reference format."""
+    rows = data.split(b"\n")
+    out: list[list[int]] = []
+    for row in rows:
+        cells = row.strip().split(b" ")
+        vals = []
+        for cell in cells:
+            idx, cnt = cell.split(b":")
+            if int(idx) != len(vals):
+                raise ValueError("non-dense or out-of-order .cfrk row")
+            vals.append(int(cnt))
+        out.append(vals)
+    width = len(out[0])
+    if any(len(v) != width for v in out):
+        raise ValueError("ragged .cfrk rows")
+    return np.array(out, dtype=np.int64)

@@ -6,7 +6,13 @@ plain PyTorch twins.
 * :func:`rowsort_rle_large` (16 <= k <= 31) replaces
   ``rowsort_rle_pallas_large`` (rowsort.py:655).
 
-Both take the int8 code batch ``[B, L]`` and build the window keys in the
+:func:`rowsort_probe` is the port of the step-time probe kernels of
+``tools/rowsort_probe.py`` (``call_kernel`` :173): variants of the same
+CUDA kernel that leave out stages and write one checksum per row
+(``PROBE_VARIANTS``; ``cfrk_tpu_torch/tools/rowsort_probe.py`` times
+them), with the plain twin :func:`rowsort_probe_plain`.
+
+All take the int8 code batch ``[B, L]`` and build the window keys in the
 kernel (``csrc/rowsort.cu`` explains the design and its bounds on the
 H100).  Their output is array-equal to the plain twins
 :func:`rowsort_rle_plain` / :func:`rowsort_rle_large_plain`, which sort
@@ -32,6 +38,7 @@ from ..sparse import INVALID_SENTINEL, LO_BASES, kmer_keys
 from .build import load_library
 
 __all__ = [
+    "PROBE_VARIANTS",
     "MAX_SPARSE_PERREAD_K",
     "KEY64_SENTINEL",
     "LO_MASK",
@@ -43,6 +50,8 @@ __all__ = [
     "rowsort_rle_large",
     "rowsort_rle_plain",
     "rowsort_rle_large_plain",
+    "rowsort_probe",
+    "rowsort_probe_plain",
 ]
 
 MAX_SPARSE_PERREAD_K = 15
@@ -58,6 +67,16 @@ KEY64_SENTINEL = (1 << 63) - 1
 # or uint64 keys.
 ROWSORT_MAX_WINDOWS = 32768
 ROWSORT_MAX_WINDOWS_LARGE = 16384
+
+# The probe's variants, numbered as the C entry point takes them:
+#   full      build + sort + run-end search; checksum: the sum over run
+#             starts of (count & 3) + (key & 3);
+#   sortonly  build + sort; checksum: the sum of ((key ^ i) & 3) over
+#             the row's W cells;
+#   rleonly   build + the run-end search on the UNSORTED keys; full's
+#             checksum;
+#   noop      build; sortonly's checksum.
+PROBE_VARIANTS = {"full": 1, "sortonly": 2, "rleonly": 3, "noop": 4}
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -138,6 +157,53 @@ def rowsort_rle_large_plain(codes: torch.Tensor, k: int,
     return hi.to(torch.int32), lo.to(torch.int32), counts
 
 
+def _upper_bound(s: torch.Tensor, key: torch.Tensor, lo: torch.Tensor,
+                 hi: int) -> torch.Tensor:
+    """The kernel's run-end search, vectorised: for each (row, cell), the
+    binary search for the first index in [lo, hi) of row ``s`` whose
+    key is greater than ``key``, step for step as ``upper_bound`` in
+    ``csrc/rowsort.cu`` (on unsorted rows too)."""
+    hi = torch.full_like(lo, hi)
+    while True:
+        active = lo < hi
+        if not bool(active.any()):
+            return lo
+        mid = (lo + hi) >> 1
+        greater = torch.gather(s, 1, mid.clamp(max=s.shape[1] - 1)) > key
+        hi = torch.where(active & greater, mid, hi)
+        lo = torch.where(active & ~greater, mid + 1, lo)
+
+
+def rowsort_probe_plain(codes: torch.Tensor, k: int, variant: str,
+                        canonical: bool = False) -> torch.Tensor:
+    """The probe's per-row checksums ([B] int64), plain route on any
+    device: keys built, padded with the sentinel to the kernel's power
+    of two, then the stages of ``variant`` (see ``PROBE_VARIANTS``)."""
+    w = _probe_check(codes, k, variant)
+    b = codes.shape[0]
+    if k <= MAX_SPARSE_PERREAD_K:
+        sent = 4**k
+        keys = window_indices(codes, k, canonical).to(torch.int64)
+        keys = torch.where(keys < 0, sent, keys)
+    else:
+        sent = KEY64_SENTINEL
+        hi, lo = kmer_keys(codes, k, canonical)
+        keys = torch.where(lo != INVALID_SENTINEL, (hi << (2 * LO_BASES)) | lo, sent)
+    n = 1 << max(w - 1, 0).bit_length()
+    s = torch.full((b, n), sent, dtype=torch.int64, device=codes.device)
+    s[:, :w] = keys
+    if variant in ("full", "sortonly"):
+        s = torch.sort(s, dim=-1).values
+    key = s[:, :w]
+    pos = torch.arange(w, device=codes.device).expand(b, w)
+    if variant in ("sortonly", "noop"):
+        return ((key ^ pos) & 3).sum(1)
+    first = key != sent
+    first[:, 1:] &= key[:, 1:] != key[:, :-1]
+    count = _upper_bound(s, key, pos + 1, n) - pos
+    return torch.where(first, (count & 3) + (key & 3), 0).sum(1)
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -150,6 +216,8 @@ def _library() -> ctypes.CDLL:
         [_PTR, _PTR, _PTR, _PTR] + [_INT] * 5 + [_PTR]
     )
     lib.cfrk_rowsort_rle_large.restype = _INT
+    lib.cfrk_rowsort_probe.argtypes = [_PTR, _PTR] + [_INT] * 7 + [_PTR]
+    lib.cfrk_rowsort_probe.restype = _INT
     return lib
 
 
@@ -232,3 +300,54 @@ def rowsort_rle_large(codes: torch.Tensor, k: int, canonical: bool = False):
 
 rowsort_rle.launches = 0
 rowsort_rle_large.launches = 0
+
+
+def _probe_check(codes: torch.Tensor, k: int, variant: str) -> int:
+    """Validate a probe call; returns W = L-k+1."""
+    if variant not in PROBE_VARIANTS:
+        raise ValueError(f"unknown probe variant {variant!r}; "
+                         f"choose from {sorted(PROBE_VARIANTS)}")
+    if codes.ndim != 2 or codes.dtype != torch.int8:
+        raise ValueError(
+            f"codes must be a [B, L] int8 tensor, got {tuple(codes.shape)} "
+            f"{codes.dtype}"
+        )
+    if not 1 <= k <= 31:
+        raise ValueError(f"k={k} outside [1, 31]")
+    w = codes.shape[1] - k + 1
+    if w <= 0:
+        raise ValueError(f"read length {codes.shape[1]} < k={k}")
+    if w > rowsort_max_windows(k):
+        raise ValueError(f"{w} windows/read exceeds the kernel ceiling "
+                         f"{rowsort_max_windows(k)}")
+    return w
+
+
+def rowsort_probe(codes: torch.Tensor, k: int, variant: str,
+                  canonical: bool = False) -> torch.Tensor:
+    """One probe variant of the rowsort kernel (uint32 keys for k <= 15,
+    uint64 above): codes [B, L] int8 → [B] int64 checksums, equal to
+    :func:`rowsort_probe_plain`'s."""
+    if codes.device.type == "cpu":
+        return rowsort_probe_plain(codes, k, variant, canonical)
+    w = _probe_check(codes, k, variant)
+    if codes.device.type != "cuda":
+        raise ValueError(f"codes on {codes.device}: the kernel needs CUDA")
+    codes = codes.contiguous()
+    b, length = codes.shape
+    chk = torch.empty(b, dtype=torch.int64, device=codes.device)
+    if b:
+        with torch.cuda.device(codes.device):
+            stream = torch.cuda.current_stream(codes.device).cuda_stream
+            err = _library().cfrk_rowsort_probe(
+                codes.data_ptr(), chk.data_ptr(), b, length, w, k,
+                int(canonical), int(k > MAX_SPARSE_PERREAD_K),
+                PROBE_VARIANTS[variant], stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"cfrk_rowsort_probe launch failed: CUDA error {err}")
+        rowsort_probe.launches += 1
+    return chk
+
+
+rowsort_probe.launches = 0

@@ -7,6 +7,10 @@ the plain route):
 
 * :func:`count_file_sparse_rows`: parse → fixed-shape padded batches →
   the per-read sort + RLE → narrowed device→host copy → `.cfrk` writer;
+* :func:`count_reads` / :func:`count_file`: the dense per-read API,
+  ``[n_reads, 4**k]`` int32 (at k = 8, 256 KB per read on the host);
+  :func:`count_file_dense_rows` writes the same counts to a `.cfrk`
+  file one batch at a time, so host memory holds one batch;
 * :func:`spectrum_file`: one dense ``4**k`` spectrum, either on the
   device per batch (:class:`DenseSpectrumAccumulator`, int32 table with
   an int64 host spill) or through the sorted route (per-read row sorts,
@@ -24,6 +28,14 @@ import torch
 
 from ..format import CfrkWriter
 from ..io.fasta import read_fasta_encoded
+from ..ops.cuda.perread import (
+    DEFAULT_READ_BLOCK,
+    packed_auto,
+    perread_hist,
+    resolve_packed,
+    unpack_counts,
+)
+from ..ops.perread import count_perread
 from ..ops.perread_sparse import (
     batch_spectrum_triples,
     count_perread_rows,
@@ -35,7 +47,11 @@ from ..ops.spectrum import spectrum as spectrum_op
 from .batch import auto_batch_size, iter_batches, round_up
 
 __all__ = [
+    "count_reads",
+    "count_file",
+    "count_file_dense_rows",
     "count_file_sparse_rows",
+    "write_cfrk",
     "spectrum_file",
     "sparse_spectrum_arrays",
     "sparse_spectrum_file",
@@ -139,6 +155,114 @@ def _plan_shapes(reads: Sequence[np.ndarray], k: int, batch_size: int | None,
         # Uniform short reads: one shared batch shape.
         return bs, round_up(max(longest, k), 128)
     return bs, None
+
+
+def dense_counts_on_device(codes: torch.Tensor, k: int, canonical: bool,
+                           impl: str):
+    """One padded batch's dense counts on its device: ``(counts, packing)``.
+
+    Where :func:`packed_auto` holds (CUDA, 5 <= k <= 8, short rows) the
+    kernel emits the densest safe packed layout, 1 or 2 bytes per bin
+    of device write and device→host copy; ``packing`` names it.
+    Otherwise ``count_perread`` runs ``impl`` with int16 counts (exact:
+    they are bounded by the windows per read) where the rows allow,
+    and ``packing`` is False.
+    """
+    w = codes.shape[1] - k + 1
+    if packed_auto(impl, k, w, codes.device):
+        packing = resolve_packed(True, w)
+        return perread_hist(codes, k, canonical, packed=packing,
+                            read_block=DEFAULT_READ_BLOCK), packing
+    odt = torch.int16 if w < 2**15 else torch.int32
+    return count_perread(codes, k, canonical=canonical, impl=impl,
+                         out_dtype=odt), False
+
+
+def dense_counts_to_host(counts, n_reads: int, packing) -> np.ndarray:
+    """A batch's device counts → its ``[n_reads, 4**k]`` int32 rows
+    (the packed layouts unpack on the host)."""
+    host = counts.cpu().numpy()
+    if packing:
+        return unpack_counts(host, n_reads, mode=packing)
+    return host[:n_reads].astype(np.int32)
+
+
+def iter_dense_counts(reads: Sequence[np.ndarray], k: int, *,
+                      device: torch.device | str, canonical: bool = False,
+                      impl: str = "auto", batch_size: int | None = None,
+                      max_len: int | None = None):
+    """Each batch's ``[n_reads, 4**k]`` int32 counts, in read order.
+
+    A plain loop: the device→host copy of a batch synchronises before
+    the next batch is dispatched (the JAX package keeps two batches in
+    flight behind XLA's asynchronous dispatch).
+    """
+    if not reads:
+        return
+    device = torch.device(device)
+    bs, ml = _plan_shapes(reads, k, batch_size, max_len)
+    for batch in iter_batches(reads, bs, ml):
+        codes = torch.from_numpy(batch.codes).to(device)
+        counts, packing = dense_counts_on_device(codes, k, canonical, impl)
+        yield dense_counts_to_host(counts, batch.n_reads, packing)
+
+
+def count_reads(reads: Sequence[np.ndarray], k: int, *,
+                device: torch.device | str, canonical: bool = False,
+                impl: str = "auto", batch_size: int | None = None,
+                max_len: int | None = None) -> np.ndarray:
+    """Per-read dense histograms of a ragged list of encoded reads:
+    ``[n_reads, 4**k]`` int32, batches run on ``device``."""
+    out = np.zeros((len(reads), 4**k), dtype=np.int32)
+    row = 0
+    for counts in iter_dense_counts(reads, k, device=device, canonical=canonical,
+                                    impl=impl, batch_size=batch_size,
+                                    max_len=max_len):
+        out[row : row + len(counts)] = counts
+        row += len(counts)
+    return out
+
+
+def count_file(path, k: int, *, device: torch.device | str, min_qual: int = 0,
+               **kw) -> np.ndarray:
+    """Count a FASTA/FASTQ file: returns ``[n_reads, 4**k]`` int32.
+
+    ``min_qual`` masks FASTQ bases below that Phred quality."""
+    return count_reads(read_fasta_encoded(path, min_qual), k, device=device, **kw)
+
+
+def count_file_dense_rows(
+    path,
+    out_path,
+    k: int,
+    *,
+    device: torch.device | str,
+    canonical: bool = False,
+    impl: str = "auto",
+    batch_size: int | None = None,
+    max_len: int | None = None,
+    min_qual: int = 0,
+    nonzero: bool = False,
+) -> int:
+    """:func:`count_file` straight to a `.cfrk` file, batch by batch:
+    the bytes of ``CfrkWriter(out_path, nonzero=nonzero).write_batch``
+    over the whole matrix, with one batch on the host at a time.
+    Returns the number of reads written."""
+    reads = read_fasta_encoded(path, min_qual)
+    n_written = 0
+    with CfrkWriter(out_path, nonzero=nonzero) as w:
+        for counts in iter_dense_counts(reads, k, device=device,
+                                        canonical=canonical, impl=impl,
+                                        batch_size=batch_size, max_len=max_len):
+            w.write_batch(counts)
+            n_written += len(counts)
+    return n_written
+
+
+def write_cfrk(path, counts: np.ndarray) -> None:
+    """Write counts to a `.cfrk` file (exact reference byte format)."""
+    with CfrkWriter(path) as w:
+        w.write_batch(counts)
 
 
 def count_file_sparse_rows(

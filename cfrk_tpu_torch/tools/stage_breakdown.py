@@ -7,14 +7,19 @@
 Runs the calls of the mode's driver in ``pipeline/count.py`` one by one
 and prints one JSON object:
 
-* ``route`` — ``perread``, ``dense`` (the spectrum on the device, one
-  running table) or ``sorted`` (per-read row sorts and a host fold: the
-  spectrum at ``--impl sort`` or k >= 9 on CUDA, and ``--mode sparse``);
+* ``route`` — ``perread`` (per-read sort + RLE rows), ``dense_rows``
+  (the dense per-read API: per-read ``--impl`` other than auto),
+  ``dense`` (the spectrum on the device, one running table) or
+  ``sorted`` (per-read row sorts and a host fold: the spectrum at
+  ``--impl sort`` or k >= 9 on CUDA, and ``--mode sparse``);
 * ``host_s`` — host wall seconds of each stage (``time.perf_counter``,
   with a ``torch.cuda.synchronize`` after each device stage, so a stage
   holds its own device work), and ``wall`` over all of them:
   - perread: parse, pad, h2d, rows (dispatcher, wrapper and kernel),
     drain (narrow + device→host copy), format (the `.cfrk` writer);
+  - dense_rows: parse, pad, h2d, kernel (the dense counts on the
+    device, packed where pipeline/count.py packs), d2h, unpack (the packed
+    layout, or the int16 rows, to int32 on the host), format;
   - dense: parse, pad, spectrum (host→device copy and the spectrum op
     into the running table), drain (the table's copy into the int64
     host table), format;
@@ -25,9 +30,9 @@ and prints one JSON object:
   under ``torch.profiler`` (the dense route's pass adds into one
   running table and copies it to the host once, as the driver does),
   summed by kind from the card's own events:
-  the rowsort kernels, the spectrum kernel, other kernels, host→device
-  and device→host copies, and ``busy``, the union of all device
-  intervals;
+  the rowsort kernels, the per-read histogram kernel, the spectrum
+  kernel, other kernels, host→device and device→host copies, and
+  ``busy``, the union of all device intervals;
 * ``device_busy_share`` — ``busy`` over the first pass's wall: the share
   of the run in which the card does any work.
 
@@ -57,7 +62,13 @@ from ..ops.perread_sparse import (
 from ..ops.sparse import DenseFoldAccumulator, SparseAccumulator, fetched_to_triples
 from ..ops.spectrum import spectrum as spectrum_op
 from ..pipeline.batch import iter_batches
-from ..pipeline.count import DenseSpectrumAccumulator, _plan_shapes, _use_sorted_spectrum
+from ..pipeline.count import (
+    DenseSpectrumAccumulator,
+    _plan_shapes,
+    _use_sorted_spectrum,
+    dense_counts_on_device,
+    dense_counts_to_host,
+)
 
 __all__ = ["stage_breakdown"]
 
@@ -79,7 +90,8 @@ def _device_ms(batches, step, finish=None) -> dict:
     if not spans:
         raise RuntimeError("torch.profiler recorded no device events")
     out = dict.fromkeys(
-        ("rowsort_kernels", "spectrum_kernels", "other_kernels", "h2d", "d2h"), 0.0
+        ("rowsort_kernels", "perread_kernels", "spectrum_kernels", "other_kernels",
+         "h2d", "d2h"), 0.0
     )
     for ev in spans:
         if ev.name.startswith("Memcpy HtoD"):
@@ -88,6 +100,8 @@ def _device_ms(batches, step, finish=None) -> dict:
             kind = "d2h"
         elif "rowsort" in ev.name:
             kind = "rowsort_kernels"
+        elif "perread_hist" in ev.name:
+            kind = "perread_kernels"
         elif "spectrum" in ev.name:
             kind = "spectrum_kernels"
         else:
@@ -129,7 +143,22 @@ def stage_breakdown(path, out_path, k: int, *, device, mode: str = "perread",
     batches = timed("pad", lambda: list(iter_batches(reads, bs, ml)))
     finish = None
 
-    if mode == "perread":
+    if mode == "perread" and impl != "auto" and not (nonzero and k > 8):
+        route = "dense_rows"
+
+        def step(batch):
+            return dense_counts_on_device(h2d(batch), k, canonical, impl)[0].cpu()
+
+        with CfrkWriter(out_path, nonzero=nonzero) as w:
+            for batch in batches:
+                codes = timed("h2d", h2d, batch)
+                counts, packing = timed("kernel", dense_counts_on_device, codes, k,
+                                        canonical, impl)
+                host_counts = timed("d2h", counts.cpu)
+                rows = timed("unpack", dense_counts_to_host, host_counts,
+                             batch.n_reads, packing)
+                timed("format", w.write_batch, rows)
+    elif mode == "perread":
         route = "perread"
 
         def step(batch):
@@ -221,8 +250,9 @@ def main(argv=None) -> int:
                     default="perread")
     ap.add_argument("--canonical", action="store_true")
     ap.add_argument("--nonzero", action="store_true")
-    ap.add_argument("--impl", choices=("auto", "scatter", "matmul", "pallas", "sort"),
-                    default="auto")
+    ap.add_argument("--impl", default="auto",
+                    choices=("auto", "compare", "scatter", "matmul", "pallas", "host",
+                             "sort"))
     ap.add_argument("--spectrum-format", choices=("cfrk", "tsv", "npy", "hist"),
                     default="cfrk")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")

@@ -8,20 +8,27 @@ Run from the root of a checkout on a machine with one NVIDIA GPU
 
 Phases, each of which exits non-zero on failure:
 
-1. card: the GPU's name and power limit, torch and CUDA versions;
+1. card: the GPU's name and power limit, torch and CUDA versions, the
+   host's ``free -g``;
 2. build: compiles the CUDA kernels from csrc/ (one nvcc per source,
    all started together);
 3. kernel vs plain: each kernel against its plain PyTorch twin on the
    card's inputs, array-equal, across k, canonical keys, read shapes
    (150 bp, short, 4 kb, past the kernel ceiling, a 20 000-read batch)
-   and edge rows;
+   and edge rows; the per-read histogram kernel in every emit (unpacked,
+   "fh", "b4") with and without its checksum, and each variant of the
+   rowsort probe kernel;
 4. goldens: ``python -m cfrk_tpu_torch <seqN.fasta.gz> <out> 2`` must
    reproduce tests/data/goldens.json;
 5. main path at real size: seeded synthetic reads (100k x 150 bp and
    100k x 152 bp, the synthetic-read configuration of BASELINE.json)
    through the CLI on the GPU — k=8 ``--nonzero``, k=31 ``--canonical
-   --nonzero``, dense k=8 rows of the first 256 reads.  Each must launch
-   its kernel, write the same bytes as ``--device cpu`` and agree on
+   --nonzero``, dense k=8 rows of the first 256 reads; then the dense
+   per-read API on the 100k x 150 bp reads, ``8 --nonzero --impl
+   pallas`` (the "b4" packed kernel) and ``4 --impl pallas`` (dense
+   rows, the unpacked kernel), each also byte-equal to the auto route
+   (per-read sort + RLE) on the same reads.  Each must launch its
+   kernel, write the same bytes as ``--device cpu`` and agree on
    sampled rows with string-slicing ground truth;
 6. spectrum legs at real size (BASELINE.json configs 3 and 4): 1M
    seeded 150 bp reads through ``--mode spectrum`` at k=8 (the
@@ -33,9 +40,12 @@ Phases, each of which exits non-zero on failure:
    counts are set to 0 just before it, must show its kernel launched,
    and its bytes must equal ``--device cpu``;
 7. times: each kernel's ms per 8192-read batch beside the plain route's
-   on the card (CUDA events, after warm-up), the spectrum kernel against
-   the sorted route per batch at k = 9 and 10, and the end-to-end
-   bases/s of phases 5 and 6.
+   on the card (CUDA events, after warm-up; the per-read histogram
+   kernel unpacked and "b4", with its written GB/s), the spectrum kernel
+   against the sorted route per batch at k = 9 and 10, the end-to-end
+   bases/s of phases 5 and 6, and the rowsort probe tool
+   (``python -m cfrk_tpu_torch.tools.rowsort_probe``) for each variant
+   at k = 8 and k = 31, its checksums held to the plain twin's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON record of the kernels, and the one before that the card's
@@ -45,7 +55,10 @@ is the JSON record of the kernels, and the one before that the card's
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -202,7 +215,100 @@ def check_kernels(seed: int) -> dict:
         log(f"kernel vs plain: {name} k={ks} x canonical x "
             f"{sorted(cases) + ['past_ceiling']}: array-equal")
     errs["spectrum_hist"] = check_spectrum_kernel(cases, batch(20_000, 256))
+    main_batch = np.full((BATCH, 256), -1, np.int8)
+    main_batch[:, :150] = batch(BATCH, 150)
+    errs["perread_hist"] = check_perread_kernel(cases, batch(2, 40_000), main_batch)
+    errs["rowsort_probe"] = check_probe_kernel(cases)
     return errs
+
+
+def compare_arrays(name: str, got, want, what: str) -> int:
+    """Array equality of a kernel's outputs (a tensor or a tuple of
+    them) with its plain twin's; returns max |difference| (0) or fails."""
+    import torch
+
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want, strict=True):
+        g, w = g.cpu(), w.cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{name} {what}: {tuple(g.shape)}/{g.dtype} vs plain "
+                 f"{tuple(w.shape)}/{w.dtype}")
+        d = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+        if d:
+            fail(f"{name} {what}: differs from plain by {d}")
+    return 0
+
+
+def check_perread_kernel(cases: dict, contig, main_batch) -> int:
+    """The per-read histogram kernel against its plain twin: unpacked,
+    "fh", "b4" and the densest safe packing (where the row length allows
+    it), read blocks of 16 and 5 (pad rows), with and without the
+    checksum, k in {1, 2, 4, 5, 7, 8} x canonical, every case, a 2 x
+    40 000 bp row, and the main path's [8192, 256] batch at k = 8 (the
+    twin on the card)."""
+    import torch
+
+    from cfrk_tpu_torch.ops.cuda import perread as P
+
+    ks = (1, 2, 4, 5, 7, 8)
+    cases = dict(cases, contig_40kb=contig)
+    err = 0
+    for k in ks:
+        for canonical in (False, True):
+            for case, codes in cases.items():
+                if codes.shape[1] < k:
+                    continue
+                for packed in (False, "fh", "b4", True):
+                    try:
+                        P.resolve_packed(packed, codes.shape[1] - k + 1)
+                    except ValueError:
+                        continue
+                    for rb, checksum in ((16, False), (5, True)):
+                        kw = dict(packed=packed, read_block=rb, checksum=checksum)
+                        err = max(err, compare_arrays(
+                            "perread_hist",
+                            P.perread_hist(torch.from_numpy(codes).cuda(), k, canonical, **kw),
+                            P.perread_hist_plain(torch.from_numpy(codes), k, canonical, **kw),
+                            f"k={k} canonical={canonical} {case} {kw}"))
+    codes = torch.from_numpy(main_batch).cuda()
+    for packed in (False, "b4"):
+        for checksum in (False, True):
+            kw = dict(packed=packed, checksum=checksum)
+            err = max(err, compare_arrays(
+                "perread_hist", P.perread_hist(codes, 8, False, **kw),
+                P.perread_hist_plain(codes, 8, False, **kw),
+                f"k=8 [{BATCH}, 256] {kw}"))
+    log(f"kernel vs plain: perread_hist k={ks} x canonical x "
+        f"{sorted(cases)} x packed/read_block/checksum, and [{BATCH}, 256] "
+        f"k=8 unpacked/b4: array-equal")
+    return err
+
+
+def check_probe_kernel(cases: dict) -> int:
+    """Each variant of the rowsort probe kernel against its plain twin:
+    uint32 keys at k = 1, 8, 15 and uint64 canonical keys at k = 16,
+    31, on every case within the kernel's ceiling."""
+    import torch
+
+    from cfrk_tpu_torch.ops.cuda import rowsort as R
+
+    err = 0
+    for k, canonical in ((1, False), (8, False), (15, False), (16, True), (31, True)):
+        for variant in R.PROBE_VARIANTS:
+            for case, codes in cases.items():
+                w = codes.shape[1] - k + 1
+                if w <= 0 or w > R.rowsort_max_windows(k):
+                    continue
+                err = max(err, compare_arrays(
+                    "rowsort_probe",
+                    R.rowsort_probe(torch.from_numpy(codes).cuda(), k, variant, canonical),
+                    R.rowsort_probe_plain(torch.from_numpy(codes), k, variant, canonical),
+                    f"{variant} k={k} canonical={canonical} {case}"))
+    log(f"kernel vs plain: rowsort_probe {sorted(R.PROBE_VARIANTS)} x k=1/8/15 "
+        f"(uint32) and k=16/31 canonical (uint64) x {sorted(cases)}: equal checksums")
+    return err
 
 
 def check_spectrum_kernel(cases: dict, big) -> int:
@@ -219,15 +325,7 @@ def check_spectrum_kernel(cases: dict, big) -> int:
 
     def compare(got, want, what):
         nonlocal err
-        torch.cuda.synchronize()
-        got = got.cpu()
-        if got.dtype != want.dtype or got.shape != want.shape:
-            fail(f"spectrum_hist {what}: {got.shape}/{got.dtype} vs plain "
-                 f"{want.shape}/{want.dtype}")
-        d = int((got.long() - want.long()).abs().max())
-        if d:
-            fail(f"spectrum_hist {what}: differs from plain by {d}")
-        err = max(err, d)
+        err = max(err, compare_arrays("spectrum_hist", got, want, what))
 
     for k in ks:
         for canonical in (False, True):
@@ -266,10 +364,11 @@ def check_goldens() -> None:
 
 
 def run_main_path(label: str, fasta: Path, reads, flags: list, kernel,
-                  k: int, canonical: bool) -> dict:
+                  k: int, canonical: bool, same_as: str | None = None) -> dict:
     """Phase 5, one leg: the CLI on the GPU (counting its kernel's
-    launches), the same CLI on the CPU route, byte comparison and a
-    sampled ground-truth check.  Returns the leg's numbers."""
+    launches), the same CLI on the CPU route, byte comparison (and with
+    ``same_as``, the sha256 of another route's bytes on the same reads)
+    and a sampled ground-truth check.  Returns the leg's numbers."""
     import numpy as np
 
     from cfrk_tpu_torch.cli import main
@@ -291,6 +390,9 @@ def run_main_path(label: str, fasta: Path, reads, flags: list, kernel,
     gpu_bytes = out_gpu.read_bytes()
     if gpu_bytes != out_cpu.read_bytes():
         fail(f"{label}: GPU bytes differ from --device cpu bytes")
+    digest = hashlib.sha256(gpu_bytes).hexdigest()
+    if same_as is not None and digest != same_as:
+        fail(f"{label}: bytes differ from the auto route's on the same reads")
     rows = gpu_bytes.split(b"\n")
     if len(rows) != len(reads):
         fail(f"{label}: {len(rows)} rows for {len(reads)} reads")
@@ -308,7 +410,8 @@ def run_main_path(label: str, fasta: Path, reads, flags: list, kernel,
         "leg": label, "reads": len(reads), "bases": bases,
         "cuda_wall_s": wall, "cpu_route_wall_s": cpu_wall,
         "bases_per_s": bases / wall, "launches": launches,
-        "bytes": len(gpu_bytes), "rows_checked": len(sample),
+        "bytes": len(gpu_bytes), "rows_checked": len(sample), "sha256": digest,
+        "equal_to_auto_route": same_as is not None,
     }
     log(f"main path {label}: " + json.dumps(res))
     return res
@@ -499,6 +602,107 @@ def time_spectrum_routes(seed: int, card: str) -> dict:
     return out
 
 
+def dense_api_legs(r150, fa150: Path, k8_auto_sha: str) -> list:
+    """Phase 5, the dense per-read API (``--impl pallas``) on the 100k x
+    150 bp reads: k=8 ``--nonzero`` (the "b4" packed kernel, unpacked on
+    the host) and dense k=4 rows (the unpacked kernel).  Each is also
+    held to the auto route's bytes: the k8_nonzero leg's, and a k=4
+    auto run made here first."""
+    from cfrk_tpu_torch.cli import main
+    from cfrk_tpu_torch.ops.cuda import perread as P
+
+    auto4 = WORK / "k4_auto.cuda.cfrk"
+    if main([str(fa150), str(auto4), "4"]) != 0:
+        fail("k4 auto route: CLI exit")
+    k4_auto_sha = hashlib.sha256(auto4.read_bytes()).hexdigest()
+    auto4.unlink()
+    P.perread_hist.launches = 0
+    legs = [
+        run_main_path("k8_dense_api_nonzero", fa150, r150,
+                      ["8", "--nonzero", "--impl", "pallas"], P.perread_hist, 8, False,
+                      same_as=k8_auto_sha),
+        run_main_path("k4_dense_api", fa150, r150, ["4", "--impl", "pallas"],
+                      P.perread_hist, 4, False, same_as=k4_auto_sha),
+    ]
+    return legs
+
+
+def time_perread(seed: int, card: str) -> dict:
+    """Phase 7, per-read histograms: ms per 8192-read batch (150 bp
+    padded to 256) at k = 8 of the kernel against its plain twin, both
+    on the card, unpacked and "b4"; written GB/s = output bytes / ms."""
+    import numpy as np
+    import torch
+
+    from cfrk_tpu_torch.ops.cuda import perread as P
+
+    codes_np = np.full((BATCH, 256), -1, np.int8)
+    codes_np[:, :150] = synthetic_reads(seed + 5, BATCH, 150)
+    codes = torch.from_numpy(codes_np).cuda()
+    out = {}
+    for packed, nbytes in ((False, BATCH * 4**8 * 4), ("b4", BATCH * 4**8)):
+        kern = functools.partial(P.perread_hist, packed=packed)
+        plain = functools.partial(P.perread_hist_plain, packed=packed)
+        p1 = time_kernel(plain, codes, 8, False)
+        k1 = time_kernel(kern, codes, 8, False)
+        k2 = time_kernel(kern, codes, 8, False)
+        p2 = time_kernel(plain, codes, 8, False)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        name = packed or "unpacked"
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "written_bytes": nbytes,
+                     "written_GB_per_s": nbytes / ms / 1e6,
+                     "plain_written_GB_per_s": nbytes / plain_ms / 1e6}
+        log(f"time perread_hist k=8 {name} [{BATCH}, 256]: kernel {k1:.4f}/{k2:.4f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s written), plain {p1:.4f}/{p2:.4f} ms "
+            f"per batch ({card})")
+    return out
+
+
+def run_probe(card: str) -> dict:
+    """Phase 7, the rowsort probe tool: every variant at k = 8 (uint32
+    keys) and k = 31 (uint64 canonical keys), through its command-line
+    entry, with the probe kernel's count set to 0 just before and read
+    just after.  Each run's checksum must equal the plain twin's over
+    the same cycled batches."""
+    import torch
+
+    from cfrk_tpu_torch.ops.cuda import rowsort as R
+    from cfrk_tpu_torch.tools.rowsort_probe import main as probe_main
+    from cfrk_tpu_torch.tools.rowsort_probe import probe_batches
+
+    steps, batch, length = 64, BATCH, 150
+    xs = [torch.from_numpy(x).cuda() for x in probe_batches(batch, length)]
+    R.rowsort_probe.launches = 0
+    records, err = {}, 0
+    for keys, k in ((1, 8), (2, 31)):
+        for variant in R.PROBE_VARIANTS:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = probe_main(["--variant", variant, "--keys", str(keys),
+                                 "--batch", str(batch), "--len", str(length),
+                                 "--steps", str(steps)])
+            if rc != 0:
+                fail(f"rowsort_probe {variant} --keys {keys}: exit {rc}")
+            rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+            per_batch = [int(R.rowsort_probe_plain(x, k, variant, keys == 2).sum())
+                         for x in xs]
+            want = sum(per_batch[i % 4] for i in range(steps))
+            err = max(err, abs(rec["chk"] - want))
+            if rec["chk"] != want:
+                fail(f"rowsort_probe {variant} k={k}: chk {rec['chk']} != plain {want}")
+            records[f"{variant}_k{k}"] = rec
+            log(f"probe {variant} k={k}: " + json.dumps(rec))
+    launches = R.rowsort_probe.launches
+    if launches <= 0:
+        fail("the probe tool never launched rowsort_probe")
+    plain = functools.partial(R.rowsort_probe_plain, variant="full")
+    plain_ms = time_kernel(lambda c, k, can: plain(c, k, canonical=can), xs[0], 8, False)
+    log(f"time rowsort_probe full k=8 [{batch}, {length}]: kernel "
+        f"{records['full_k8']['step_ms']:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+    return {"records": records, "launches": launches, "err": err,
+            "ms": records["full_k8"]["step_ms"], "plain_ms": plain_ms}
+
+
 def time_kernel(fn, codes, k: int, canonical: bool, iters: int = 20) -> float:
     """ms per call on the card: CUDA events around ``iters`` calls after
     a warm-up."""
@@ -529,6 +733,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
+        from cfrk_tpu_torch.ops.cuda import perread as P
         from cfrk_tpu_torch.ops.cuda import rowsort as R
         from cfrk_tpu_torch.ops.cuda import spectrum as S
         from cfrk_tpu_torch.ops.cuda.build import build_libraries
@@ -545,12 +750,15 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True, timeout=60)
+    log("host memory (free -g):\n" + free.stdout.strip())
 
     # 2. build
     t0 = time.perf_counter()
-    built = build_libraries(["rowsort", "spectrum"])
+    built = build_libraries(["rowsort", "spectrum", "perread"])
     R._library()
     S._library()
+    P._library()
     log(f"build: {', '.join(so.name for so in built.values())} in "
         f"{time.perf_counter() - t0:.3f} s")
     for so in built.values():
@@ -587,6 +795,11 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             fail(f"main path never launched {name}")
+    dense_legs = dense_api_legs(r150, fa150, legs[0]["sha256"])
+    launches["perread_hist"] = P.perread_hist.launches
+    if launches["perread_hist"] <= 0:
+        fail("the dense per-read legs never launched perread_hist")
+    legs += dense_legs
 
     # 6. spectrum legs at real size
     spec_legs = spectrum_legs(args.seed, r152, fa152)
@@ -613,6 +826,16 @@ def main() -> int:
     spec_times = time_spectrum_routes(args.seed, card)
     times["spectrum_hist"] = spec_times.pop("spectrum_hist")
     log("spectrum_routes: " + json.dumps({"card": card, **spec_times}))
+    perread_times = time_perread(args.seed, card)
+    log("perread_hist_times: " + json.dumps({"card": card, **perread_times}))
+    # The main path's emit ("b4", the k8_dense_api_nonzero leg's).
+    times["perread_hist"] = (perread_times["b4"]["ms"], perread_times["b4"]["plain_ms"])
+    probe = run_probe(card)
+    launches["rowsort_probe"] = probe["launches"]
+    errs["rowsort_probe"] = max(errs["rowsort_probe"], probe["err"])
+    times["rowsort_probe"] = (probe["ms"], probe["plain_ms"])
+    log("rowsort_probe_step_ms: " + json.dumps({
+        "card": card, **{name: r["step_ms"] for name, r in probe["records"].items()}}))
     log("end_to_end: " + json.dumps({
         "card": card,
         "legs": {leg["leg"]: leg["bases_per_s"] for leg in legs + spec_legs},
@@ -620,15 +843,17 @@ def main() -> int:
 
     kernels = []
     for name, source, replaces in (
-        ("rowsort_rle", "rowsort.cu", "rowsort.py:569"),
-        ("rowsort_rle_large", "rowsort.cu", "rowsort.py:655"),
-        ("spectrum_hist", "spectrum.cu", "spectrum.py:62"),
+        ("rowsort_rle", "rowsort.cu", "cfrk_tpu/ops/pallas/rowsort.py:569"),
+        ("rowsort_rle_large", "rowsort.cu", "cfrk_tpu/ops/pallas/rowsort.py:655"),
+        ("spectrum_hist", "spectrum.cu", "cfrk_tpu/ops/pallas/spectrum.py:62"),
+        ("perread_hist", "perread.cu", "cfrk_tpu/ops/pallas/perread.py:166"),
+        ("rowsort_probe", "rowsort.cu", "tools/rowsort_probe.py:173"),
     ):
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"cfrk_tpu_torch/csrc/{source}",
-            "replaces": f"cfrk_tpu/ops/pallas/{replaces}",
+            "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": times[name][0],

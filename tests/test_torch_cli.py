@@ -115,18 +115,54 @@ def test_stats_line(tmp_path, capsys):
     "argv,message",
     [
         (["--stream"], "--stream is not yet ported"),
-        (["--impl", "pallas"], "--impl is not yet ported"),
+        (["--impl", "pallas", "--packed"], "--packed is not yet ported"),
         (["--devices=2"], "--devices is not yet ported"),
         (["--mode", "spectrum", "--stream"], "--stream is not yet ported"),
         (["--mode", "sparse", "--mem-budget-mb", "64"],
          "--mem-budget-mb is not yet ported"),
-        (["--impl", "scatter"], "--impl is not yet ported .* --mode perread"),
+        (["--impl", "scatter", "--seqpar"], "--seqpar is not yet ported"),
     ],
 )
 def test_unported_flags_fail_clearly(tmp_path, argv, message):
     fa = str(DATA / "seq2.fasta.gz")
     with pytest.raises(SystemExit, match=message):
         main([fa, str(tmp_path / "o.cfrk"), "2", "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("name", sorted(MANIFEST["files"]))
+@pytest.mark.parametrize("nonzero", [False, True], ids=["dense", "nonzero"])
+@pytest.mark.parametrize(
+    "impl,k", [("compare", "3"), ("matmul", "4"), ("scatter", "6"), ("pallas", "5"),
+               ("host", "5")],
+)
+def test_dense_api_impl_rows_match_jax_cli(tmp_path, name, nonzero, impl, k):
+    """``--impl`` other than auto runs the dense per-read API
+    (count_file → CfrkWriter(nonzero=...)), as the JAX CLI does."""
+    inp = _prefix_fasta(tmp_path, name, 24)
+    flags = [k, "--impl", impl, "--canonical"] + (["--nonzero"] if nonzero else [])
+    got, want = _both(tmp_path, inp, *flags, "--batch-size", "10")
+    assert got == want and got.count(b"\n") == 23
+
+
+def test_dense_api_k8_and_gz_match_jax_cli(tmp_path):
+    """k=8 through the kernel's route, to a gzipped output."""
+    inp = _prefix_fasta(tmp_path, "seq2.fasta.gz", 12)
+    a, b = tmp_path / "torch.cfrk.gz", tmp_path / "jax.cfrk.gz"
+    for nonzero in ([], ["--nonzero"]):
+        assert main([inp, str(a), "8", "--impl", "pallas", *nonzero, "--device", "cpu"]) == 0
+        assert jax_main([inp, str(b), "8", "--impl", "pallas", *nonzero]) == 0
+        assert gzip.decompress(a.read_bytes()) == gzip.decompress(b.read_bytes())
+
+
+def test_dense_api_k_above_8_routing(tmp_path):
+    """Past k=8 an explicit --impl with --nonzero takes the sparse rows
+    (bytes equal to the JAX CLI); without --nonzero both refuse."""
+    fa = str(DATA / "seq2.fasta.gz")
+    got, want = _both(tmp_path, fa, "9", "--nonzero", "--impl", "scatter")
+    assert got == want and got
+    for cli_main in (main, jax_main):
+        with pytest.raises(SystemExit, match="requires --nonzero"):
+            cli_main([fa, str(tmp_path / "o.cfrk"), "9", "--impl", "pallas"])
 
 
 def test_argument_errors(tmp_path):
@@ -271,6 +307,29 @@ def test_stage_breakdown_writes_the_cli_bytes(tmp_path, capsys, flags):
     assert b.read_bytes() == a.read_bytes()
     assert res["reads"] == 40 and res["batches"] == 1
     assert set(res["host_s"]) == {"parse", "pad", "h2d", "rows", "drain", "format", "wall"}
+    assert res["device_ms"] is None and res["device_busy_share"] is None
+
+
+@pytest.mark.parametrize(
+    "flags", [("8", "--nonzero", "--impl", "pallas"), ("4", "--impl", "pallas"),
+              ("5", "--impl", "host", "--canonical")],
+    ids=["k8_nonzero_pallas", "k4_pallas", "k5_host_canonical"],
+)
+def test_stage_breakdown_dense_api_writes_the_cli_bytes(tmp_path, capsys, flags):
+    """The breakdown's dense per-read route: same bytes as the CLI, its
+    stages named, host stages only on the CPU."""
+    from cfrk_tpu_torch.tools.stage_breakdown import main as breakdown_main
+
+    inp = _prefix_fasta(tmp_path, sorted(MANIFEST["files"])[0], 40)
+    a, b = tmp_path / "cli.cfrk", tmp_path / "breakdown.cfrk"
+    assert main([inp, str(a), *flags, "--device", "cpu"]) == 0
+    capsys.readouterr()
+    assert breakdown_main([inp, str(b), *flags, "--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert b.read_bytes() == a.read_bytes() and a.read_bytes()
+    assert res["route"] == "dense_rows" and res["reads"] == 40
+    assert set(res["host_s"]) == {"parse", "pad", "h2d", "kernel", "d2h", "unpack",
+                                  "format", "wall"}
     assert res["device_ms"] is None and res["device_busy_share"] is None
 
 

@@ -94,6 +94,51 @@ def test_writer_streams_batches_like_jax(tmp_path):
     assert gzip.decompress(out.read_bytes()) == tfmt.format_pairs_bytes(idx, cnt)
 
 
+@pytest.mark.parametrize("first_empty", [False, True])
+def test_nonzero_writer_matches_jax(first_empty):
+    """CfrkWriter(nonzero=True).write_batch: the nonzero cells of dense
+    rows, empty rows kept, across batches and row slabs."""
+    rng = np.random.default_rng(int(first_empty))
+    counts = rng.integers(0, 5, size=(17, 64)).astype(np.int32)
+    counts[rng.random(counts.shape) < 0.7] = 0
+    counts[::4] = 0
+    if first_empty:
+        counts[:3] = 0
+    buf_t, buf_j = io.BytesIO(), io.BytesIO()
+    with tfmt.CfrkWriter(buf_t, nonzero=True) as tw, jfmt.CfrkWriter(buf_j, nonzero=True) as jw:
+        for w in (tw, jw):
+            w.write_batch(counts[:0])
+            w.write_batch(counts[:5])
+            w.write_batch(counts[5:])
+    assert buf_t.getvalue() == buf_j.getvalue()
+    small = io.BytesIO()
+    with tfmt.CfrkWriter(small, nonzero=True) as w:
+        for row in counts:  # one-row batches: every slab boundary
+            w.write_batch(row[None])
+    assert small.getvalue() == buf_j.getvalue()
+
+
+def test_dense_to_pairs_matches_jax():
+    rng = np.random.default_rng(3)
+    counts = rng.integers(0, 3, size=(9, 16)).astype(np.int32)
+    counts[2] = 0
+    for block in (counts, np.zeros((4, 16), np.int32)):
+        for g, w in zip(tfmt._dense_to_pairs(block), jfmt._dense_to_pairs(block)):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_parse_cfrk_matches_jax():
+    counts = np.arange(3 * 16, dtype=np.int32).reshape(3, 16) % 7
+    data = tfmt.format_file_bytes(counts)
+    np.testing.assert_array_equal(tfmt.parse_cfrk(data), jfmt.parse_cfrk(data))
+    np.testing.assert_array_equal(tfmt.parse_cfrk(data), counts)
+    assert tfmt.parse_cfrk(data).dtype == np.int64
+    for bad, msg in ((b"0:1 2:3 ", "non-dense"), (b"0:1 1:2 \n0:1 ", "ragged")):
+        for parse in (tfmt.parse_cfrk, jfmt.parse_cfrk):
+            with pytest.raises(ValueError, match=msg):
+                parse(bad)
+
+
 @pytest.mark.parametrize("name", ["seq1.fasta.gz", "seq2.fasta.gz"])
 def test_read_fasta_encoded_matches_jax(name):
     got = tfasta.read_fasta_encoded(DATA / name)

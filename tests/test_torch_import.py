@@ -7,6 +7,7 @@ runs in a fresh interpreter, since this test process has jax loaded.
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -31,7 +32,10 @@ _MODULES = [
     "cfrk_tpu_torch.ops.cuda.build",
     "cfrk_tpu_torch.ops.cuda.rowsort",
     "cfrk_tpu_torch.ops.cuda.spectrum",
+    "cfrk_tpu_torch.ops.cuda.perread",
+    "cfrk_tpu_torch.ops.perread",
     "cfrk_tpu_torch.ops.spectrum",
+    "cfrk_tpu_torch.tools.rowsort_probe",
     "cfrk_tpu_torch.tools.stage_breakdown",
 ]
 
@@ -117,6 +121,54 @@ def test_spectrum_wrapper_off_cpu_launches_or_raises():
     with pytest.raises(ValueError, match="needs CUDA"):
         spectrum(codes, 5, impl="pallas")
     assert spectrum_hist.launches == 0
+
+
+def test_perread_kernel_needs_no_nvcc_until_launch():
+    """The per-read histogram kernel and the probe run their CPU routes
+    without building anything."""
+    got = _run(
+        "import json, torch\n"
+        "from cfrk_tpu_torch.ops.cuda import perread, rowsort, build\n"
+        "c = torch.zeros((2, 40), dtype=torch.int8)\n"
+        "perread.perread_hist(c, 8, packed='b4', checksum=True)\n"
+        "rowsort.rowsort_probe(c, 8, 'full')\n"
+        "print(json.dumps({'loaded': build.load_library.cache_info().currsize,"
+        " 'launches': [perread.perread_hist.launches,"
+        " rowsort.rowsort_probe.launches]}))\n",
+        {"PATH": os.path.dirname(sys.executable)},
+    )
+    assert got == {"loaded": 0, "launches": [0, 0]}
+
+
+def test_perread_wrapper_off_cpu_launches_or_raises():
+    """The per-read histogram kernel's wrapper never takes its plain twin
+    for a tensor that is not on the CPU; count_perread's ``pallas`` and
+    the packed route of pipeline/count.py reach the same wrapper."""
+    from cfrk_tpu_torch.ops.cuda.perread import perread_hist
+    from cfrk_tpu_torch.ops.perread import count_perread
+
+    codes = torch.zeros((2, 40), dtype=torch.int8, device="meta")
+    for packed in (False, "fh", "b4"):
+        with pytest.raises(ValueError, match="needs CUDA"):
+            perread_hist(codes, 8, packed=packed, checksum=True)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        count_perread(codes, 5, impl="pallas")
+    assert perread_hist.launches == 0
+
+
+def test_perread_slab_fits_shared_memory():
+    """The kernel's slab of int32 counts (all hi bins times a range of
+    lo bins) fits a block's shared memory at every k, and at k = 8 the
+    lo axis splits evenly."""
+    from cfrk_tpu_torch.ops.encode import split_k
+
+    src = (ROOT / "cfrk_tpu_torch" / "csrc" / "perread.cu").read_text()
+    slab = int(re.search(r"constexpr int kSlabBins = (\d+);", src).group(1))
+    assert slab * 4 <= 227 * 1024
+    for k in range(1, 9):
+        kh, kl = split_k(k)
+        lo = 4**kl if 4**k <= slab else slab // 4**kh
+        assert 4**kh * lo <= slab and 4**kl % lo == 0
 
 
 def test_build_hash_covers_shared_headers(monkeypatch, tmp_path):
