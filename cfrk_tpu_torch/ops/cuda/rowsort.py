@@ -14,7 +14,13 @@ them), with the plain twin :func:`rowsort_probe_plain`.
 
 All take the int8 code batch ``[B, L]`` and build the window keys in the
 kernel (``csrc/rowsort.cu`` explains the design and its bounds on the
-H100).  Their output is array-equal to the plain twins
+H100): a row is packed once into 16-base units and every key is a funnel
+shift out of them.  :func:`pack_units_model` and
+:func:`packed_window_keys_model` are a numpy model of that arithmetic
+(``cfrk::pack_unit`` and ``cfrk::packed_window_key`` of
+``csrc/kmer_key.cuh``, line for line), so that the CPU tests can hold it
+against the plain key functions.  The kernels' output is array-equal to
+the plain twins
 :func:`rowsort_rle_plain` / :func:`rowsort_rle_large_plain`, which sort
 with ``torch.sort`` on any device; ``ops/perread_sparse.py`` exports them
 as ``count_perread_sparse`` / ``count_perread_sparse_large``.
@@ -31,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..encode import window_indices
@@ -52,6 +59,11 @@ __all__ = [
     "rowsort_rle_large_plain",
     "rowsort_probe",
     "rowsort_probe_plain",
+    "UNIT_BASES",
+    "packed_units",
+    "pack_units_model",
+    "packed_window_keys_model",
+    "sort_in_registers_model",
 ]
 
 MAX_SPARSE_PERREAD_K = 15
@@ -64,7 +76,7 @@ KEY64_SENTINEL = (1 << 63) - 1
 
 # Window ceilings of one row in one thread block: the padded row of keys
 # lives in shared memory (227 KB per block on the H100), 128 KB of uint32
-# or uint64 keys.
+# or uint64 keys beside 12 KB of packed codes.
 ROWSORT_MAX_WINDOWS = 32768
 ROWSORT_MAX_WINDOWS_LARGE = 16384
 
@@ -202,6 +214,168 @@ def rowsort_probe_plain(codes: torch.Tensor, k: int, variant: str,
     first[:, 1:] &= key[:, 1:] != key[:, :-1]
     count = _upper_bound(s, key, pos + 1, n) - pos
     return torch.where(first, (count & 3) + (key & 3), 0).sum(1)
+
+
+# ------------------------------------------- the kernel's key arithmetic
+
+UNIT_BASES = 16  # cfrk::kUnitBases: bases in one packed 32-bit unit
+
+_U32 = np.uint64(0xFFFFFFFF)  # the model computes 32-bit words in uint64
+
+
+def packed_units(w: int) -> int:
+    """Units the kernel packs for a row of ``w`` windows (``units_of`` of
+    ``csrc/rowsort.cu`` at the row's sort width, the power of two >= w
+    and >= 32): its windows' units and two more, which a window of 31
+    bases can reach into."""
+    width = max(32, 1 << max(w - 1, 0).bit_length())
+    return width // UNIT_BASES + 2
+
+
+def pack_units_model(row: np.ndarray, n_units: int):
+    """numpy model of ``cfrk::pack_unit`` over one row of int8 codes.
+
+    Returns ``(bases, invalid)``, uint64 arrays of ``n_units`` 32-bit
+    values: unit h packs the codes ``row[16h : 16h+16]`` at 2 bits a
+    base, base 0 in the two most significant bits (an invalid base packs
+    as 0); bit b of ``invalid[h]`` is set iff code ``16h+b`` is < 0 or
+    lies past the row's end.
+    """
+    codes = np.full(n_units * UNIT_BASES, -1, np.int64)
+    n = min(len(row), codes.size)
+    codes[:n] = row[:n]
+    codes = codes.reshape(n_units, UNIT_BASES)
+    bases = np.zeros(n_units, np.uint64)
+    invalid = np.zeros(n_units, np.uint64)
+    for b in range(UNIT_BASES):
+        code = codes[:, b]
+        bases = (bases << np.uint64(2)) | np.where(code < 0, 0, code & 3).astype(np.uint64)
+        invalid |= (code < 0).astype(np.uint64) << np.uint64(b)
+    return bases, invalid
+
+
+def _funnelshift_l(lo, hi, shift):
+    """``__funnelshift_l``: the most significant 32 bits of hi:lo shifted
+    left by ``shift & 31``."""
+    return ((((hi << np.uint64(32)) | lo) << (shift & np.uint64(31)))
+            >> np.uint64(32)) & _U32
+
+
+def _funnelshift_r(lo, hi, shift):
+    """``__funnelshift_r``: the least significant 32 bits of hi:lo shifted
+    right by ``shift & 31``."""
+    return (((hi << np.uint64(32)) | lo) >> (shift & np.uint64(31))) & _U32
+
+
+def _brev(x, bits: int):
+    """``__brev`` / ``__brevll``: the low ``bits`` bits of x reversed."""
+    out = np.zeros_like(x)
+    for i in range(bits):
+        out |= ((x >> np.uint64(i)) & np.uint64(1)) << np.uint64(bits - 1 - i)
+    return out
+
+
+def _swap_pairs(x):
+    """``cfrk::swap_pairs``: the two bits of every 2-bit group swapped."""
+    odd = np.uint64(0x5555555555555555)
+    return ((x & odd) << np.uint64(1)) | ((x >> np.uint64(1)) & odd)
+
+
+def packed_window_keys_model(bases, invalid, p, k: int, canonical: bool,
+                             bits: int, sentinel: int):
+    """numpy model of ``cfrk::packed_window_key`` (and of ``key_at`` of
+    ``csrc/rowsort.cu``, which feeds it) for the windows that start at
+    positions ``p`` of a row packed by :func:`pack_units_model`.
+
+    ``bits`` is the key width: 32 (k <= 15, the ``rowsort_rle`` kernel)
+    or 64 (k <= 31, ``rowsort_rle_large``).  Returns uint64 keys, with
+    ``sentinel`` where a window holds an invalid code.  The row must
+    have two units past the one the last window starts in.
+    """
+    if bits not in (32, 64) or not 1 <= k <= (15 if bits == 32 else 31):
+        raise ValueError(f"k={k} does not fit {bits}-bit keys")
+    p = np.asarray(p, np.int64)
+    word = np.uint64((1 << bits) - 1)
+    # key_at: the three units from the window's, the invalid bits from p on.
+    u0, u1, u2 = (bases[(p >> 4) + i] for i in range(3))
+    bad = invalid[0::2] | (invalid[1::2] << np.uint64(16))  # read as 32-bit
+    m0, m1 = bad[p >> 5], bad[(p >> 5) + 1]
+    invalid_from_p = _funnelshift_r(m0, m1, (p & 31).astype(np.uint64))
+    o = (p & 15).astype(np.uint64)
+    # packed_window_key
+    is_invalid = (invalid_from_p & np.uint64((1 << k) - 1)) != 0
+    if bits == 32:
+        x = _funnelshift_l(u1, u0, np.uint64(2) * o)
+    else:
+        x = (_funnelshift_l(u1, u0, np.uint64(2) * o) << np.uint64(32)) | (
+            _funnelshift_l(u2, u1, np.uint64(2) * o))
+    reversed_ = _brev(~x & word, bits)
+    fwd = x >> np.uint64(bits - 2 * k)
+    key = fwd
+    if canonical:
+        rc = _swap_pairs(reversed_) & np.uint64((1 << (2 * k)) - 1)
+        key = np.where(rc < fwd, rc, fwd)
+    return np.where(is_invalid, np.uint64(sentinel), key)
+
+
+def sort_in_registers_model(keys: np.ndarray, keys_per_thread: int) -> np.ndarray:
+    """numpy model of ``sort_in_registers`` of ``csrc/rowsort.cu``: one
+    row of ``width`` keys (a power of two) held by ``width / K`` threads,
+    thread t the keys ``[t*K, (t+1)*K)``.  Strides below K exchange a
+    thread's own keys, strides up to 16 K a thread's keys with those of
+    lane ``t ^ (stride / K)`` (the shuffle), wider strides pairs of the
+    row in shared memory (``shared_stage``); pair (i, i + stride) of a
+    merge of ``size`` ascends iff ``(i & size) == 0``.  Returns the row
+    as the threads hold it at the end: sorted ascending."""
+    kk = keys_per_thread
+    width = keys.size
+    v = np.array(keys).reshape(width // kk, kk)
+    t = np.arange(width // kk)
+
+    def compare_exchange(e, f, ascending):
+        a, b = v[:, e].copy(), v[:, f].copy()
+        exchange = (b < a) == ascending
+        v[:, e] = np.where(exchange, b, a)
+        v[:, f] = np.where(exchange, a, b)
+
+    def register_strides(first, ascending):
+        stride = first
+        while stride:
+            for e in range(kk):
+                if e & stride == 0:
+                    compare_exchange(e, e | stride, ascending(e))
+            stride >>= 1
+
+    size = 2
+    while size <= kk:  # merges of up to K keys lie inside one thread
+        if size < kk:
+            register_strides(size >> 1, lambda e: (e & size) == 0)
+        else:
+            register_strides(size >> 1, lambda e: (t & 1) == 0)
+        size <<= 1
+    while size <= width:
+        ascending = (t & (size // kk)) == 0
+        stride = size >> 1
+        if stride >= 32 * kk:  # pairs of two warps: shared memory
+            s = v.reshape(-1)
+            while stride >= 32 * kk:
+                q = np.arange(width >> 1)
+                i = 2 * q - (q & (stride - 1))
+                a, b = s[i].copy(), s[i + stride].copy()
+                swap = (a > b) == ((i & size) == 0)
+                s[i] = np.where(swap, b, a)
+                s[i + stride] = np.where(swap, a, b)
+                stride >>= 1
+            v = s.reshape(width // kk, kk)
+        while stride >= kk:  # warp shuffles
+            lane_mask = stride // kk
+            keep_low = ((t & lane_mask) == 0) == ascending
+            other = v[t ^ lane_mask]
+            v = np.where((other < v) == keep_low[:, None], other, v)
+            stride >>= 1
+        register_strides(kk >> 1, lambda e: ascending)
+        size <<= 1
+    return v.reshape(-1)
 
 
 # ---------------------------------------------------------------- kernels

@@ -15,7 +15,12 @@ Phases, each of which exits non-zero on failure:
 3. kernel vs plain: each kernel against its plain PyTorch twin on the
    card's inputs, array-equal, across k, canonical keys, read shapes
    (150 bp, short, 4 kb, past the kernel ceiling, a 20 000-read batch)
-   and edge rows; the per-read histogram kernel in every emit (unpacked,
+   and edge rows; the rowsort kernels and the probe also at every sort
+   width from 16 keys to the ceiling (each width of the register path,
+   the first width of the shared-memory network), batches of 1, 7 and
+   8193 reads (a ragged last block), poly-A, all-N and shorter-than-k
+   batches and a batch that starts off a 16-byte boundary; the
+   per-read histogram kernel in every emit (unpacked,
    "fh", "b4") with and without its checksum, and each variant of the
    rowsort probe kernel;
 4. goldens: ``python -m cfrk_tpu_torch <seqN.fasta.gz> <out> 2`` must
@@ -24,12 +29,12 @@ Phases, each of which exits non-zero on failure:
    100k x 152 bp, the synthetic-read configuration of BASELINE.json)
    through the CLI on the GPU — k=8 ``--nonzero``, k=31 ``--canonical
    --nonzero``, dense k=8 rows of the first 256 reads; then the dense
-   per-read API on the 100k x 150 bp reads, ``8 --nonzero --impl
-   pallas`` (the "b4" packed kernel) and ``4 --impl pallas`` (dense
-   rows, the unpacked kernel), each also byte-equal to the auto route
-   (per-read sort + RLE) on the same reads.  Each must launch its
-   kernel, write the same bytes as ``--device cpu`` and agree on
-   sampled rows with string-slicing ground truth;
+   per-read API on the 150 bp reads, ``8 --nonzero --impl pallas`` (the
+   "b4" packed kernel; the first 50k reads) and ``4 --impl pallas``
+   (dense rows, the unpacked kernel; all 100k), each also byte-equal to
+   the auto route (per-read sort + RLE) on the same reads.  Each must
+   launch its kernel, write the same bytes as ``--device cpu`` and agree
+   on sampled rows with string-slicing ground truth;
 6. spectrum legs at real size (BASELINE.json configs 3 and 4): 1M
    seeded 150 bp reads through ``--mode spectrum`` at k=8 (the
    histogram kernel; its row must equal the numpy oracle) and at k=15
@@ -40,8 +45,12 @@ Phases, each of which exits non-zero on failure:
    counts are set to 0 just before it, must show its kernel launched,
    and its bytes must equal ``--device cpu``;
 7. times: each kernel's ms per 8192-read batch beside the plain route's
-   on the card (CUDA events, after warm-up; the per-read histogram
-   kernel unpacked and "b4", with its written GB/s), the spectrum kernel
+   on the card (CUDA events, after warm-up; the rowsort kernels as a
+   CUDA-graph replay, also at 70 bp and 4 kb, with ``torch.sort`` on
+   prebuilt keys as the sort stage's yardstick; the per-read histogram
+   kernel unpacked and "b4", with its written GB/s), each kernel's bound
+   (bytes over the memory rate, operations over the integer rate,
+   whichever is larger, from the shape it was timed at), the spectrum kernel
    against the sorted route per batch at k = 9 and 10, the end-to-end
    bases/s of phases 5 and 6, and the rowsort probe tool
    (``python -m cfrk_tpu_torch.tools.rowsort_probe``) for each variant
@@ -69,10 +78,32 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 BATCH = 8192
+# NVIDIA H100 SXM (data sheet): device memory rate, and the integer rate
+# of the plain cores, one operation a lane where the 67 TFLOP/s float32
+# rate counts a fused multiply-add as two.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 33.5e12
 READS = 100_000  # BASELINE.json config 2: 100k reads per leg
+# The k=8 dense-API leg takes the first half of them: its host side
+# unpacks 2.1 GB a batch, on both routes, and 100k reads held a third of
+# the whole run.
+DENSE_API_READS = 50_000
 SPECTRUM_READS = 1_000_000  # BASELINE.json config 3: a 1M-read metagenome
 _COMP = str.maketrans("ACGT", "TGCA")
 _DIGITS = str.maketrans("ACGT", "0123")
+
+
+class PhaseClock:
+    """Logs the seconds each phase took, so that a run near its time
+    limit shows which phase to cut."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, phase: str) -> None:
+        now = time.perf_counter()
+        log(f"phase {phase}: {now - self.t:.1f} s")
+        self.t = now
 
 
 def fail(msg: str) -> None:
@@ -192,13 +223,14 @@ def check_kernels(seed: int) -> dict:
     for name, (kern, plain, ks) in kernels.items():
         err = 0
         for k in ks:
+            widths = width_cases(batch, k) if k in WIDTH_CASE_KS else {}
             for canonical in (False, True):
-                runs = [(c, kern, n) for n, c in cases.items()]
+                runs = [(c, kern, n) for n, c in {**cases, **widths}.items()]
                 past_ceiling = past[name].shape[1] - k + 1 > R.rowsort_max_windows(k)
                 if past_ceiling:
                     runs.append((past[name], count_perread_rows, "past_ceiling"))
                 for codes, fn, case in runs:
-                    got = fn(torch.from_numpy(codes).cuda(), k, canonical)
+                    got = fn(on_card(codes, case), k, canonical)
                     torch.cuda.synchronize()
                     want = plain(torch.from_numpy(codes), k, canonical)
                     for g, w in zip(got, want):
@@ -213,13 +245,64 @@ def check_kernels(seed: int) -> dict:
                         err = max(err, d)
         errs[name] = err
         log(f"kernel vs plain: {name} k={ks} x canonical x "
-            f"{sorted(cases) + ['past_ceiling']}: array-equal")
+            f"{sorted(cases) + ['past_ceiling']}, and k in {WIDTH_CASE_KS} x "
+            f"{sorted(widths)}: array-equal")
     errs["spectrum_hist"] = check_spectrum_kernel(cases, batch(20_000, 256))
     main_batch = np.full((BATCH, 256), -1, np.int8)
     main_batch[:, :150] = batch(BATCH, 150)
     errs["perread_hist"] = check_perread_kernel(cases, batch(2, 40_000), main_batch)
-    errs["rowsort_probe"] = check_probe_kernel(cases)
+    errs["rowsort_probe"] = check_probe_kernel(cases, batch)
     return errs
+
+
+WIDTH_CASE_KS = (1, 8, 15, 16, 31)
+
+
+def width_cases(batch, k: int) -> dict:
+    """Code batches that reach every path of the rowsort kernels at this
+    k: each has ``n + k - 1`` columns, so a row is exactly n windows.
+    n = 16 sorts at the least width, 32..4096 are the widths of the
+    register path (512 and more take several warps a row, 4096 holds 16
+    keys a thread), 8192 is the first width of the shared-memory network
+    and the last n the ceiling; 7 reads leave every block ragged, 1 and
+    8193 reads are the least batch and one read past a multiple of every
+    block's rows."""
+    import numpy as np
+
+    from cfrk_tpu_torch.ops.cuda.rowsort import rowsort_max_windows
+
+    def cols(n):
+        return n + k - 1
+
+    out = {f"n{n}_B7": batch(7, cols(n))
+           for n in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192,
+                     rowsort_max_windows(k))}
+    for n in (32, 256, 512):
+        out[f"n{n}_B1"] = batch(1, cols(n))
+    for n in (32, 256):
+        out[f"n{n}_B8193"] = batch(8193, cols(n))
+    out["n250_off_boundary"] = batch(10, cols(250))  # see on_card
+    for n in (256, 4096, 8192):
+        out[f"polyA_n{n}"] = np.zeros((3, cols(n)), np.int8)  # one run of n
+    out["all_N"] = np.full((9, 200), -1, np.int8)
+    short = batch(9, 64)
+    short[:, k - 1:] = -1  # every read one base shorter than k
+    out["shorter_than_k"] = short
+    return out
+
+
+def on_card(codes, case: str):
+    """The batch as a CUDA tensor; the ``off_boundary`` case as rows 1..
+    of a larger tensor, so that its first byte lies off a 16-byte
+    boundary (the row length is odd there) and the wrapper still takes
+    it as contiguous."""
+    import numpy as np
+    import torch
+
+    if "off_boundary" not in case:
+        return torch.from_numpy(codes).cuda()
+    padded = np.concatenate([codes[:1], codes])
+    return torch.from_numpy(padded).cuda()[1:]
 
 
 def compare_arrays(name: str, got, want, what: str) -> int:
@@ -286,28 +369,31 @@ def check_perread_kernel(cases: dict, contig, main_batch) -> int:
     return err
 
 
-def check_probe_kernel(cases: dict) -> int:
+def check_probe_kernel(cases: dict, batch) -> int:
     """Each variant of the rowsort probe kernel against its plain twin:
     uint32 keys at k = 1, 8, 15 and uint64 canonical keys at k = 16,
-    31, on every case within the kernel's ceiling."""
+    31, on every case within the kernel's ceiling and on the width
+    cases of each k."""
     import torch
 
     from cfrk_tpu_torch.ops.cuda import rowsort as R
 
     err = 0
     for k, canonical in ((1, False), (8, False), (15, False), (16, True), (31, True)):
+        widths = width_cases(batch, k)
         for variant in R.PROBE_VARIANTS:
-            for case, codes in cases.items():
+            for case, codes in {**cases, **widths}.items():
                 w = codes.shape[1] - k + 1
                 if w <= 0 or w > R.rowsort_max_windows(k):
                     continue
                 err = max(err, compare_arrays(
                     "rowsort_probe",
-                    R.rowsort_probe(torch.from_numpy(codes).cuda(), k, variant, canonical),
+                    R.rowsort_probe(on_card(codes, case), k, variant, canonical),
                     R.rowsort_probe_plain(torch.from_numpy(codes), k, variant, canonical),
                     f"{variant} k={k} canonical={canonical} {case}"))
     log(f"kernel vs plain: rowsort_probe {sorted(R.PROBE_VARIANTS)} x k=1/8/15 "
-        f"(uint32) and k=16/31 canonical (uint64) x {sorted(cases)}: equal checksums")
+        f"(uint32) and k=16/31 canonical (uint64) x {sorted(cases)} and "
+        f"{sorted(widths)}: equal checksums")
     return err
 
 
@@ -602,23 +688,31 @@ def time_spectrum_routes(seed: int, card: str) -> dict:
     return out
 
 
-def dense_api_legs(r150, fa150: Path, k8_auto_sha: str) -> list:
-    """Phase 5, the dense per-read API (``--impl pallas``) on the 100k x
-    150 bp reads: k=8 ``--nonzero`` (the "b4" packed kernel, unpacked on
-    the host) and dense k=4 rows (the unpacked kernel).  Each is also
-    held to the auto route's bytes: the k8_nonzero leg's, and a k=4
-    auto run made here first."""
+def dense_api_legs(r150, fa150: Path) -> list:
+    """Phase 5, the dense per-read API (``--impl pallas``) on the 150 bp
+    reads: k=8 ``--nonzero`` (the "b4" packed kernel, unpacked on the
+    host) on the first 50k reads, and dense k=4 rows (the unpacked
+    kernel) on all 100k.  Each is also held to the bytes of the auto
+    route (per-read sort + RLE), run here first on the same reads."""
     from cfrk_tpu_torch.cli import main
     from cfrk_tpu_torch.ops.cuda import perread as P
 
-    auto4 = WORK / "k4_auto.cuda.cfrk"
-    if main([str(fa150), str(auto4), "4"]) != 0:
-        fail("k4 auto route: CLI exit")
-    k4_auto_sha = hashlib.sha256(auto4.read_bytes()).hexdigest()
-    auto4.unlink()
+    def auto_sha(fasta: Path, flags: list) -> str:
+        out = WORK / "auto.cuda.cfrk"
+        if main([str(fasta), str(out), *flags]) != 0:
+            fail(f"auto route {flags}: CLI exit")
+        digest = hashlib.sha256(out.read_bytes()).hexdigest()
+        out.unlink()
+        return digest
+
+    r_half = r150[:DENSE_API_READS]
+    fa_half = WORK / "r150_half.fa"
+    write_fasta(fa_half, r_half)
+    k8_auto_sha = auto_sha(fa_half, ["8", "--nonzero"])
+    k4_auto_sha = auto_sha(fa150, ["4"])
     P.perread_hist.launches = 0
     legs = [
-        run_main_path("k8_dense_api_nonzero", fa150, r150,
+        run_main_path("k8_dense_api_nonzero", fa_half, r_half,
                       ["8", "--nonzero", "--impl", "pallas"], P.perread_hist, 8, False,
                       same_as=k8_auto_sha),
         run_main_path("k4_dense_api", fa150, r150, ["4", "--impl", "pallas"],
@@ -703,22 +797,46 @@ def run_probe(card: str) -> dict:
             "ms": records["full_k8"]["step_ms"], "plain_ms": plain_ms}
 
 
+def bound(nbytes: int, ops: int) -> tuple:
+    """(ms, "bytes" | "operations"): the least time the card could take
+    to move ``nbytes`` through device memory (each input read once, each
+    output written once) or to do ``ops`` integer operations, whichever
+    is longer."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def sort_ops(rows: int, w: int) -> int:
+    """Comparisons a sort of ``rows`` rows of ``w`` keys cannot avoid,
+    w * ceil(log2 w) a row, plus one operation a key to build it."""
+    return rows * w * (max(w - 1, 1).bit_length() + 1)
+
+
+def time_torch_sort(seed: int) -> dict:
+    """The sort stage's yardstick: ms of one ``torch.sort`` of prebuilt
+    [8192, 256] keys along the rows, int32 (k <= 15) and int64 (k > 15).
+    The port never sorts with it on the card's path."""
+    import torch
+
+    from cfrk_tpu_torch.tools.rowsort_times import time_eager
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for dtype, top in ((torch.int32, 4**8), (torch.int64, 4**31)):
+        keys = torch.randint(0, top, (BATCH, 256), dtype=dtype, device="cuda",
+                             generator=gen)
+        name = str(dtype).removeprefix("torch.")
+        out[f"torch_sort_{name}_ms"] = time_eager(lambda: torch.sort(keys, dim=-1))
+    return out
+
+
 def time_kernel(fn, codes, k: int, canonical: bool, iters: int = 20) -> float:
     """ms per call on the card: CUDA events around ``iters`` calls after
     a warm-up."""
-    import torch
+    from cfrk_tpu_torch.tools.rowsort_times import time_eager
 
-    for _ in range(3):
-        fn(codes, k, canonical)
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn(codes, k, canonical)
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
+    return time_eager(lambda: fn(codes, k, canonical), iters)
 
 
 def main() -> int:
@@ -746,6 +864,7 @@ def main() -> int:
     WORK.mkdir(parents=True, exist_ok=True)
 
     # 1. card
+    started = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -765,10 +884,13 @@ def main() -> int:
         log(so.with_suffix(".log").read_text().strip())
 
     # 3. kernel vs plain
+    clock = PhaseClock()
     errs = check_kernels(args.seed)
+    clock.lap("3 kernel vs plain")
 
     # 4. goldens
     check_goldens()
+    clock.lap("4 goldens")
 
     # 5. main path at real size
     import numpy as np
@@ -795,18 +917,24 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             fail(f"main path never launched {name}")
-    dense_legs = dense_api_legs(r150, fa150, legs[0]["sha256"])
+    dense_legs = dense_api_legs(r150, fa150)
     launches["perread_hist"] = P.perread_hist.launches
     if launches["perread_hist"] <= 0:
         fail("the dense per-read legs never launched perread_hist")
     legs += dense_legs
 
+    clock.lap("5 main path")
+
     # 6. spectrum legs at real size
     spec_legs = spectrum_legs(args.seed, r152, fa152)
     launches["spectrum_hist"] = spec_legs[0]["launches"]["spectrum_hist"]
 
+    clock.lap("6 spectrum legs")
+
     # 7. times: plain, kernel, kernel, plain at the main path's batch shape
-    times = {}
+    from cfrk_tpu_torch.tools.rowsort_times import time_graph, time_shape
+
+    times, bounds = {}, {}
     for name, kern, plain, k, canonical, length in (
         ("rowsort_rle", R.rowsort_rle, R.rowsort_rle_plain, 8, False, 150),
         ("rowsort_rle_large", R.rowsort_rle_large, R.rowsort_rle_large_plain,
@@ -816,13 +944,23 @@ def main() -> int:
         codes[:, :length] = synthetic_reads(args.seed + 2, BATCH, length)
         codes = torch.from_numpy(codes).cuda()
         p1 = time_kernel(plain, codes, k, canonical)
-        k1 = time_kernel(kern, codes, k, canonical)
-        k2 = time_kernel(kern, codes, k, canonical)
+        k1 = time_graph(lambda: kern(codes, k, canonical))
+        eager = time_kernel(kern, codes, k, canonical)
+        k2 = time_graph(lambda: kern(codes, k, canonical))
         p2 = time_kernel(plain, codes, k, canonical)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        w = 256 - k + 1
+        bounds[name] = bound(codes.numel() + BATCH * w * 4 * (2 if k <= 15 else 3),
+                             sort_ops(BATCH, w))
         log(f"time {name} k={k} canonical={canonical} [{BATCH}, 256]: kernel "
-            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms per batch "
-            f"({card})")
+            f"{k1:.4f}/{k2:.4f} ms as a graph replay ({eager:.4f} ms in an eager "
+            f"loop, which also times the host's launches), plain "
+            f"{p1:.4f}/{p2:.4f} ms per batch ({card})")
+    other_shapes = [time_shape(shape, k, canonical, args.seed, 50, plain=True)
+                    for shape in ("short70", "contig4k")
+                    for k, canonical in ((8, False), (31, True))]
+    log("rowsort_other_shapes: " + json.dumps({"card": card, "times": other_shapes}))
+    log("sort_yardstick: " + json.dumps({"card": card, **time_torch_sort(args.seed)}))
     spec_times = time_spectrum_routes(args.seed, card)
     times["spectrum_hist"] = spec_times.pop("spectrum_hist")
     log("spectrum_routes: " + json.dumps({"card": card, **spec_times}))
@@ -830,12 +968,21 @@ def main() -> int:
     log("perread_hist_times: " + json.dumps({"card": card, **perread_times}))
     # The main path's emit ("b4", the k8_dense_api_nonzero leg's).
     times["perread_hist"] = (perread_times["b4"]["ms"], perread_times["b4"]["plain_ms"])
+    # Bounds of the other kernels, from the shapes timed above: a k=8
+    # table of int32 out of [8192, 256] codes; the "b4" block, one byte a
+    # cell; the probe's [8192, 150] codes to one int64 a row.
+    in_bytes = BATCH * 256
+    bounds["spectrum_hist"] = bound(in_bytes + 4**8 * 4, BATCH * 249)
+    bounds["perread_hist"] = bound(in_bytes + perread_times["b4"]["written_bytes"],
+                                   BATCH * 249)
+    bounds["rowsort_probe"] = bound(BATCH * 150 + BATCH * 8, sort_ops(BATCH, 143))
     probe = run_probe(card)
     launches["rowsort_probe"] = probe["launches"]
     errs["rowsort_probe"] = max(errs["rowsort_probe"], probe["err"])
     times["rowsort_probe"] = (probe["ms"], probe["plain_ms"])
     log("rowsort_probe_step_ms: " + json.dumps({
         "card": card, **{name: r["step_ms"] for name, r in probe["records"].items()}}))
+    clock.lap("7 times")
     log("end_to_end: " + json.dumps({
         "card": card,
         "legs": {leg["leg"]: leg["bases_per_s"] for leg in legs + spec_legs},
@@ -858,7 +1005,14 @@ def main() -> int:
             "max_abs_err": errs[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            # No single PyTorch call takes int8 codes to sorted run-length
+            # rows, a k-mer table or per-read histograms: the twins are
+            # key building plus torch.sort / index_add_ plus more calls.
+            "library_ms": None,
         })
+    log(f"total: {time.perf_counter() - started:.1f} s from the card line on")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -1,0 +1,182 @@
+"""The key arithmetic of the CUDA rowsort kernels, on the CPU.
+
+The kernels of ``cfrk_tpu_torch/csrc/rowsort.cu`` cannot run without a
+card, but their bit tricks can: ``ops/cuda/rowsort.py`` keeps a numpy
+model of ``cfrk::pack_unit`` and ``cfrk::packed_window_key``
+(``csrc/kmer_key.cuh``) -- 2-bit packing into 16-base units, the invalid
+mask, funnel-shift extraction, the reverse complement by bit reversal --
+written line for line as the device code, and of the sort network
+(``sort_in_registers``), which must sort.  Here the key model is held
+against the port's plain key functions (``window_indices``,
+``kmer_keys``) and against ``cfrk_tpu``'s own, over k x canonical x row
+length, on rows with N bases, -1 padding, poly-A and poly-T rows (the
+16-T case, whose hi word equals the uint32 sentinel at k = 31) and
+palindromic repeats (canonical ties).  Inputs from a numpy seed.
+Tolerance: none, every value is an integer.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cfrk_tpu.ops.encode import window_indices as jax_window_indices
+from cfrk_tpu.ops.sparse import kmer_keys as jax_kmer_keys
+from cfrk_tpu_torch.ops.cuda import rowsort as R
+from cfrk_tpu_torch.ops.encode import window_indices
+from cfrk_tpu_torch.ops.sparse import INVALID_SENTINEL, LO_BASES, kmer_keys
+
+KS = (1, 2, 8, 15, 16, 17, 31)
+FULL = 257  # the longest row; shorter rows are its prefixes
+SENTINEL64 = (1 << 64) - 1  # the kernel's uint64 sentinel, all ones
+
+
+def _lengths(k):
+    return sorted({n for n in (k, k + 1, 31, 32, 33, 64, 150, FULL) if n >= k})
+
+
+CASES = [(k, canonical, length)
+         for k in KS for canonical in (False, True) for length in _lengths(k)]
+
+
+@functools.cache
+def _rows() -> np.ndarray:
+    """[R, FULL] int8 codes: random rows with N bases, rows padded with
+    -1 from several positions on, poly-A, poly-T, all-N, and repeats of
+    ACGT, AT and CG (each its own reverse complement: even-k windows of
+    them are palindromes)."""
+    rng = np.random.default_rng(20240)
+    rows = rng.integers(0, 4, size=(24, FULL)).astype(np.int8)
+    rows[:8][rng.random((8, FULL)) < 0.03] = -1
+    rows[8:12][rng.random((4, FULL)) < 0.3] = -1
+    for r, start in zip(range(12, 18), (1, 20, 47, 100, 140, 250)):
+        rows[r, start:] = -1
+    rows[18] = 0
+    rows[19] = 3
+    rows[20] = -1
+    rows[21] = np.resize([0, 1, 2, 3], FULL)
+    rows[22] = np.resize([0, 3], FULL)
+    rows[23] = np.resize([1, 2], FULL)
+    return rows
+
+
+def _combine(hi, lo):
+    """(hi, lo) uint32 key words -> the kernel's uint64 key, the all-ones
+    sentinel where lo is invalid."""
+    hi = np.asarray(hi).astype(np.uint64)
+    lo = np.asarray(lo).astype(np.uint64)
+    key = (hi << np.uint64(2 * LO_BASES)) | lo
+    return np.where(lo == np.uint64(INVALID_SENTINEL), np.uint64(SENTINEL64), key)
+
+
+@functools.cache
+def _jax_keys(k, canonical):
+    """cfrk_tpu's keys of every window of the full rows: the combined
+    uint64 key, and for k <= 15 the int32 index (-1 invalid).  A
+    window's key depends on its own k codes only, so a shorter row's
+    windows are a prefix of these."""
+    codes = jnp.asarray(_rows())
+    key64 = _combine(*jax_kmer_keys(codes, k, canonical))
+    idx = np.asarray(jax_window_indices(codes, k, canonical)) if k <= 15 else None
+    return key64, idx
+
+
+def _model(rows, k, canonical, bits, sentinel):
+    w = rows.shape[1] - k + 1
+    out = np.empty((rows.shape[0], w), np.uint64)
+    for r, row in enumerate(rows):
+        bases, invalid = R.pack_units_model(row, R.packed_units(w))
+        out[r] = R.packed_window_keys_model(
+            bases, invalid, np.arange(w), k, canonical, bits, sentinel)
+    return out
+
+
+@pytest.mark.parametrize("k,canonical,length", CASES)
+def test_packed_keys_equal_plain_and_jax(k, canonical, length):
+    rows = _rows()[:, :length]
+    w = length - k + 1
+    codes = torch.from_numpy(rows)
+    jax64, jax_idx = _jax_keys(k, canonical)
+
+    got64 = _model(rows, k, canonical, 64, SENTINEL64)
+    np.testing.assert_array_equal(
+        got64, _combine(*(t.numpy() for t in kmer_keys(codes, k, canonical))))
+    np.testing.assert_array_equal(got64, jax64[:, :w])
+
+    if k <= 15:
+        sentinel = 4**k
+        got32 = _model(rows, k, canonical, 32, sentinel).astype(np.int64)
+        for want in (window_indices(codes, k, canonical).numpy(), jax_idx[:, :w]):
+            want = want.astype(np.int64)
+            np.testing.assert_array_equal(got32, np.where(want < 0, sentinel, want))
+
+
+@pytest.mark.parametrize("length", [1, 15, 16, 17, 33, 150])
+def test_pack_units_model_layout(length):
+    """Unit h holds codes 16h..16h+15, the first in the two top bits;
+    invalid bit b is code 16h+b < 0, and every position past the row's
+    end is invalid."""
+    row = _rows()[3, :length]
+    n_units = R.packed_units(length)
+    bases, invalid = R.pack_units_model(row, n_units)
+    assert bases.shape == invalid.shape == (n_units,)
+    for p in range(n_units * R.UNIT_BASES):
+        h, b = divmod(p, R.UNIT_BASES)
+        code = int(row[p]) if p < length else -1
+        assert (int(invalid[h]) >> b) & 1 == (code < 0)
+        assert (int(bases[h]) >> (2 * (R.UNIT_BASES - 1 - b))) & 3 == max(code, 0)
+    assert int(bases.max()) < 1 << 32 and int(invalid.max()) < 1 << 16
+
+
+def test_16t_key_is_not_the_sentinel():
+    """Sixteen leading T at k = 31 make hi 0xFFFFFFFF, the uint32
+    sentinel; the 64-bit key stays below the all-ones sentinel."""
+    row = np.zeros(64, np.int8)
+    row[:20] = 3
+    bases, invalid = R.pack_units_model(row, R.packed_units(34))
+    key = R.packed_window_keys_model(bases, invalid, np.arange(34), 31, False,
+                                     64, SENTINEL64)
+    assert int(key[0]) >> (2 * LO_BASES) == INVALID_SENTINEL
+    assert (key < np.uint64(4**31)).all()
+    hi, lo = kmer_keys(torch.from_numpy(row[None]), 31, False)
+    np.testing.assert_array_equal(key, _combine(hi[0].numpy(), lo[0].numpy()))
+
+
+@pytest.mark.parametrize("k", [2, 8, 16, 30])
+def test_palindromes_tie(k):
+    """An even-k window of an ACGT repeat that starts on A is its own
+    reverse complement: canonical and forward keys agree there."""
+    row = np.resize([0, 1, 2, 3], 96).astype(np.int8)
+    w = 96 - k + 1
+    bases, invalid = R.pack_units_model(row, R.packed_units(w))
+    p = np.arange(0, w, 4) if k % 4 == 0 else np.arange(1, w, 4)
+    bits = 32 if k <= 15 else 64
+    fwd = R.packed_window_keys_model(bases, invalid, p, k, False, bits, 0)
+    can = R.packed_window_keys_model(bases, invalid, p, k, True, bits, 0)
+    np.testing.assert_array_equal(fwd, can)
+
+
+@pytest.mark.parametrize("keys_per_thread", [8, 16])
+@pytest.mark.parametrize("width", [32, 64, 128, 256, 512, 1024, 2048, 4096])
+def test_register_sort_network_sorts(width, keys_per_thread):
+    """The kernel's register / shuffle / shared-memory network, as a
+    numpy model, sorts rows of every width it serves: distinct keys,
+    many duplicates, and a row of sentinels with a few real keys."""
+    rng = np.random.default_rng(width + keys_per_thread)
+    rows = [rng.integers(0, 1 << 62, width).astype(np.uint64),
+            rng.integers(0, 7, width).astype(np.uint64),
+            np.where(rng.random(width) < 0.1, rng.integers(0, 4**8, width),
+                     4**8).astype(np.uint64)]
+    for row in rows:
+        np.testing.assert_array_equal(
+            R.sort_in_registers_model(row, keys_per_thread), np.sort(row))
+
+
+def test_model_rejects_k_beyond_key_width():
+    bases, invalid = R.pack_units_model(np.zeros(40, np.int8), 4)
+    with pytest.raises(ValueError):
+        R.packed_window_keys_model(bases, invalid, [0], 16, False, 32, 0)
+    with pytest.raises(ValueError):
+        R.packed_window_keys_model(bases, invalid, [0], 32, False, 64, 0)
