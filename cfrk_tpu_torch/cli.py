@@ -87,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
             "per-read API, where pallas is the CUDA per-read histogram "
             "kernel.  --mode spectrum: pallas is the CUDA histogram "
             "kernel; sort = per-read sort + RLE accumulation, auto for "
-            "k >= 9 on CUDA.  On --device cpu pallas runs the kernels' "
+            "k >= 11 on CUDA.  On --device cpu pallas runs the kernels' "
             "plain twins"
         ),
     )

@@ -9,17 +9,22 @@
 //
 // Two helpers, for two kinds of kernel:
 //
-//   window_key         spectrum.cu (spectrum_hist) and perread.cu
-//                      (perread_hist): a k-step loop over codes in
-//                      device memory, one window per call.
+//   window_key         perread.cu (perread_hist): a k-step loop over
+//                      codes in device memory, one window per call.
+//                      A read's few hundred windows cost little beside
+//                      the 64 KB image each of its work units stores.
 //   pack_unit +        rowsort.cu (rowsort_rle, rowsort_rle_large and
-//   packed_window_key  the probe variants): a row is packed once into
-//                      16-base units, and a window's key is then a
-//                      funnel shift out of two or three units, at a
-//                      cost that does not grow with k.
-//                      ops/cuda/rowsort.py keeps a numpy model of these
-//                      two functions, line for line, which the CPU
-//                      tests hold against the plain key functions.
+//   packed_window_key  the probe variants) and spectrum.cu
+//                      (spectrum_hist): codes are packed once into
+//                      16-base units (a row's units in rowsort.cu, the
+//                      units of the flat batch in spectrum.cu), and a
+//                      window's key is then a funnel shift out of two
+//                      or three units, at a cost that does not grow
+//                      with k.  ops/cuda/rowsort.py keeps a numpy model
+//                      of these two functions, line for line, which the
+//                      CPU tests hold against the plain key functions;
+//                      ops/cuda/spectrum.py builds its model of
+//                      spectrum.cu on it.
 
 #pragma once
 

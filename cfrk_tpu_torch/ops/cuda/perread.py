@@ -6,8 +6,14 @@ PyTorch twin.
 read's ``[4**k]`` int32 counts, forward or canonical, optionally in the
 packed ``"fh"`` (two bins per int32) or ``"b4"`` (four, one byte each)
 layouts, with an optional per-read-block checksum.  The kernel builds
-the window keys itself (``csrc/perread.cu`` explains the design and its
-bounds on the H100).  Its plain twin :func:`perread_hist_plain` is the
+the window keys itself and counts them straight into a shared-memory
+image of the output words, which a bulk copy writes out
+(``csrc/perread.cu`` explains the design and its bounds on the H100).
+:func:`bin_place_model` and :func:`perread_image_model` are a numpy
+model of that arithmetic -- where a bin lives in a packed word, the
+work units of rows and chunks, the checksum from the old values the
+atomics return -- so that the CPU tests can hold it against the plain
+twin.  Its plain twin :func:`perread_hist_plain` is the
 ``scatter`` route of ``ops/perread.py`` followed by the same packing and
 checksum in torch ops; the two return equal arrays, pad rows included,
 so one :func:`unpack_counts` serves both.
@@ -39,7 +45,9 @@ from .build import load_library
 __all__ = [
     "DEFAULT_READ_BLOCK",
     "MAX_PERREAD_K",
+    "bin_place_model",
     "packed_auto",
+    "perread_image_model",
     "perread_hist",
     "perread_hist_plain",
     "resolve_packed",
@@ -185,6 +193,81 @@ def perread_hist_plain(codes: torch.Tensor, k: int, canonical: bool = False, *,
     chk = torch.zeros(b_pad, dtype=torch.int32, device=codes.device)
     chk[:b] = (counts & 3).sum(1, dtype=torch.int32)
     return out, chk.reshape(b_pad // rb, rb).sum(1, dtype=torch.int32)
+
+
+# ------------------------------------------- the kernel's bin arithmetic
+
+# csrc/perread.cu: the largest image of a block, the words that short
+# rows share, and the most rows of one image.
+IMAGE_WORDS = 16384
+TILE_WORDS = 4096
+MAX_TILE_ROWS = 64
+
+
+def bin_place_model(keys: np.ndarray, k: int, packing):
+    """numpy model of ``bin_place`` of ``csrc/perread.cu``: where the bins
+    ``keys`` live in an output row of ``4**k / n`` words with n = 1
+    (unpacked), 2 ("fh") or 4 ("b4") bins a word.  Returns ``(word,
+    shift)``: the word of the row, and the bit its field starts at."""
+    per = {False: 1, "fh": 2, "b4": 4}[packing]
+    log_row_words = 2 * k - (per.bit_length() - 1)
+    keys = np.asarray(keys, np.int64)
+    word = keys & ((1 << log_row_words) - 1)
+    shift = (32 // per) * (per - 1 - (keys >> log_row_words))
+    return word, shift
+
+
+def perread_image_model(codes: np.ndarray, k: int, canonical: bool = False, *,
+                        packed=False, read_block: int = DEFAULT_READ_BLOCK,
+                        checksum: bool = False, image_words: int = IMAGE_WORDS,
+                        tile_words: int = TILE_WORDS,
+                        max_tile_rows: int = MAX_TILE_ROWS):
+    """numpy model of ``perread_hist_kernel`` of ``csrc/perread.cu``, unit
+    by unit: a unit is a tile of consecutive output rows times a chunk of
+    each row's words; it adds ``1 << shift`` at the word of every window
+    whose word falls in its chunk, into an image that starts at 0, and
+    the image is the unit's part of the output.  The checksum is the sum
+    of the deltas read off the old words: -3 where the bin's old count
+    has ``count & 3 == 3``, else +1.  Keys come from the plain
+    ``window_indices``.  Returns what :func:`perread_hist` returns, as
+    numpy arrays."""
+    t = torch.from_numpy(np.ascontiguousarray(codes))
+    w, kl, packing, rb, b_pad = _plan(t, k, packed, read_block)
+    b = codes.shape[0]
+    idx = window_indices(t, k, canonical).numpy()
+    per = {False: 1, "fh": 2, "b4": 4}[packing]
+    row_words = 4**k // per
+    rows = b_pad if packing else b
+    chunk_words = min(row_words, image_words)
+    tile_rows = min(max(tile_words // row_words, 1), max_tile_rows)
+    chunks = row_words // chunk_words
+    out = np.zeros((rows, row_words), np.uint32)
+    chk = np.zeros(b_pad // rb, np.int64)
+    units = -(-rows // tile_rows) * chunks
+    for unit in range(units):
+        tile, chunk = divmod(unit, chunks)
+        word_lo = chunk * chunk_words
+        row0 = tile * tile_rows
+        n_rows = min(tile_rows, rows - row0)
+        image = np.zeros(tile_rows * chunk_words, np.uint32)
+        for r in range(n_rows):
+            if row0 + r >= b:
+                break
+            keys = idx[row0 + r]
+            word, shift = bin_place_model(keys[keys >= 0], k, packing)
+            word = word - word_lo
+            mine = (word >= 0) & (word < chunk_words)
+            for wd, sh in zip(word[mine].tolist(), shift[mine].tolist()):
+                old = int(image[r * chunk_words + wd])
+                image[r * chunk_words + wd] = old + (1 << sh)
+                chk[(row0 + r) // rb] += -3 if (old >> sh) & 3 == 3 else 1
+        out[row0:row0 + n_rows, word_lo:word_lo + chunk_words] = (
+            image[:n_rows * chunk_words].reshape(n_rows, chunk_words))
+    out = out.view(np.int32)
+    if packing:
+        kh = k - kl
+        out = out.reshape(b_pad, 4**kh // per, 4**kl)
+    return (out, chk.astype(np.int32)) if checksum else out
 
 
 @functools.cache

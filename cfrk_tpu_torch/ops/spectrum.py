@@ -17,7 +17,7 @@ chosen by ``impl``:
   a CPU tensor its plain twin, the scatter route, runs.
 
 ``auto`` follows the JAX package: on a CUDA tensor its TPU policy (the
-kernel for k <= 10; the file driver's sorted route takes k >= 9 before
+kernel for k <= 10; ``spectrum_file``'s sorted route takes k >= 11 before
 this is reached), elsewhere its off-TPU policy (``matmul`` for k <= 6,
 ``scatter`` above).  The JAX package's slicing of large batches into
 8192-read kernel calls is a TPU-measured optimum and is not carried

@@ -43,6 +43,7 @@ from ..ops.perread_sparse import (
     pairs_to_host,
 )
 from ..ops.sparse import DenseFoldAccumulator, SparseAccumulator
+from ..ops.cuda.spectrum import SPECTRUM_MAX_K
 from ..ops.spectrum import spectrum as spectrum_op
 from .batch import auto_batch_size, iter_batches, round_up
 
@@ -345,16 +346,18 @@ def _use_sorted_spectrum(k: int, impl: str, device: torch.device) -> bool:
     """Route a dense spectrum through the per-read sort + RLE rows.
 
     ``impl='sort'`` forces it for any k on any device.  ``auto`` takes it
-    for k >= 9 on a CUDA device, as the JAX package does on a TPU: there
-    the one-hot kernel's cost grows with 4**ceil(k/2) while the sorted
-    route's does not.  The crossover is the TPU's; its H100 counterpart
-    is measured in PERF.md, and the policy follows the JAX package until
-    a measurement changes it.  At k <= 8 the device table needs no
-    per-batch copy to the host.
+    on a CUDA device for k above the histogram kernel's range (k >= 11).
+    The JAX package crosses over at k >= 9 on a TPU, where its one-hot
+    kernel's cost grows with 4**ceil(k/2); on an H100 the histogram
+    kernel into one running device table is faster than the sorted
+    route per batch by far more than 10x at k = 9 and 10, on random and
+    on skewed reads alike (``chip_smoke.py`` times both; PERF.md), and
+    it needs no per-batch copy to the host.  k = 11-15 keeps the JAX
+    package's rule.
     """
     if impl == "sort":
         return True
-    if k <= 8:
+    if k <= SPECTRUM_MAX_K:
         return False
     return impl == "auto" and device.type == "cuda"
 

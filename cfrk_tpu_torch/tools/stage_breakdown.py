@@ -11,7 +11,7 @@ and prints one JSON object:
   (the dense per-read API: per-read ``--impl`` other than auto),
   ``dense`` (the spectrum on the device, one running table) or
   ``sorted`` (per-read row sorts and a host fold: the spectrum at
-  ``--impl sort`` or k >= 9 on CUDA, and ``--mode sparse``);
+  ``--impl sort`` or k >= 11 on CUDA, and ``--mode sparse``);
 * ``host_s`` — host wall seconds of each stage (``time.perf_counter``,
   with a ``torch.cuda.synchronize`` after each device stage, so a stage
   holds its own device work), and ``wall`` over all of them:

@@ -22,7 +22,12 @@ Phases, each of which exits non-zero on failure:
    batches and a batch that starts off a 16-byte boundary; the
    per-read histogram kernel in every emit (unpacked,
    "fh", "b4") with and without its checksum, and each variant of the
-   rowsort probe kernel;
+   rowsort probe kernel; both histogram kernels also on skewed
+   [8192, 256] batches (poly-A, reads of one 500 bp sequence, a
+   dinucleotide repeat) and on a batch off a 16-byte boundary, and the
+   per-read kernel's "b4" main batch three times over, every word
+   compared (a missing fence before its bulk copy shows as rare wrong
+   bytes);
 4. goldens: ``python -m cfrk_tpu_torch <seqN.fasta.gz> <out> 2`` must
    reproduce tests/data/goldens.json;
 5. main path at real size: seeded synthetic reads (100k x 150 bp and
@@ -47,11 +52,15 @@ Phases, each of which exits non-zero on failure:
 7. times: each kernel's ms per 8192-read batch beside the plain route's
    on the card (CUDA events, after warm-up; the rowsort kernels as a
    CUDA-graph replay, also at 70 bp and 4 kb, with ``torch.sort`` on
-   prebuilt keys as the sort stage's yardstick; the per-read histogram
-   kernel unpacked and "b4", with its written GB/s), each kernel's bound
-   (bytes over the memory rate, operations over the integer rate,
-   whichever is larger, from the shape it was timed at), the spectrum kernel
-   against the sorted route per batch at k = 9 and 10, the end-to-end
+   prebuilt keys as the sort stage's yardstick; the spectrum kernel as
+   a graph replay at k = 7, 8, 9, 10 on the random and the skewed
+   batches; the per-read histogram kernel "b4", "fh" and unpacked, with
+   its written GB/s, beside a ``zero_()`` of the same output and the
+   zero-then-scatter alternative: ``tools/hist_times.py``), each
+   kernel's bound (bytes over the memory rate, operations over the
+   integer rate, whichever is larger, from the shape it was timed at),
+   the spectrum kernel against the sorted route per batch at k = 9 and
+   10 on the random and the poly-A batch, the end-to-end
    bases/s of phases 5 and 6, and the rowsort probe tool
    (``python -m cfrk_tpu_torch.tools.rowsort_probe``) for each variant
    at k = 8 and k = 31, its checksums held to the plain twin's.
@@ -247,10 +256,16 @@ def check_kernels(seed: int) -> dict:
         log(f"kernel vs plain: {name} k={ks} x canonical x "
             f"{sorted(cases) + ['past_ceiling']}, and k in {WIDTH_CASE_KS} x "
             f"{sorted(widths)}: array-equal")
-    errs["spectrum_hist"] = check_spectrum_kernel(cases, batch(20_000, 256))
+    from cfrk_tpu_torch.tools.hist_times import skew_batches
+
+    skewed = {n: c for n, c in skew_batches(seed).items() if n != "random"}
+    hist_cases = dict(cases, edge_off_boundary=edge)  # 171 columns: see on_card
+    errs["spectrum_hist"] = check_spectrum_kernel(hist_cases, batch(20_000, 256),
+                                                  skewed)
     main_batch = np.full((BATCH, 256), -1, np.int8)
     main_batch[:, :150] = batch(BATCH, 150)
-    errs["perread_hist"] = check_perread_kernel(cases, batch(2, 40_000), main_batch)
+    errs["perread_hist"] = check_perread_kernel(hist_cases, batch(2, 40_000),
+                                                main_batch, skewed)
     errs["rowsort_probe"] = check_probe_kernel(cases, batch)
     return errs
 
@@ -324,13 +339,15 @@ def compare_arrays(name: str, got, want, what: str) -> int:
     return 0
 
 
-def check_perread_kernel(cases: dict, contig, main_batch) -> int:
+def check_perread_kernel(cases: dict, contig, main_batch, skewed: dict) -> int:
     """The per-read histogram kernel against its plain twin: unpacked,
     "fh", "b4" and the densest safe packing (where the row length allows
     it), read blocks of 16 and 5 (pad rows), with and without the
-    checksum, k in {1, 2, 4, 5, 7, 8} x canonical, every case, a 2 x
-    40 000 bp row, and the main path's [8192, 256] batch at k = 8 (the
-    twin on the card)."""
+    checksum, k in {1, 2, 4, 5, 7, 8} x canonical, every case (one of
+    them off a 16-byte boundary), a 2 x 40 000 bp row, the main path's
+    [8192, 256] batch at k = 8 in every emit (the twin on the card), its
+    "b4" emit three times over, and the skewed [8192, 256] batches at
+    k = 8 "b4" and k = 5 "fh" with the checksum."""
     import torch
 
     from cfrk_tpu_torch.ops.cuda import perread as P
@@ -352,20 +369,32 @@ def check_perread_kernel(cases: dict, contig, main_batch) -> int:
                         kw = dict(packed=packed, read_block=rb, checksum=checksum)
                         err = max(err, compare_arrays(
                             "perread_hist",
-                            P.perread_hist(torch.from_numpy(codes).cuda(), k, canonical, **kw),
+                            P.perread_hist(on_card(codes, case), k, canonical, **kw),
                             P.perread_hist_plain(torch.from_numpy(codes), k, canonical, **kw),
                             f"k={k} canonical={canonical} {case} {kw}"))
     codes = torch.from_numpy(main_batch).cuda()
-    for packed in (False, "b4"):
+    for packed in (False, "fh", "b4"):
         for checksum in (False, True):
             kw = dict(packed=packed, checksum=checksum)
-            err = max(err, compare_arrays(
-                "perread_hist", P.perread_hist(codes, 8, False, **kw),
-                P.perread_hist_plain(codes, 8, False, **kw),
-                f"k=8 [{BATCH}, 256] {kw}"))
+            want = P.perread_hist_plain(codes, 8, False, **kw)
+            for repeat in range(3 if packed == "b4" else 1):
+                err = max(err, compare_arrays(
+                    "perread_hist", P.perread_hist(codes, 8, False, **kw), want,
+                    f"k=8 [{BATCH}, 256] {kw} repeat {repeat}"))
+            del want
+    for case, batch in skewed.items():
+        codes = torch.from_numpy(batch).cuda()
+        for k, packed in ((8, "b4"), (5, "fh")):
+            for canonical in (False, True):
+                kw = dict(packed=packed, checksum=True)
+                err = max(err, compare_arrays(
+                    "perread_hist", P.perread_hist(codes, k, canonical, **kw),
+                    P.perread_hist_plain(codes, k, canonical, **kw),
+                    f"k={k} canonical={canonical} {case} [{BATCH}, 256] {kw}"))
     log(f"kernel vs plain: perread_hist k={ks} x canonical x "
-        f"{sorted(cases)} x packed/read_block/checksum, and [{BATCH}, 256] "
-        f"k=8 unpacked/b4: array-equal")
+        f"{sorted(cases)} x packed/read_block/checksum, [{BATCH}, 256] "
+        f"k=8 unpacked/fh/b4 (b4 three times), and {sorted(skewed)} at "
+        f"k=8 b4 / k=5 fh: array-equal")
     return err
 
 
@@ -397,10 +426,12 @@ def check_probe_kernel(cases: dict, batch) -> int:
     return err
 
 
-def check_spectrum_kernel(cases: dict, big) -> int:
-    """The histogram kernel against its plain twin: every case, one batch
-    of 20 000 reads (more than one 8192-read slice), and a running table
-    that takes two batches in place."""
+def check_spectrum_kernel(cases: dict, big, skewed: dict) -> int:
+    """The histogram kernel against its plain twin: every case (one of
+    them off a 16-byte boundary), one batch of 20 000 reads (more than
+    one 8192-read slice), a running table that takes two batches in
+    place, and the skewed [8192, 256] batches at k = 7, 8, 9, 10 (the
+    twin on the card)."""
     import torch
 
     from cfrk_tpu_torch.ops.cuda import spectrum as S
@@ -418,7 +449,7 @@ def check_spectrum_kernel(cases: dict, big) -> int:
             for case, codes in cases.items():
                 if codes.shape[1] < k:
                     continue
-                compare(S.spectrum_hist(torch.from_numpy(codes).cuda(), k, canonical),
+                compare(S.spectrum_hist(on_card(codes, case), k, canonical),
                         S.spectrum_hist_plain(torch.from_numpy(codes), k, canonical),
                         f"k={k} canonical={canonical} {case}")
             a, b = cases["150bp"], cases["edge_rows_odd_batch"]
@@ -427,8 +458,16 @@ def check_spectrum_kernel(cases: dict, big) -> int:
             want = S.spectrum_hist_plain(torch.from_numpy(a), k, canonical)
             S.spectrum_hist_plain(torch.from_numpy(b), k, canonical, out=want)
             compare(table, want, f"k={k} canonical={canonical} running table")
+    for case, batch in skewed.items():
+        codes = torch.from_numpy(batch).cuda()
+        for k in (7, 8, 9, 10):
+            for canonical in (False, True):
+                compare(S.spectrum_hist(codes, k, canonical),
+                        S.spectrum_hist_plain(codes, k, canonical),
+                        f"k={k} canonical={canonical} {case} [{BATCH}, 256]")
     log(f"kernel vs plain: spectrum_hist k={ks} x canonical x "
-        f"{sorted(cases) + ['running_table']}: array-equal")
+        f"{sorted(cases) + ['running_table']}, and k=7..10 x canonical x "
+        f"{sorted(skewed)}: array-equal")
     return err
 
 
@@ -636,29 +675,32 @@ def spectrum_legs(seed: int, r152, fa152: Path) -> list:
 
 def time_spectrum_routes(seed: int, card: str) -> dict:
     """Phase 7, spectrum: ms per 8192-read batch (150 bp padded to 256)
-    of the histogram kernel against its plain twin at k = 8 (CUDA
-    events), and of the kernel route (H2D + kernel into the running
-    table) against the sorted route (H2D + rowsort kernel + narrowed D2H
-    + host fold) at k = 9 and 10 (host clock, synchronised)."""
-    import numpy as np
+    of the histogram kernel at k = 7, 8, 9, 10 on the random and the
+    skewed batches (graph replays, ``tools/hist_times.py``) and of its
+    plain twin at k = 8 (CUDA events); then of the kernel route (H2D +
+    kernel into the running table) against the sorted route (H2D +
+    rowsort kernel + narrowed D2H + host fold) at k = 9 and 10 on the
+    random and the poly-A batch (host clock, synchronised)."""
     import torch
 
     from cfrk_tpu_torch.ops.cuda import spectrum as S
     from cfrk_tpu_torch.ops.perread_sparse import batch_spectrum_triples
     from cfrk_tpu_torch.ops.sparse import DenseFoldAccumulator
+    from cfrk_tpu_torch.tools.hist_times import skew_batches, time_spectrum
 
-    codes_np = np.full((BATCH, 256), -1, np.int8)
-    codes_np[:, :150] = synthetic_reads(seed + 4, BATCH, 150)
-    codes = torch.from_numpy(codes_np).cuda()
+    batches = skew_batches(seed + 4)
+    codes = torch.from_numpy(batches["random"]).cuda()
     p1 = time_kernel(S.spectrum_hist_plain, codes, 8, False)
-    k1 = time_kernel(S.spectrum_hist, codes, 8, False)
-    k2 = time_kernel(S.spectrum_hist, codes, 8, False)
+    k1 = time_spectrum(batches)
+    k2 = time_spectrum(batches)
     p2 = time_kernel(S.spectrum_hist_plain, codes, 8, False)
-    log(f"time spectrum_hist k=8 [{BATCH}, 256]: kernel {k1:.4f}/{k2:.4f} ms, "
-        f"plain {p1:.4f}/{p2:.4f} ms per batch ({card})")
-    out = {"spectrum_hist": ((k1 + k2) / 2, (p1 + p2) / 2)}
-
-    def kernel_route(k, iters=20):
+    by_case = {f"k{a['k']}_{a['batch']}": (a["ms"] + b["ms"]) / 2
+               for a, b in zip(k1, k2, strict=True)}
+    log("spectrum_hist_times: " + json.dumps({"card": card, "ms": by_case}))
+    log(f"time spectrum_hist k=8 [{BATCH}, 256]: kernel {by_case['k8_random']:.4f} ms "
+        f"as a graph replay, plain {p1:.4f}/{p2:.4f} ms per batch ({card})")
+    out = {"spectrum_hist": (by_case["k8_random"], (p1 + p2) / 2)}
+    def kernel_route(codes_np, k, iters=20):
         table = torch.zeros(4**k, dtype=torch.int32, device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -667,7 +709,7 @@ def time_spectrum_routes(seed: int, card: str) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / iters
 
-    def sorted_route(k, iters=20):
+    def sorted_route(codes_np, k, iters=20):
         acc = DenseFoldAccumulator(k)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -675,16 +717,20 @@ def time_spectrum_routes(seed: int, card: str) -> dict:
             acc.add(*batch_spectrum_triples(codes_np, k, max_len=150, device="cuda"))
         return (time.perf_counter() - t0) * 1e3 / iters
 
-    for k in (9, 10):
-        kernel_route(k, 3)
-        sorted_route(k, 3)
-        s1, q1, q2, s2 = sorted_route(k), kernel_route(k), kernel_route(k), sorted_route(k)
-        kern = time_kernel(S.spectrum_hist, codes, k, False)
-        out[f"k{k}"] = {"kernel_route_ms": (q1 + q2) / 2, "sorted_route_ms": (s1 + s2) / 2,
-                        "kernel_only_ms": kern}
-        log(f"time spectrum k={k} [{BATCH}, 256]: kernel route {q1:.4f}/{q2:.4f} ms "
-            f"(kernel alone {kern:.4f} ms), sorted route {s1:.4f}/{s2:.4f} ms "
-            f"per batch ({card})")
+    for name in ("random", "polyA"):
+        batch = batches[name]
+        for k in (9, 10):
+            kernel_route(batch, k, 3)
+            sorted_route(batch, k, 3)
+            s1, q1, q2, s2 = (sorted_route(batch, k), kernel_route(batch, k),
+                              kernel_route(batch, k), sorted_route(batch, k))
+            kern = by_case[f"k{k}_{name}"]
+            out[f"k{k}_{name}"] = {"kernel_route_ms": (q1 + q2) / 2,
+                                   "sorted_route_ms": (s1 + s2) / 2,
+                                   "kernel_only_ms": kern}
+            log(f"time spectrum k={k} {name} [{BATCH}, 256]: kernel route "
+                f"{q1:.4f}/{q2:.4f} ms (kernel alone {kern:.4f} ms), sorted route "
+                f"{s1:.4f}/{s2:.4f} ms per batch ({card})")
     return out
 
 
@@ -723,31 +769,34 @@ def dense_api_legs(r150, fa150: Path) -> list:
 
 def time_perread(seed: int, card: str) -> dict:
     """Phase 7, per-read histograms: ms per 8192-read batch (150 bp
-    padded to 256) at k = 8 of the kernel against its plain twin, both
-    on the card, unpacked and "b4"; written GB/s = output bytes / ms."""
-    import numpy as np
+    padded to 256) at k = 8 of the kernel in each emit ("b4", "fh",
+    unpacked) beside ``zero_()`` of the same output and the
+    zero-then-scatter alternative (``tools/hist_times.py``), and of its
+    plain twin, all on the card; written GB/s = output bytes / ms."""
     import torch
 
     from cfrk_tpu_torch.ops.cuda import perread as P
+    from cfrk_tpu_torch.tools import hist_times
 
-    codes_np = np.full((BATCH, 256), -1, np.int8)
-    codes_np[:, :150] = synthetic_reads(seed + 5, BATCH, 150)
+    codes_np = hist_times.skew_batches(seed + 5)["random"]
     codes = torch.from_numpy(codes_np).cuda()
     out = {}
-    for packed, nbytes in ((False, BATCH * 4**8 * 4), ("b4", BATCH * 4**8)):
-        kern = functools.partial(P.perread_hist, packed=packed)
-        plain = functools.partial(P.perread_hist_plain, packed=packed)
-        p1 = time_kernel(plain, codes, 8, False)
-        k1 = time_kernel(kern, codes, 8, False)
-        k2 = time_kernel(kern, codes, 8, False)
-        p2 = time_kernel(plain, codes, 8, False)
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        name = packed or "unpacked"
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "written_bytes": nbytes,
-                     "written_GB_per_s": nbytes / ms / 1e6,
-                     "plain_written_GB_per_s": nbytes / plain_ms / 1e6}
-        log(f"time perread_hist k=8 {name} [{BATCH}, 256]: kernel {k1:.4f}/{k2:.4f} ms "
-            f"({nbytes / ms / 1e6:.1f} GB/s written), plain {p1:.4f}/{p2:.4f} ms "
+    for rec in hist_times.time_perread(codes_np):
+        name = rec["emit"]
+        plain = functools.partial(P.perread_hist_plain,
+                                  packed=False if name == "unpacked" else name)
+        plain_ms = time_kernel(plain, codes, 8, False, iters=5)
+        ms = (rec["ms"] + rec["ms_again"]) / 2
+        out[name] = {"ms": ms, "plain_ms": plain_ms,
+                     "written_bytes": rec["written_bytes"],
+                     "written_GB_per_s": rec["written_bytes"] / ms / 1e6,
+                     "zero_ms": rec["zero_ms"],
+                     "zero_and_scatter_ms": rec["zero_and_scatter_ms"]}
+        log(f"time perread_hist k=8 {name} [{BATCH}, 256]: kernel "
+            f"{rec['ms']:.4f}/{rec['ms_again']:.4f} ms "
+            f"({out[name]['written_GB_per_s']:.1f} GB/s written), zero_() "
+            f"{rec['zero_ms']:.4f} ms, zero_() + scatter "
+            f"{rec['zero_and_scatter_ms']:.4f} ms, plain {plain_ms:.4f} ms "
             f"per batch ({card})")
     return out
 

@@ -209,6 +209,23 @@ def test_spectrum_mode_matches_jax_cli(tmp_path, fmt, flags):
     assert got == want and got
 
 
+@pytest.mark.parametrize("fmt", ["tsv", "hist"])
+@pytest.mark.parametrize("flags", [("-k", "9"), ("-k", "10", "--canonical")],
+                         ids=["k9", "k10_canonical"])
+def test_spectrum_k9_k10_routes_match_jax_cli(tmp_path, fmt, flags):
+    """k = 9 and 10, where ``auto`` on CUDA takes the histogram kernel
+    and not the sorted route: ``auto`` and the kernel route (its plain
+    twin here) write the JAX CLI's bytes."""
+    inp = str(DATA / "seq2.fasta.gz")
+    mode = ("--mode", "spectrum", "--spectrum-format", fmt)
+    got, want = _both_spectrum(tmp_path, inp, "out.spec", *flags, *mode)
+    assert got == want and got
+    kernel = tmp_path / "kernel.spec"
+    assert main([inp, "-o", str(kernel), *flags, *mode, "--impl", "pallas",
+                 "--device", "cpu"]) == 0
+    assert kernel.read_bytes() == want
+
+
 @pytest.mark.parametrize("fmt", ["tsv", "npy", "hist"])
 def test_spectrum_gz_outputs_match_jax_cli(tmp_path, fmt):
     inp = _prefix_fasta(tmp_path, "seq1.fasta.gz", 30)

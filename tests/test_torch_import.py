@@ -157,18 +157,28 @@ def test_perread_wrapper_off_cpu_launches_or_raises():
 
 
 def test_perread_slab_fits_shared_memory():
-    """The kernel's slab of int32 counts (all hi bins times a range of
-    lo bins) fits a block's shared memory at every k, and at k = 8 the
-    lo axis splits evenly."""
-    from cfrk_tpu_torch.ops.encode import split_k
+    """The kernel's shared-memory image of output words fits a block's
+    shared memory three times an SM; the numpy model holds the source's
+    constants; and at every k and emit a row is a whole number of
+    images or an image a whole number of rows, in multiples of 16 bytes
+    from k = 2 on (what a bulk copy takes)."""
+    from cfrk_tpu_torch.ops.cuda import perread as P
 
     src = (ROOT / "cfrk_tpu_torch" / "csrc" / "perread.cu").read_text()
-    slab = int(re.search(r"constexpr int kSlabBins = (\d+);", src).group(1))
-    assert slab * 4 <= 227 * 1024
+    image, tile, max_rows = (
+        int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+        for name in ("kImageWords", "kTileWords", "kMaxTileRows"))
+    assert (image, tile, max_rows) == (P.IMAGE_WORDS, P.TILE_WORDS, P.MAX_TILE_ROWS)
+    assert 3 * (image * 4 + 1024) <= 227 * 1024
     for k in range(1, 9):
-        kh, kl = split_k(k)
-        lo = 4**kl if 4**k <= slab else slab // 4**kh
-        assert 4**kh * lo <= slab and 4**kl % lo == 0
+        for per in (1, 2, 4):
+            row_words = 4**k // per
+            chunk = min(row_words, image)
+            rows = min(max(tile // row_words, 1), max_rows)
+            assert row_words % chunk == 0 and rows * chunk <= image
+            assert rows == 1 or chunk == row_words
+            if k >= 2:
+                assert rows * chunk * 4 % 16 == 0
 
 
 def test_build_hash_covers_shared_headers(monkeypatch, tmp_path):

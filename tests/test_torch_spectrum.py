@@ -222,9 +222,23 @@ def test_spectrum_file_empty_input(tmp_path):
     np.testing.assert_array_equal(got, np.zeros(64, np.int64))
 
 
+@pytest.mark.parametrize("k", range(1, 16))
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_auto_route_per_k_and_device(k, device):
+    """``auto`` takes the sorted route only on CUDA and only above the
+    histogram kernel's range; every other impl but ``sort`` never."""
+    dev = torch.device(device)
+    assert tcount._use_sorted_spectrum(k, "auto", dev) == (device == "cuda" and k >= 11)
+    assert tcount._use_sorted_spectrum(k, "sort", dev)
+    for impl in ("scatter", "matmul", "pallas"):
+        assert not tcount._use_sorted_spectrum(k, impl, dev)
+
+
 def test_sorted_route_policy():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert tcount._use_sorted_spectrum(9, "auto", cuda)
+    assert not tcount._use_sorted_spectrum(9, "auto", cuda)
+    assert not tcount._use_sorted_spectrum(10, "auto", cuda)
+    assert tcount._use_sorted_spectrum(11, "auto", cuda)
     assert not tcount._use_sorted_spectrum(8, "auto", cuda)
     assert not tcount._use_sorted_spectrum(9, "auto", cpu)
     assert not tcount._use_sorted_spectrum(10, "pallas", cuda)
