@@ -20,10 +20,13 @@ CLI, compatible with the reference binary's positional form::
     python -m cfrk_tpu_torch reads.fasta out.cfrk 8 --impl pallas
     python -m cfrk_tpu_torch reads.fasta -k 8 --mode spectrum
     python -m cfrk_tpu_torch reads.fasta -k 31 --canonical --mode sparse
+    python -m cfrk_tpu_torch reads.fasta out.cfrk 8 --nonzero --stream
+    python -m cfrk_tpu_torch reads.fasta out.cfrk 8 --nonzero --resume
 
 The library exports the JAX package's names for the dense per-read API
 (whose file drivers take the ``device`` their batches run on) and the
-spectrum API.
+spectrum API, and the streaming drivers with checkpoint and resume
+(``stream_count_file``, ``stream_spectrum_file``).
 """
 
 from .format import CfrkWriter, format_file_bytes, parse_cfrk
@@ -36,6 +39,7 @@ from .pipeline.count import (
     spectrum_file,
     write_cfrk,
 )
+from .pipeline.stream import stream_count_file, stream_spectrum_file
 from .version import __version__
 
 __all__ = [
@@ -49,5 +53,7 @@ __all__ = [
     "spectrum",
     "spectrum_file",
     "sparse_spectrum_file",
+    "stream_count_file",
+    "stream_spectrum_file",
     "write_cfrk",
 ]

@@ -1,8 +1,9 @@
 """Command-line interface: per-read `.cfrk` rows and k-mer spectra on a
 GPU.
 
-The non-streaming, single-device modes of ``cfrk_tpu/cli.py``, with
-the reference binary's positional contract (``cfrk <dataset.fasta>
+The single-device modes of ``cfrk_tpu/cli.py``, in memory or streamed
+with checkpoint and resume, with the reference binary's positional
+contract (``cfrk <dataset.fasta>
 <out.cfrk> <k> [nt] [chunkSize]``, reference ``src/main.cu:239-250``)::
 
     python -m cfrk_tpu_torch reads.fasta out.cfrk 8 --nonzero
@@ -11,6 +12,10 @@ the reference binary's positional contract (``cfrk <dataset.fasta>
         [--spectrum-format cfrk|tsv|npy|hist] [--min-count N] [-o out]
     python -m cfrk_tpu_torch reads.fa -k 31 --canonical --mode sparse \
         [--spectrum-format tsv|hist] [--min-count N] [-o out]
+    python -m cfrk_tpu_torch reads.fa out.cfrk 8 --nonzero --stream \
+        [--checkpoint-every N] [--packed]
+    python -m cfrk_tpu_torch reads.fa out.cfrk 8 --nonzero --resume
+    python -m cfrk_tpu_torch reads.fa -k 8 --mode spectrum --stream -o out
 
 Each writes the same bytes as ``cfrk_tpu``'s CLI.  ``--device cuda``
 (the default) runs the CUDA kernels and refuses to run without a
@@ -33,8 +38,8 @@ __all__ = ["main", "build_parser"]
 
 # Flags of cfrk_tpu's CLI this package does not serve yet.
 _NOT_PORTED = (
-    "--list-devices", "--out-dir", "--profile", "--stream", "--resume", "--checkpoint-every",
-    "--mem-budget-mb", "--packed", "--max-parallel-tasks", "--retries",
+    "--list-devices", "--out-dir", "--profile",
+    "--mem-budget-mb", "--max-parallel-tasks", "--retries",
     "--no-lazy-errors", "--provenance", "--devices", "--tp", "--seqpar",
     "--slack", "--distributed", "--config",
 )
@@ -118,6 +123,32 @@ def build_parser() -> argparse.ArgumentParser:
         help="cuda runs the CUDA kernels; cpu runs the plain PyTorch route",
     )
     p.add_argument("--stats", action="store_true", help="print a JSON stats line to stderr")
+    p.add_argument(
+        "--stream", action="store_true",
+        help=(
+            "constant-memory streaming driver with checkpoint/resume "
+            "(for inputs too large to hold in memory)"
+        ),
+    )
+    p.add_argument(
+        "--resume", action="store_true",
+        help="resume a checkpointed --stream run (implies --stream)",
+    )
+    p.add_argument(
+        "--checkpoint-every", type=int, default=None, metavar="N",
+        help=(
+            "checkpoint every N batches in --stream mode (default: 1 for "
+            "perread, 16 for spectrum, whose checkpoint copies the whole "
+            "table to the host and to disk)"
+        ),
+    )
+    p.add_argument(
+        "--packed", action="store_true",
+        help=(
+            "stream mode, k<=8: the per-read histogram kernel's packed emit "
+            "(1-2 bytes/bin of device-to-host traffic)"
+        ),
+    )
     return p
 
 
@@ -226,6 +257,38 @@ def _resolve_device(name: str):
     return torch.device(name)
 
 
+def _run_stream(args, inp: str, out: str, device) -> int:
+    """``--stream``: the constant-memory drivers of pipeline/stream.py;
+    returns the reads this run counted.  The spectrum's checkpoint
+    survives until the real output exists, so a crash while it is
+    written stays resumable."""
+    from .pipeline.batch import auto_batch_size
+    from .pipeline.stream import stream_count_file, stream_spectrum_file
+    from .runtime.checkpoint import cleanup_checkpoint
+
+    common = dict(device=device, canonical=args.canonical, impl=args.impl,
+                  batch_size=args.batch_size or auto_batch_size(),
+                  resume=args.resume, min_qual=args.min_qual)
+    try:
+        if args.mode == "perread":
+            m = stream_count_file(
+                inp, out, args.k, checkpoint_every=args.checkpoint_every or 1,
+                nonzero=args.nonzero, packed=args.packed, **common,
+            )
+        else:
+            table, m = stream_spectrum_file(
+                inp, args.k, out_path=out, cleanup=False,
+                checkpoint_every=args.checkpoint_every or 16, **common,
+            )
+            _write_spectrum(out, table, args.spectrum_format, args.min_count)
+            cleanup_checkpoint(out)
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(str(e))
+    if args.stats:
+        print(m.json_line(), file=sys.stderr)
+    return m.reads
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args, unknown = parser.parse_known_args(argv)
@@ -264,16 +327,30 @@ def main(argv=None) -> int:
                 f"per-read k={args.k} > 8 requires --nonzero "
                 "(dense 4**k rows would be gigabytes per read)"
             )
+    if args.resume:
+        args.stream = True
+    if args.stream and args.mode == "sparse":
+        raise _not_ported("--mode sparse --stream")
     device = _resolve_device(args.device)
+    out = args.output or _out_path(inp, args.mode)
+    big = os.path.getsize(inp)
+    if big > 4 << 30 and not args.stream:
+        print(
+            f"cfrk-tpu-torch: note: {big / (1 << 30):.1f} GiB of input will "
+            "be held in memory; --stream runs in constant memory "
+            "with checkpoint/resume",
+            file=sys.stderr,
+        )
     from .pipeline import count
 
-    out = args.output or _out_path(inp, args.mode)
     common = dict(device=device, canonical=args.canonical,
                   batch_size=args.batch_size, max_len=args.max_len,
                   min_qual=args.min_qual)
     t0 = time.perf_counter()
     reads = None
-    if args.mode == "perread" and (
+    if args.stream:
+        reads = _run_stream(args, inp, out, device)
+    elif args.mode == "perread" and (
         (args.nonzero and args.k > 8) or args.impl == "auto"
     ):
         # Rows through the per-read sort + RLE whenever the kernel choice

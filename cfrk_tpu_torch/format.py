@@ -274,10 +274,13 @@ class CfrkWriter:
     """Streaming `.cfrk` writer: batches arrive one at a time while the
     file contract holds — a newline before every row but the first.
     A path ending in ``.gz`` is written gzip-compressed.  ``nonzero=True``
-    makes :meth:`write_batch` write only the nonzero cells of each row."""
+    makes :meth:`write_batch` write only the nonzero cells of each row.
+    ``continuing=True`` resumes mid-file: rows already exist, so the next
+    row written is preceded by a newline (checkpoint resume; for a path
+    the caller opens the file itself, since a path is opened anew)."""
 
     def __init__(self, f: IO[bytes] | str | os.PathLike, *,
-                 nonzero: bool = False):
+                 continuing: bool = False, nonzero: bool = False):
         if isinstance(f, (str, os.PathLike)):
             self._f: IO[bytes] = (
                 gzip.open(f, "wb") if str(f).endswith(".gz") else open(f, "wb")
@@ -286,7 +289,7 @@ class CfrkWriter:
         else:
             self._f = f
             self._owns = False
-        self._first = True
+        self._first = not continuing
         self._nonzero = nonzero
 
     def _write(self, data: bytes, n_rows: int) -> None:

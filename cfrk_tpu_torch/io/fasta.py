@@ -1,14 +1,17 @@
 """FASTA/FASTQ parsing and 2-bit base encoding (host side, numpy).
 
-A numpy copy of the parts of ``cfrk_tpu/io/fasta.py`` the per-read path
-needs.  The port cannot import that module: any ``cfrk_tpu`` import runs
-the JAX package's ``__init__``, which imports jax.  The native C++
-parser of the JAX package is not used; this pure-Python path gives the
-same records (the JAX package pins the two byte-identical).
+A numpy copy of the parts of ``cfrk_tpu/io/fasta.py`` the drivers need:
+the whole-file reader of the in-memory drivers and the record stream
+with input byte offsets of the streaming ones.  The port cannot import
+that module: any ``cfrk_tpu`` import runs the JAX package's
+``__init__``, which imports jax.  The native C++ parser of the JAX
+package is not used; this pure-Python path gives the same records (the
+JAX package pins the two byte-identical).
 
 Encoding contract: A/a→0, C/c→1, G/g→2, T/t→3, anything else→-1.
-Multi-line records are concatenated without their newlines; gzip (and
-BGZF, which is multi-member gzip) inputs are read transparently.
+Multi-line records are concatenated without their newlines; gzip inputs
+are read transparently, BGZF ones through the block reader of
+``io/bgzf.py``.
 """
 
 from __future__ import annotations
@@ -19,12 +22,16 @@ from typing import IO, Iterator
 
 import numpy as np
 
+from .bgzf import is_bgzf, open_maybe_bgzf
+
 __all__ = [
     "ENCODE_LUT",
     "encode_seq",
     "iter_fasta",
     "iter_fastq",
     "iter_reads",
+    "iter_fasta_encoded",
+    "iter_encoded_with_offsets",
     "read_fasta_encoded",
 ]
 
@@ -59,6 +66,9 @@ def _open_maybe_gzip(path: str | os.PathLike) -> IO[bytes]:
     magic = f.read(2)
     f.seek(0)
     if magic == b"\x1f\x8b":
+        if is_bgzf(path):  # blocked gzip: parallel-inflating reader
+            f.close()
+            return open_maybe_bgzf(path)
         return gzip.open(f, "rb")  # type: ignore[return-value]
     return f
 
@@ -116,6 +126,124 @@ def iter_reads(
             yield from iter_fastq(f, min_qual)
         else:
             yield from iter_fasta(f)
+
+
+def iter_fasta_encoded(path, min_qual: int = 0) -> Iterator[np.ndarray]:
+    """Stream encoded records one at a time (constant memory): FASTA or
+    FASTQ (sniffed), plain or gzipped."""
+    for _, s in iter_reads(path, min_qual):
+        yield encode_seq(s)
+
+
+def iter_encoded_with_offsets(
+    path, start_offset: int | None = None, min_qual: int = 0
+) -> Iterator[tuple[np.ndarray, int | None]]:
+    """Stream ``(codes, end_offset)`` with input byte offsets.
+
+    ``end_offset`` is the byte position just PAST each record: the file
+    position for plain files, the decompressed position for bgzf.  The
+    streaming driver checkpoints it so that resume can seek instead of
+    re-parsing gigabytes.  For plain gzip inputs offsets are None
+    (resume falls back to record skipping).  ``start_offset`` seeks
+    there before parsing; it must point at a record boundary, i.e. a
+    previously yielded end_offset.
+    """
+    f = open(path, "rb")
+    if f.peek(2)[:2] == b"\x1f\x8b":
+        f.close()
+        if not is_bgzf(path):
+            # plain gzip: no random access, offsets meaningless
+            if start_offset:
+                raise ValueError("start_offset unsupported for gzip input")
+            for codes in iter_fasta_encoded(path, min_qual):
+                yield codes, None
+            return
+        # bgzf: decompressed offsets are valid resume points
+        # (BgzfReader.seek_decompressed) — count positions manually,
+        # since tell() on the unseekable raw stream is unavailable.
+        bf = open_maybe_bgzf(path)
+        try:
+            if start_offset:
+                bf.raw.seek_decompressed(start_offset)
+            yield from _offset_records(
+                _CountingReader(bf, start_offset or 0), min_qual
+            )
+        finally:
+            bf.close()
+        return
+    try:
+        if start_offset:
+            f.seek(start_offset)
+        yield from _offset_records(f, min_qual)
+    finally:
+        f.close()
+
+
+class _CountingReader:
+    """readline/tell/peek over an unseekable stream, counting positions
+    (bgzf path of :func:`iter_encoded_with_offsets`)."""
+
+    def __init__(self, f, pos: int):
+        self._f = f
+        self._pos = pos
+
+    def readline(self) -> bytes:
+        line = self._f.readline()
+        self._pos += len(line)
+        return line
+
+    def tell(self) -> int:
+        return self._pos
+
+    def peek(self, n: int = 64) -> bytes:
+        return self._f.peek(n)
+
+
+def _offset_records(f, min_qual: int = 0) -> Iterator[tuple[np.ndarray, int]]:
+    """The (codes, end_offset) record loop over an open byte stream
+    positioned at a record boundary (shared by the plain-file and
+    bgzf branches of :func:`iter_encoded_with_offsets`)."""
+    head = f.peek(64)
+    fastq = head.lstrip(b"\r\n")[:1] == b"@"
+    if fastq:
+        while True:
+            hdr = f.readline()
+            if not hdr:
+                return
+            if not hdr.rstrip(b"\r\n"):
+                continue
+            if not hdr.startswith(b"@"):
+                raise ValueError(f"malformed FASTQ header: {hdr[:40]!r}")
+            seq = f.readline().rstrip(b"\r\n")
+            plus = f.readline()
+            if not plus.startswith(b"+"):
+                raise ValueError("malformed FASTQ record: missing '+' line")
+            qual = f.readline().rstrip(b"\r\n")
+            if len(qual) != len(seq):
+                raise ValueError(
+                    "malformed FASTQ record: quality length mismatch"
+                )
+            if min_qual:
+                seq = _mask_low_qual(seq, qual, min_qual)
+            yield encode_seq(seq), f.tell()
+    else:
+        parts: list[bytes] = []
+        in_record = False
+        while True:
+            line_start = f.tell()
+            line = f.readline()
+            if not line:
+                if in_record:
+                    yield encode_seq(b"".join(parts)), f.tell()
+                return
+            stripped = line.rstrip(b"\r\n")
+            if stripped.startswith(b">"):
+                if in_record:
+                    yield encode_seq(b"".join(parts)), line_start
+                in_record = True
+                parts = []
+            elif stripped and in_record:
+                parts.append(stripped)
 
 
 def read_fasta_encoded(path, min_qual: int = 0) -> list[np.ndarray]:

@@ -51,6 +51,18 @@ class ReadBatch:
     codes: np.ndarray
     lengths: np.ndarray
     n_reads: int
+    # Input byte offset just past this batch's last record, where the
+    # source has one (plain and bgzf files): a checkpointed run resumes
+    # by seeking there instead of re-parsing.
+    end_offset: int | None = None
+
+    @property
+    def batch_size(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def max_len(self) -> int:
+        return self.codes.shape[1]
 
 
 def pad_reads(

@@ -159,18 +159,19 @@ def _plan_shapes(reads: Sequence[np.ndarray], k: int, batch_size: int | None,
 
 
 def dense_counts_on_device(codes: torch.Tensor, k: int, canonical: bool,
-                           impl: str):
+                           impl: str, packed: bool = False):
     """One padded batch's dense counts on its device: ``(counts, packing)``.
 
-    Where :func:`packed_auto` holds (CUDA, 5 <= k <= 8, short rows) the
-    kernel emits the densest safe packed layout, 1 or 2 bytes per bin
-    of device write and device→host copy; ``packing`` names it.
+    Where :func:`packed_auto` holds (CUDA, 5 <= k <= 8, short rows), or
+    the caller asks for ``packed`` rows (any device, k <= 8) and they
+    fit, the kernel emits the densest safe packed layout, 1 or 2 bytes
+    per bin of device write and device→host copy; ``packing`` names it.
     Otherwise ``count_perread`` runs ``impl`` with int16 counts (exact:
     they are bounded by the windows per read) where the rows allow,
     and ``packing`` is False.
     """
     w = codes.shape[1] - k + 1
-    if packed_auto(impl, k, w, codes.device):
+    if (packed and w < 2**15) or packed_auto(impl, k, w, codes.device):
         packing = resolve_packed(True, w)
         return perread_hist(codes, k, canonical, packed=packing,
                             read_block=DEFAULT_READ_BLOCK), packing

@@ -1,0 +1,586 @@
+"""Constant-memory streaming drivers: FASTA of any size → `.cfrk` rows
+or a dense spectrum, with checkpoint and resume.
+
+The counterpart of the single-device half of
+``cfrk_tpu/pipeline/stream.py``.  The in-memory drivers
+(``pipeline/count.py``) hold every read; these hold a few batches:
+
+* **few batch shapes**: each batch is padded to a geometric length
+  bucket (128·2^j), so a run touches a handful of shapes and its pinned
+  host buffers are reused;
+* **parse/compute overlap**: a background thread parses and packs the
+  next batches into a bounded queue while the device runs;
+* **two batches in flight**: a batch's rows are taken from the device
+  two batches behind its launch.  On a CUDA device
+  (:class:`_BatchPipeline`) the codes go up from pinned staging buffers
+  and the results come down into pinned host buffers on a copy stream
+  of its own, so the host waits on an event only when it takes a
+  batch's rows; on the CPU the same loop runs with plain calls;
+* **checkpoint/resume** after every flushed batch
+  (``runtime/checkpoint.py``): the output is fsynced before the
+  checkpoint claims it, and a resumed run truncates the torn tail,
+  seeks the input (plain and bgzf files) and writes the same bytes.
+
+Not here yet: the sorted and sparse streaming spectra
+(``stream_sparse_spectrum_file``), stdin input, the native block
+ingest, meshes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue
+import sys
+import threading
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from ..format import CfrkWriter
+from ..io.bgzf import is_bgzf
+from ..io.fasta import iter_encoded_with_offsets
+from ..ops.perread_sparse import count_perread_rows, narrow_for_fetch, pairs_to_host
+from ..ops.spectrum import spectrum as spectrum_op
+from ..runtime import faults
+from ..runtime.checkpoint import StreamCheckpoint, checkpoint_path
+from ..runtime.metrics import RunMetrics
+from .batch import ReadBatch, len_bucket, pad_reads
+from .count import (
+    SPILL_LIMIT,
+    DenseSpectrumAccumulator,
+    _use_sorted_spectrum,
+    dense_counts_on_device,
+    dense_counts_to_host,
+)
+
+__all__ = [
+    "stream_batches",
+    "stream_count_file",
+    "stream_spectrum_file",
+]
+
+_SENTINEL = None
+
+
+def stream_batches(
+    path,
+    k: int,
+    batch_size: int,
+    *,
+    skip_reads: int = 0,
+    start_offset: int | None = None,
+    limit_offset: int | None = None,
+    len_base: int = 128,
+    min_qual: int = 0,
+) -> Iterator[ReadBatch]:
+    """Stream fixed-shape batches from a FASTA/FASTQ file, in read order.
+
+    Each batch is padded to the geometric length bucket of its longest
+    read and carries ``end_offset`` (the input byte position past its
+    last record; plain and bgzf files).  Resume paths: ``start_offset``
+    seeks straight to a record boundary; ``skip_reads`` drops that many
+    leading records by re-parsing (plain gzip).  ``limit_offset`` stops
+    before the first record STARTING at or past it (byte-range sharding
+    of one file over several processes).
+    """
+    if _is_gzip(path) and (start_offset or limit_offset is not None):
+        # Raise here, not just in stream_count_file: a limit_offset the
+        # gzip path cannot observe (its offsets are all None) would
+        # otherwise stream the WHOLE file, which in a ranged run counts
+        # reads twice.  bgzf offsets are DECOMPRESSED positions, reached
+        # through block metadata, so there both resume and ranges work.
+        if not is_bgzf(path):
+            raise ValueError(
+                "byte offsets cannot address a gzip stream; "
+                "decompress the input first (or recompress with bgzip)"
+            )
+
+    buf: list[np.ndarray] = []
+    last_off: int | None = None
+    prev_end = start_offset or 0  # start position of the next record
+
+    def flush() -> ReadBatch:
+        longest = max(max(len(r) for r in buf), k)
+        b = pad_reads(buf, batch_size, len_bucket(longest, len_base))
+        return dataclasses.replace(b, end_offset=last_off)
+
+    for i, (codes, off) in enumerate(
+        iter_encoded_with_offsets(
+            path, start_offset=start_offset, min_qual=min_qual
+        )
+    ):
+        if limit_offset is not None and prev_end >= limit_offset:
+            break
+        if off is not None:
+            prev_end = off
+        if i < skip_reads:
+            continue
+        buf.append(codes)
+        last_off = off
+        if len(buf) == batch_size:
+            yield flush()
+            buf = []
+    if buf:
+        # Tail batch: keep the full batch_size shape, so it runs at the
+        # shape of every other batch of its length bucket.
+        yield flush()
+
+
+def _is_gzip(path) -> bool:
+    with open(path, "rb") as f:
+        return f.read(2) == b"\x1f\x8b"
+
+
+def _resume_fingerprint(path, k, mode_tag, canonical, out_path, byte_range,
+                        min_qual=0):
+    """Shared resume plumbing of the stream drivers: reject gzip byte
+    ranges, tag ranged runs as a distinct unit of work (resume must
+    never mix a ranged checkpoint with a whole-file one), and build the
+    (fingerprint, checkpoint-path) pair."""
+    if byte_range is not None:
+        if _is_gzip(path) and not is_bgzf(path):
+            raise ValueError(
+                "byte_range needs a plain or bgzf input: a plain "
+                "gzip stream has no random access"
+            )
+        mode_tag += f"-range{byte_range[0]}-{byte_range[1]}"
+    fp = StreamCheckpoint.fingerprint_of(path, k, mode_tag, canonical)
+    if min_qual:
+        # Part of the unit-of-work identity: resuming a min_qual run
+        # without the flag (or the reverse) would splice differently
+        # masked counts.  Only set when active, so checkpoints written
+        # without the flag still match unmasked runs.
+        fp["min_qual"] = int(min_qual)
+    cpath = checkpoint_path(out_path) if out_path else None
+    return fp, cpath
+
+
+def _batch_feeder(gen: Iterator[ReadBatch], q: queue.Queue, err: list,
+                  stop: threading.Event) -> None:
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    try:
+        for b in gen:
+            if not put(b):
+                return
+    except BaseException as e:  # surface parser errors in the consumer
+        err.append(e)
+    finally:
+        put(_SENTINEL)
+        gen.close()  # release the input file handle promptly
+
+
+def _prefetched(
+    gen: Iterator[ReadBatch],
+    depth: int = 4,
+    metrics: RunMetrics | None = None,
+) -> Iterator[ReadBatch]:
+    """Run ``gen`` in a background thread with a bounded queue.
+
+    If the consumer stops early (an error downstream), the feeder is
+    signalled through ``stop``, so it does not block forever on a full
+    queue holding the input file open.  With ``metrics``, the time the
+    CONSUMER blocks waiting for the parser is accumulated under the
+    "parse_wait" stage: the *exposed* ingest time (zero when parsing
+    fully overlaps the rest)."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    err: list = []
+    stop = threading.Event()
+    t = threading.Thread(
+        target=_batch_feeder, args=(gen, q, err, stop), daemon=True
+    )
+    t.start()
+    try:
+        while True:
+            if metrics is not None:
+                with metrics.stage("parse_wait"):
+                    item = q.get()
+            else:
+                item = q.get()
+            if item is _SENTINEL:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=5)
+
+
+def _resume_batches(
+    path, k: int, batch_size: int, ckpt, byte_range=None, min_qual=0
+) -> Iterator[ReadBatch]:
+    """Batch stream honouring a checkpoint: a seek for plain and bgzf
+    files, re-parse + skip for plain gzip (with a loud warning: a gzip
+    stream has no random access, so decompress large inputs first).
+    ``byte_range=(start, limit)`` restricts the stream to records
+    starting in that range."""
+    start = byte_range[0] if byte_range else None
+    limit = byte_range[1] if byte_range else None
+    if ckpt.reads_done and ckpt.input_offset is not None:
+        return stream_batches(
+            path, k, batch_size, start_offset=ckpt.input_offset,
+            limit_offset=limit, min_qual=min_qual,
+        )
+    if ckpt.reads_done and _is_gzip(path):
+        print(
+            f"# resume on gzip input re-parses {ckpt.reads_done} records "
+            "from the start (no random access in a gzip stream); "
+            "decompress the input first for large runs",
+            file=sys.stderr,
+        )
+    return stream_batches(
+        path, k, batch_size, skip_reads=ckpt.reads_done,
+        start_offset=start, limit_offset=limit, min_qual=min_qual,
+    )
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One launched batch: its results on their way to the host."""
+
+    n_reads: int
+    end_offset: int | None
+    tag: object  # what ``compute`` said of the layout (the packing)
+    host: tuple  # CPU tensors the results arrive in
+    done: object  # torch.cuda.Event behind the last copy; None on the CPU
+    held: tuple = ()  # pinned buffers and device tensors the copies use
+
+
+class _BatchPipeline:
+    """Launches batches on one device and brings their results to the
+    host without holding the host.
+
+    ``compute(codes)`` takes a batch's ``[B, L]`` int8 codes on the
+    device and returns ``(outputs, tag)``: a tuple of tensors whose
+    first axis is the batch's rows, and whatever the caller needs to
+    read them.  Only the first ``n_reads`` rows of each output travel.
+
+    On a CUDA device the codes go up from a pinned staging buffer with a
+    non-blocking copy; the kernels run on the current stream; a copy
+    stream waits for them and copies each output into a pinned host
+    buffer, then records the event that :meth:`wait` synchronises on.
+    An :class:`_InFlight` holds its staging buffer, its device outputs
+    (the caching allocator does not know that the copy stream reads
+    them, so they must outlive the copy) and its host buffers until
+    :meth:`release` hands the pinned ones back for the next batch: with
+    two batches pending and one being written, three sets of a shape
+    exist.  On the CPU every step is a plain call.
+    """
+
+    def __init__(self, device: torch.device, compute):
+        self.device = device
+        self._compute = compute
+        self._cuda = device.type == "cuda"
+        self._copy_stream = torch.cuda.Stream(device) if self._cuda else None
+        self._free: dict = {}  # (shape, dtype) -> free pinned tensors
+
+    def _pinned(self, shape, dtype) -> torch.Tensor:
+        free = self._free.setdefault((tuple(shape), dtype), [])
+        return free.pop() if free else torch.empty(
+            tuple(shape), dtype=dtype, pin_memory=True)
+
+    def submit(self, batch: ReadBatch) -> _InFlight:
+        n = batch.n_reads
+        if not self._cuda:
+            outs, tag = self._compute(torch.from_numpy(batch.codes))
+            return _InFlight(n, batch.end_offset, tag,
+                             tuple(o[:n] for o in outs), None)
+        with torch.cuda.device(self.device):
+            staging = self._pinned(batch.codes.shape, torch.int8)
+            staging.numpy()[...] = batch.codes
+            outs, tag = self._compute(staging.to(self.device, non_blocking=True))
+            computed = torch.cuda.Event()
+            computed.record()
+            held, host = [staging], []
+            with torch.cuda.stream(self._copy_stream):
+                self._copy_stream.wait_event(computed)
+                for o in outs:
+                    if not o.is_cuda:  # rows past the kernels' ceiling
+                        host.append(o[:n])
+                        continue
+                    buf = self._pinned(o.shape, o.dtype)
+                    buf[:n].copy_(o[:n], non_blocking=True)
+                    held += [buf, o]
+                    host.append(buf[:n])
+                done = torch.cuda.Event()
+                done.record()
+        return _InFlight(n, batch.end_offset, tag, tuple(host), done, tuple(held))
+
+    def wait(self, job: _InFlight) -> tuple:
+        """The batch's results as CPU tensors, valid until :meth:`release`."""
+        if job.done is not None:
+            job.done.synchronize()
+        return job.host
+
+    def release(self, job: _InFlight) -> None:
+        for t in job.held:
+            if not t.is_cuda:
+                self._free[(tuple(t.shape), t.dtype)].append(t)
+        job.held = job.host = ()
+
+
+def _perread_compute(k: int, canonical: bool, impl: str, packed: bool,
+                     sparse_rows: bool):
+    """Batch → device results of the per-read drivers' two routes: the
+    narrowed (idx, counts) / (hi, lo, counts) rows of the per-read sort +
+    RLE, or dense counts in the layout ``dense_counts_on_device`` picks
+    (the tag is its packing)."""
+    if sparse_rows:
+        return lambda codes: (
+            narrow_for_fetch(count_perread_rows(codes, k, canonical), k), None
+        )
+
+    def dense(codes):
+        counts, packing = dense_counts_on_device(codes, k, canonical, impl, packed)
+        return (counts,), packing
+
+    return dense
+
+
+def stream_count_file(
+    path,
+    out_path,
+    k: int,
+    *,
+    device: torch.device | str,
+    canonical: bool = False,
+    impl: str = "auto",
+    batch_size: int = 8192,
+    resume: bool = False,
+    checkpoint_every: int = 1,
+    nonzero: bool = False,
+    packed: bool = False,
+    byte_range=None,
+    metrics: RunMetrics | None = None,
+    min_qual: int = 0,
+) -> RunMetrics:
+    """Stream a FASTA/FASTQ file into a `.cfrk` file with bounded memory,
+    its batches run on ``device``.
+
+    Checkpoints after every ``checkpoint_every`` flushed batches; with
+    ``resume=True`` a matching checkpoint restarts the run where it
+    stopped.  The checkpoint sidecar is removed on successful completion.
+    ``packed=True`` (k <= 8) runs the dense per-read histogram kernel in
+    its packed emit (1 or 2 bytes a bin, by the read length): less device
+    write and device→host copy, unpacked on the host.
+
+    Whenever the kernel choice is ours (``impl='auto'``, not ``packed``)
+    the rows go through the per-read sort + RLE: the drain ships (idx,
+    count) pairs instead of the dense matrix, mandatory past k = 8 and
+    far less to copy below it; the bytes are the same either way.
+    """
+    if packed:
+        if k > 8:
+            raise ValueError("packed mode needs k <= 8")
+        if impl not in ("auto", "pallas"):
+            # Packed IS the per-read histogram kernel: an explicit
+            # --impl scatter/matmul/host contradicts it.
+            raise ValueError(
+                f"packed mode uses the pallas kernel; drop --packed or "
+                f"use --impl auto/pallas (got --impl {impl})"
+            )
+    if str(out_path).endswith(".gz"):
+        raise ValueError(
+            "streaming .gz output is unsupported (checkpoints need byte "
+            "offsets); write plain .cfrk and compress afterwards, or use "
+            "the in-memory driver (count_file + write_cfrk)"
+        )
+    if k > 8 and not nonzero:
+        raise ValueError(
+            f"per-read k={k} > 8 requires nonzero=True (dense 4**k "
+            "rows would be gigabytes per read)"
+        )
+    device = torch.device(device)
+    # An explicit impl or packed request keeps the dense kernel the
+    # caller asked for; dense OUTPUT does not (the formatter densifies
+    # the pairs).
+    sparse_rows = (nonzero and k > 8) or (impl == "auto" and not packed)
+    pipe = _BatchPipeline(
+        device, _perread_compute(k, canonical, impl, packed, sparse_rows)
+    )
+    m = metrics or RunMetrics(k=k, mode="perread")
+    fp, cpath = _resume_fingerprint(
+        path, k, "perread-nonzero" if nonzero else "perread",
+        canonical, out_path, byte_range, min_qual,
+    )
+
+    ckpt = StreamCheckpoint(fingerprint=fp)
+    if resume and os.path.exists(cpath):
+        prev = StreamCheckpoint.load_if_valid(cpath)
+        if prev is not None and prev.matches(fp):
+            # The checkpoint only counts if the output really contains
+            # the bytes it promises: a missing or short file (a crash
+            # before the data hit disk) would otherwise be NUL-extended
+            # by truncate() and silently lose the first reads_done reads.
+            if (
+                os.path.exists(out_path)
+                and os.path.getsize(out_path) >= prev.out_bytes
+            ):
+                ckpt = prev
+
+    mode = "r+b" if (ckpt.reads_done and os.path.exists(out_path)) else "wb"
+    with open(out_path, mode) as f:
+        if ckpt.reads_done:
+            f.truncate(ckpt.out_bytes)  # drop any torn tail
+            f.seek(ckpt.out_bytes)
+        w = CfrkWriter(f, continuing=ckpt.reads_done > 0, nonzero=nonzero)
+
+        gen = _resume_batches(path, k, batch_size, ckpt, byte_range, min_qual)
+        pending: list[_InFlight] = []
+        since_ckpt = 0
+
+        def drain_one() -> None:
+            nonlocal since_ckpt
+            job = pending.pop(0)
+            with m.stage("materialize"):
+                host = pipe.wait(job)
+                if sparse_rows:
+                    pairs = pairs_to_host(host, job.n_reads)
+                else:
+                    counts = dense_counts_to_host(host[0], job.n_reads, job.tag)
+            with m.stage("write"):
+                if sparse_rows and nonzero:
+                    w.write_pairs(*pairs)
+                elif sparse_rows:
+                    w.write_pairs_dense(*pairs, 4**k)
+                else:
+                    w.write_batch(counts)
+            pipe.release(job)  # the formatter has consumed the host buffers
+            # Fault site: dies with this batch's rows written but NOT
+            # checkpointed; resume must truncate the torn tail and redo
+            # the batch (runtime/faults.py; a no-op unless armed).
+            faults.trip("batch-written")
+            ckpt.reads_done += job.n_reads
+            ckpt.input_offset = job.end_offset
+            since_ckpt += 1
+            if since_ckpt >= checkpoint_every:
+                with m.stage("checkpoint"):
+                    # fsync the DATA before the fsynced checkpoint JSON
+                    # claims it exists (write-ahead ordering).
+                    f.flush()
+                    os.fsync(f.fileno())
+                    ckpt.out_bytes = f.tell()
+                    ckpt.save(cpath)
+                since_ckpt = 0
+
+        for batch in _prefetched(gen, metrics=m):
+            with m.stage("dispatch"):
+                pending.append(pipe.submit(batch))
+            m.batches += 1
+            m.reads += batch.n_reads
+            m.bases += int(batch.lengths.sum())
+            if len(pending) > 2:
+                drain_one()
+        while pending:
+            drain_one()
+        # Make the tail durable BEFORE the checkpoint is removed: a
+        # crash after cleanup must not leave a silently truncated file.
+        f.flush()
+        os.fsync(f.fileno())
+
+    if os.path.exists(cpath):
+        ckpt.cleanup(cpath)
+    m.total_reads = ckpt.reads_done
+    return m
+
+
+def stream_spectrum_file(
+    path,
+    k: int,
+    *,
+    device: torch.device | str,
+    canonical: bool = False,
+    impl: str = "auto",
+    batch_size: int = 8192,
+    out_path=None,
+    resume: bool = False,
+    checkpoint_every: int = 16,
+    cleanup: bool = True,
+    byte_range=None,
+    metrics: RunMetrics | None = None,
+    min_qual: int = 0,
+) -> tuple[np.ndarray, RunMetrics]:
+    """Stream a FASTA/FASTQ file into one global dense spectrum
+    ``[4**k]`` int64, its batches run on ``device``.
+
+    The table lives ON THE DEVICE (int32, one kernel launch a batch) and
+    comes to the host only at checkpoints and at the end: a 4**15 table
+    is 4 GB, so a copy per batch would dominate the run.  ``out_path``
+    only places the checkpoint sidecar; pass the eventual output path.
+    ``cleanup=False`` keeps the checkpoint until the CALLER has written
+    the real output (``runtime.checkpoint.cleanup_checkpoint``), so that
+    a crash during that write stays resumable.
+    """
+    device = torch.device(device)
+    if _use_sorted_spectrum(k, impl, device):
+        raise NotImplementedError(
+            "the streamed sorted-route spectrum (--impl sort; --impl auto at "
+            "k = 11-15 on a CUDA device) is not yet ported to "
+            "cfrk_tpu_torch; --impl scatter streams the dense table"
+        )
+
+    def dispatch(arr, table):
+        return spectrum_op(arr, k, canonical=canonical, impl=impl, out=table)
+
+    m = metrics or RunMetrics(k=k, mode="spectrum")
+    fp, cpath = _resume_fingerprint(
+        path, k, "spectrum", canonical, out_path, byte_range, min_qual
+    )
+
+    ckpt = StreamCheckpoint(fingerprint=fp)
+    base = np.zeros(4**k, dtype=np.int64)
+    if resume and cpath and os.path.exists(cpath):
+        prev = StreamCheckpoint.load_if_valid(cpath)
+        if prev is not None and prev.matches(fp):
+            try:
+                base = prev.load_spectrum()
+                ckpt = prev
+            except (OSError, ValueError, KeyError):
+                pass  # torn sidecar: restart from scratch
+
+    # The device table is int32; it spills into the int64 host base
+    # before the windows added since the last spill could overflow any
+    # single bin (pipeline/count.DenseSpectrumAccumulator).
+    acc = DenseSpectrumAccumulator(k, dispatch, base, device=device)
+
+    gen = _resume_batches(path, k, batch_size, ckpt, byte_range, min_qual)
+    since_ckpt = 0
+    for batch in _prefetched(gen, metrics=m):
+        batch_windows = batch.codes.shape[0] * (batch.codes.shape[1] - k + 1)
+        if acc.windows + batch_windows >= SPILL_LIMIT:
+            with m.stage("drain"):
+                acc.spill()
+        with m.stage("dispatch"):
+            acc.add(batch.codes)
+        m.batches += 1
+        m.reads += batch.n_reads
+        m.bases += int(batch.lengths.sum())
+        ckpt.reads_done += batch.n_reads
+        ckpt.input_offset = batch.end_offset
+        since_ckpt += 1
+        if cpath and since_ckpt >= checkpoint_every:
+            # "drain" waits for every launched batch and copies the
+            # table down; it is device time, not checkpoint I/O.
+            with m.stage("drain"):
+                acc.spill()
+            with m.stage("checkpoint"):
+                ckpt.save_spectrum(cpath, acc.base)
+                ckpt.save(cpath)
+            since_ckpt = 0
+
+    with m.stage("drain"):
+        total = acc.total()
+    if cleanup and cpath and os.path.exists(cpath):
+        ckpt.cleanup(cpath)
+    m.total_reads = ckpt.reads_done
+    return total, m

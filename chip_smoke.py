@@ -49,7 +49,22 @@ Phases, each of which exits non-zero on failure:
    to an independent numpy spectrum on sampled lines).  Each leg's
    counts are set to 0 just before it, must show its kernel launched,
    and its bytes must equal ``--device cpu``;
-7. times: each kernel's ms per 8192-read batch beside the plain route's
+7. streamed legs (``--stream`` / ``--resume`` / ``--packed``), each
+   with every kernel count set to 0 just before it and read just after:
+   the 100k x 150 bp file through ``8 --nonzero --stream --stats``
+   (sha256 of the k=8 leg of phase 5, no checkpoint left, its
+   ``stages_s`` logged); the same command as a subprocess killed by
+   ``CFRK_FAULT_INJECT=batch-written:7`` (non-zero exit, a torn tail and
+   a checkpoint left) and resumed in this process (fewer launches than
+   the fresh run, the same sha256); ``31 --canonical --nonzero --stream``
+   on a BGZF copy of the 152 bp file, killed at ``checkpoint:5`` and
+   resumed by a seek to the checkpoint's decompressed offset (no
+   re-parse warning); ``8 --nonzero --stream --packed`` on the first 50k
+   reads (the per-read histogram kernel, sha256 of phase 5's dense-API
+   leg); and ``--mode spectrum --stream`` at k=8 on the 1M reads as a
+   subprocess beside a non-streamed subprocess (each reports its
+   launches; bytes equal to phase 6's leg; both peak RSS logged);
+8. times: each kernel's ms per 8192-read batch beside the plain route's
    on the card (CUDA events, after warm-up; the rowsort kernels as a
    CUDA-graph replay, also at 70 bp and 4 kb, with ``torch.sort`` on
    prebuilt keys as the sort stage's yardstick; the spectrum kernel as
@@ -61,7 +76,7 @@ Phases, each of which exits non-zero on failure:
    integer rate, whichever is larger, from the shape it was timed at),
    the spectrum kernel against the sorted route per batch at k = 9 and
    10 on the random and the poly-A batch, the end-to-end
-   bases/s of phases 5 and 6, and the rowsort probe tool
+   bases/s of phases 5 to 7, and the rowsort probe tool
    (``python -m cfrk_tpu_torch.tools.rowsort_probe``) for each variant
    at k = 8 and k = 31, its checksums held to the plain twin's.
 
@@ -601,14 +616,16 @@ def run_spectrum_leg(label: str, fasta: Path, reads, flags: list,
         "cuda_wall_s": wall, "cpu_route_wall_s": cpu_wall,
         "bases_per_s": int(reads.size) / wall, "launches": launches,
         "bytes": len(gpu_bytes), "checked": checked,
+        "sha256": hashlib.sha256(gpu_bytes).hexdigest(),
     }
     log(f"spectrum leg {label}: " + json.dumps(res))
     return res
 
 
-def spectrum_legs(seed: int, r152, fa152: Path) -> list:
+def spectrum_legs(seed: int, r152, fa152: Path, fa1m: Path) -> list:
     """Phase 6: the spectrum modes at BASELINE.json config 3's read count
-    and config 4's k = 31 canonical sparse spectrum."""
+    (written to ``fa1m``) and config 4's k = 31 canonical sparse
+    spectrum."""
     import numpy as np
 
     from cfrk_tpu_torch.ops.cuda import rowsort as R
@@ -619,7 +636,6 @@ def spectrum_legs(seed: int, r152, fa152: Path) -> list:
                "rowsort_rle_large": R.rowsort_rle_large,
                "spectrum_hist": S.spectrum_hist}
     r1m = synthetic_reads(seed + 3, SPECTRUM_READS, 150)
-    fa1m = WORK / "r1m.fa"
     write_fasta(fa1m, r1m)
 
     def check_k8(out: bytes) -> str:
@@ -669,12 +685,232 @@ def spectrum_legs(seed: int, r152, fa152: Path) -> list:
     for leg, name in zip(legs, ("spectrum_hist", "rowsort_rle", "rowsort_rle_large")):
         if leg["launches"][name] <= 0:
             fail(f"{leg['leg']}: {name} was not launched")
-    fa1m.unlink()
     return legs
 
 
+# A child that runs the CLI and then reports its kernels' launches, which
+# this process cannot count across the process boundary.
+_CLI_CHILD = (
+    "import json, sys\n"
+    "from cfrk_tpu_torch.cli import main\n"
+    "from cfrk_tpu_torch.ops.cuda import perread, rowsort, spectrum\n"
+    "rc = main(sys.argv[1:])\n"
+    "print(json.dumps({'launches': {f.__name__: f.launches for f in ("
+    "rowsort.rowsort_rle, rowsort.rowsort_rle_large, spectrum.spectrum_hist, "
+    "perread.perread_hist)}}))\n"
+    "sys.exit(rc)\n"
+)
+
+
+def run_child(label: str, argv: list, env_extra: dict | None = None) -> dict:
+    """One child process to its end: its exit code, what it wrote, and
+    the peak of its resident set in MB, sampled from ``/proc/<pid>/statm``
+    every 20 ms.  (``ru_maxrss`` of a child starts at its parent's
+    resident set at the fork, here many times the child's own, and
+    ``VmHWM`` is not on every kernel's ``/proc``.)"""
+    paths = [WORK / f"{label}.child.{name}" for name in ("out", "err")]
+    page_mb = os.sysconf("SC_PAGE_SIZE") / 2**20
+    peak, deadline = 0, time.perf_counter() + 600
+    with open(paths[0], "wb") as out, open(paths[1], "wb") as err:
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=out, stderr=err,
+                                env={**os.environ, **(env_extra or {})})
+        while proc.poll() is None:
+            try:
+                pages = int(Path(f"/proc/{proc.pid}/statm").read_text().split()[1])
+                peak = max(peak, pages)
+            except (OSError, ValueError, IndexError):
+                pass  # the child has just gone
+            if time.perf_counter() > deadline:
+                proc.kill()
+                proc.wait()
+                fail(f"{label}: the child ran past 600 s")
+            time.sleep(0.02)
+    res = {"rc": proc.returncode, "out": paths[0].read_text(),
+           "err": paths[1].read_text(), "peak_rss_mb": peak * page_mb}
+    for path in paths:
+        path.unlink()
+    return res
+
+
+def stats_metrics(stderr: str) -> dict:
+    """The streamed run's metrics line (the one with ``stages_s``) among
+    what ``--stats`` wrote to stderr."""
+    for line in reversed(stderr.strip().splitlines()):
+        if line.startswith("{") and '"stages_s"' in line:
+            return json.loads(line)
+    fail(f"no metrics line on stderr: {stderr[-400:]}")
+
+
+def run_cli_here(label: str, argv: list, kernels: dict) -> dict:
+    """The CLI in this process with every kernel count set to 0 just
+    before and read just after; returns the launches, the wall seconds,
+    what it wrote to stderr and, with ``--stats``, its metrics line."""
+    from cfrk_tpu_torch.cli import main
+
+    for fn in kernels.values():
+        fn.launches = 0
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{label}: CLI exit {rc}: {err.getvalue()[-400:]}")
+    res = {"launches": {name: fn.launches for name, fn in kernels.items()},
+           "wall_s": wall, "stderr": err.getvalue()}
+    if "--stats" in argv:
+        res["metrics"] = stats_metrics(err.getvalue())
+    return res
+
+
+def sha256_of(path: Path) -> str:
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def killed_then_resumed(label: str, fasta: Path, flags: list, fault: str,
+                        kernels: dict, kernel: str, fresh_launches: int,
+                        want_sha: str) -> dict:
+    """One streamed run as a child killed at ``fault`` (it must exit
+    non-zero and leave an output and a checkpoint), then ``--resume`` in
+    this process: it must launch ``kernel``, fewer times than a fresh
+    run, and end on ``want_sha`` with no checkpoint left."""
+    out = WORK / f"{label}.cfrk"
+    ckpt = Path(str(out) + ".ckpt.json")
+    child = run_child(label, [sys.executable, "-m", "cfrk_tpu_torch", str(fasta),
+                              str(out), *flags, "--stream"],
+                      {"CFRK_FAULT_INJECT": fault})
+    if child["rc"] == 0 or "InjectedFault" not in child["err"]:
+        fail(f"{label}: the child armed with {fault} exited {child['rc']}: "
+             f"{child['err'][-400:]}")
+    if not out.exists() or not ckpt.exists():
+        fail(f"{label}: the killed run left no output or no checkpoint")
+    state = json.loads(ckpt.read_text())
+    torn = out.stat().st_size - state["out_bytes"]
+    if torn < 0 or (fault.startswith("batch-written") and torn == 0):
+        fail(f"{label}: output of {out.stat().st_size} bytes against a "
+             f"checkpoint of {state['out_bytes']}: no torn tail")
+    run = run_cli_here(label, [str(fasta), str(out), *flags, "--resume", "--stats"],
+                       kernels)
+    launches = run["launches"][kernel]
+    if not 0 < launches < fresh_launches:
+        fail(f"{label}: the resumed run launched {kernel} {launches} times, a "
+             f"fresh run {fresh_launches}")
+    if sha256_of(out) != want_sha:
+        fail(f"{label}: the resumed bytes differ from the non-streamed leg's")
+    if ckpt.exists():
+        fail(f"{label}: the checkpoint outlived the resumed run")
+    out.unlink()
+    res = {"leg": label, "fault": fault, "child_rc": child["rc"],
+           "reads_done_at_kill": state["reads_done"],
+           "input_offset_at_kill": state["input_offset"], "torn_tail_bytes": torn,
+           "resume_launches": run["launches"], "fresh_launches": fresh_launches,
+           "resume_wall_s": run["wall_s"], "resume_stages_s": run["metrics"]["stages_s"],
+           "resume_stderr": [line for line in run["stderr"].strip().splitlines()
+                             if not line.startswith("{")]}
+    log(f"streamed leg {label}: " + json.dumps(res))
+    return res
+
+
+def streamed_legs(fa150: Path, fa152: Path, fa_half: Path, fa1m: Path,
+                  sha: dict) -> tuple:
+    """Phase 7: the streaming drivers at the sizes of phases 5 and 6.
+    ``sha`` holds the sha256 of the non-streamed legs' bytes by leg name.
+    Returns (legs, launches by kernel over the runs made in this process
+    and the streamed spectrum child)."""
+    from cfrk_tpu_torch.io.bgzf import is_bgzf, write_bgzf
+    from cfrk_tpu_torch.ops.cuda import perread as P
+    from cfrk_tpu_torch.ops.cuda import rowsort as R
+    from cfrk_tpu_torch.ops.cuda import spectrum as S
+
+    kernels = {"rowsort_rle": R.rowsort_rle, "rowsort_rle_large": R.rowsort_rle_large,
+               "spectrum_hist": S.spectrum_hist, "perread_hist": P.perread_hist}
+    legs, total = [], dict.fromkeys(kernels, 0)
+
+    def whole_run(label, fasta, flags, kernel, want_sha, bases):
+        out = WORK / f"{label}.cfrk"
+        run = run_cli_here(label, [str(fasta), str(out), *flags, "--stream", "--stats"],
+                           kernels)
+        if run["launches"][kernel] <= 0:
+            fail(f"{label}: {kernel} was not launched")
+        if sha256_of(out) != want_sha:
+            fail(f"{label}: the streamed bytes differ from the non-streamed leg's")
+        if Path(str(out) + ".ckpt.json").exists():
+            fail(f"{label}: the checkpoint outlived the run")
+        out.unlink()
+        for name, n in run["launches"].items():
+            total[name] += n
+        res = {"leg": label, "launches": run["launches"], "cuda_wall_s": run["wall_s"],
+               "bases": bases, "bases_per_s": bases / run["wall_s"],
+               "metrics": run["metrics"]}
+        log(f"streamed leg {label}: " + json.dumps(res))
+        legs.append(res)
+        return res
+
+    fresh = whole_run("k8_nonzero_stream", fa150, ["8", "--nonzero"], "rowsort_rle",
+                      sha["k8_nonzero"], READS * 150)
+    k8 = killed_then_resumed(
+        "k8_nonzero_kill_resume", fa150, ["8", "--nonzero"], "batch-written:7",
+        kernels, "rowsort_rle", fresh["launches"]["rowsort_rle"], sha["k8_nonzero"])
+
+    bgzf152 = WORK / "r152.fa.gz"
+    write_bgzf(bgzf152, fa152.read_bytes())
+    if not is_bgzf(bgzf152):
+        fail("write_bgzf wrote a file that is_bgzf does not take")
+    k31 = killed_then_resumed(
+        "k31_canonical_nonzero_stream", bgzf152, ["31", "--canonical", "--nonzero"],
+        "checkpoint:5", kernels, "rowsort_rle_large", -(-READS // BATCH),
+        sha["k31_canonical_nonzero"])
+    if k31["input_offset_at_kill"] is None or any(
+            "re-parses" in line for line in k31["resume_stderr"]):
+        fail("k31_canonical_nonzero_stream: the resume on BGZF input re-parsed "
+             "instead of seeking to the checkpoint's decompressed offset")
+    bgzf152.unlink()
+    for leg in (k8, k31):
+        legs.append(leg)
+        for name, n in leg["resume_launches"].items():
+            total[name] += n
+
+    whole_run("k8_packed_stream", fa_half, ["8", "--nonzero", "--packed"],
+              "perread_hist", sha["k8_dense_api_nonzero"], DENSE_API_READS * 150)
+
+    # The 1M reads, streamed and not, each in a process of its own so
+    # that its peak resident set is its own.
+    spec = {}
+    for name, extra in (("spectrum_k8_stream", ["--stream", "--stats"]),
+                        ("spectrum_k8_in_memory", [])):
+        out = WORK / f"{name}.spectrum"
+        t0 = time.perf_counter()
+        child = run_child(name, [sys.executable, "-c", _CLI_CHILD, str(fa1m), "-k", "8",
+                                 "--mode", "spectrum", "-o", str(out), *extra])
+        wall = time.perf_counter() - t0
+        if child["rc"] != 0:
+            fail(f"{name}: exit {child['rc']}: {child['err'][-400:]}")
+        launches = json.loads(child["out"].strip().splitlines()[-1])["launches"]
+        if launches["spectrum_hist"] <= 0:
+            fail(f"{name}: spectrum_hist was not launched")
+        if sha256_of(out) != sha["spectrum_k8"]:
+            fail(f"{name}: bytes differ from the spectrum_k8 leg's")
+        if Path(str(out) + ".ckpt.json").exists():
+            fail(f"{name}: the checkpoint outlived the run")
+        out.unlink()
+        spec[name] = {"launches": launches, "process_wall_s": wall,
+                      "peak_rss_mb": child["peak_rss_mb"]}
+        if extra:
+            spec[name]["metrics"] = stats_metrics(child["err"])
+    total["spectrum_hist"] += spec["spectrum_k8_stream"]["launches"]["spectrum_hist"]
+    streamed = spec["spectrum_k8_stream"]
+    res = {"leg": "spectrum_k8_stream", "bases": SPECTRUM_READS * 150,
+           "bases_per_s": streamed["metrics"]["bases_per_sec"], **spec}
+    log("streamed leg spectrum_k8_stream: " + json.dumps(res))
+    log("peak_rss_mb at 1M reads, --mode spectrum k=8: streamed "
+        f"{streamed['peak_rss_mb']:.1f}, in memory "
+        f"{spec['spectrum_k8_in_memory']['peak_rss_mb']:.1f}")
+    legs.append(res)
+    return legs, total
+
+
 def time_spectrum_routes(seed: int, card: str) -> dict:
-    """Phase 7, spectrum: ms per 8192-read batch (150 bp padded to 256)
+    """Phase 8, spectrum: ms per 8192-read batch (150 bp padded to 256)
     of the histogram kernel at k = 7, 8, 9, 10 on the random and the
     skewed batches (graph replays, ``tools/hist_times.py``) and of its
     plain twin at k = 8 (CUDA events); then of the kernel route (H2D +
@@ -768,7 +1004,7 @@ def dense_api_legs(r150, fa150: Path) -> list:
 
 
 def time_perread(seed: int, card: str) -> dict:
-    """Phase 7, per-read histograms: ms per 8192-read batch (150 bp
+    """Phase 8, per-read histograms: ms per 8192-read batch (150 bp
     padded to 256) at k = 8 of the kernel in each emit ("b4", "fh",
     unpacked) beside ``zero_()`` of the same output and the
     zero-then-scatter alternative (``tools/hist_times.py``), and of its
@@ -802,7 +1038,7 @@ def time_perread(seed: int, card: str) -> dict:
 
 
 def run_probe(card: str) -> dict:
-    """Phase 7, the rowsort probe tool: every variant at k = 8 (uint32
+    """Phase 8, the rowsort probe tool: every variant at k = 8 (uint32
     keys) and k = 31 (uint64 canonical keys), through its command-line
     entry, with the probe kernel's count set to 0 just before and read
     just after.  Each run's checksum must equal the plain twin's over
@@ -975,12 +1211,26 @@ def main() -> int:
     clock.lap("5 main path")
 
     # 6. spectrum legs at real size
-    spec_legs = spectrum_legs(args.seed, r152, fa152)
+    fa1m = WORK / "r1m.fa"
+    spec_legs = spectrum_legs(args.seed, r152, fa152, fa1m)
     launches["spectrum_hist"] = spec_legs[0]["launches"]["spectrum_hist"]
 
     clock.lap("6 spectrum legs")
 
-    # 7. times: plain, kernel, kernel, plain at the main path's batch shape
+    # 7. streamed legs: their launches join the main path's counts
+    sha = {leg["leg"]: leg["sha256"] for leg in legs + spec_legs}
+    stream_legs, stream_launches = streamed_legs(
+        fa150, fa152, WORK / "r150_half.fa", fa1m, sha)
+    fa1m.unlink()
+    for name, n in stream_launches.items():
+        if n <= 0:
+            fail(f"the streamed legs never launched {name}")
+        launches[name] += n
+    log("streamed_launches: " + json.dumps(stream_launches))
+
+    clock.lap("7 streamed legs")
+
+    # 8. times: plain, kernel, kernel, plain at the main path's batch shape
     from cfrk_tpu_torch.tools.rowsort_times import time_graph, time_shape
 
     times, bounds = {}, {}
@@ -1031,10 +1281,11 @@ def main() -> int:
     times["rowsort_probe"] = (probe["ms"], probe["plain_ms"])
     log("rowsort_probe_step_ms: " + json.dumps({
         "card": card, **{name: r["step_ms"] for name, r in probe["records"].items()}}))
-    clock.lap("7 times")
+    clock.lap("8 times")
     log("end_to_end: " + json.dumps({
         "card": card,
-        "legs": {leg["leg"]: leg["bases_per_s"] for leg in legs + spec_legs},
+        "legs": {leg["leg"]: leg["bases_per_s"]
+                 for leg in legs + spec_legs + stream_legs if "bases_per_s" in leg},
     }))
 
     kernels = []

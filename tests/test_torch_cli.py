@@ -51,11 +51,11 @@ def _prefix_fasta(tmp_path, name, n_reads):
     return str(path)
 
 
-def _both(tmp_path, inp, *flags):
+def _both(tmp_path, inp, *flags, jax_flags=()):
     """Output bytes of the port (--device cpu) and of cfrk_tpu's CLI."""
     a, b = tmp_path / "torch.cfrk", tmp_path / "jax.cfrk"
     assert main([inp, str(a), *flags, "--device", "cpu"]) == 0
-    assert jax_main([inp, str(b), *flags]) == 0
+    assert jax_main([inp, str(b), *flags, *jax_flags]) == 0
     return a.read_bytes(), b.read_bytes()
 
 
@@ -114,10 +114,13 @@ def test_stats_line(tmp_path, capsys):
 @pytest.mark.parametrize(
     "argv,message",
     [
-        (["--stream"], "--stream is not yet ported"),
-        (["--impl", "pallas", "--packed"], "--packed is not yet ported"),
+        (["--out-dir", "parts"], "--out-dir is not yet ported"),
+        (["--config", "run.json"], "--config is not yet ported"),
         (["--devices=2"], "--devices is not yet ported"),
-        (["--mode", "spectrum", "--stream"], "--stream is not yet ported"),
+        (["--profile", "trace"], "--profile is not yet ported"),
+        (["--mode", "sparse", "--stream"], "--mode sparse --stream is not yet ported"),
+        (["--mode", "sparse", "--resume"], "--mode sparse --stream is not yet ported"),
+        (["--stream", "--mem-budget-mb", "64"], "--mem-budget-mb is not yet ported"),
         (["--mode", "sparse", "--mem-budget-mb", "64"],
          "--mem-budget-mb is not yet ported"),
         (["--impl", "scatter", "--seqpar"], "--seqpar is not yet ported"),
@@ -395,3 +398,147 @@ def test_int64_cfrk_spectrum_row_to_gz_is_compressed(tmp_path):
     tcli._write_spectrum(str(a), table, "cfrk")
     jcli._write_spectrum(str(b), table, "cfrk")
     assert gzip.decompress(a.read_bytes()) == b.read_bytes()
+
+
+# ------------------------------------------------------------- streaming
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [("2",), ("8", "--nonzero"), ("8", "--nonzero", "--packed"), ("6", "--packed"),
+     ("31", "--canonical", "--nonzero"), ("5", "--impl", "scatter", "--canonical"),
+     ("8", "--nonzero", "--checkpoint-every", "3")],
+    ids=["k2_dense", "k8_nonzero", "k8_nonzero_packed", "k6_packed", "k31_canonical",
+         "k5_scatter_canonical", "k8_checkpoint_every3"],
+)
+def test_stream_rows_match_jax_cli_and_one_shot(tmp_path, flags):
+    """``--stream`` writes the bytes of cfrk_tpu's ``--stream`` and of the
+    port's own in-memory run (``--packed`` is a streaming flag: the
+    in-memory run goes without it), and leaves no checkpoint.  The JAX
+    CLI runs on one device, as the port does."""
+    inp = _prefix_fasta(tmp_path, "seq1.fasta.gz", 40)
+    got, want = _both(tmp_path, inp, *flags, "--stream", "--batch-size", "16",
+                      jax_flags=("--devices", "1"))
+    assert got == want and got.count(b"\n") == 39
+    shot = tmp_path / "shot.cfrk"
+    one_shot = [f for f in flags if f != "--packed"]
+    if "--checkpoint-every" in one_shot:
+        one_shot = one_shot[:one_shot.index("--checkpoint-every")]
+    assert main([inp, str(shot), *one_shot, "--batch-size", "16", "--device", "cpu"]) == 0
+    assert shot.read_bytes() == got
+    assert not list(tmp_path.glob("*.ckpt.json*"))
+
+
+@pytest.mark.parametrize("first", ["jax", "torch"])
+@pytest.mark.parametrize(
+    "flags", [("8", "--nonzero"), ("4",), ("7", "--packed", "--nonzero")],
+    ids=["k8_nonzero", "k4_dense", "k7_packed_nonzero"],
+)
+def test_resume_flag_finishes_a_killed_stream_of_either_cli(tmp_path, capsys, first, flags):
+    """A ``--stream`` run of one CLI killed after its third batch is
+    finished by the other CLI's ``--resume`` (which implies ``--stream``)
+    to the bytes of an uninterrupted run; ``--stats`` prints the
+    streamed run's metrics line."""
+    from cfrk_tpu.runtime import faults as jfaults
+    from cfrk_tpu_torch.runtime import faults
+
+    inp = _prefix_fasta(tmp_path, "seq2.fasta.gz", 40)
+    full, out = tmp_path / "full.cfrk", tmp_path / "x.cfrk"
+    common = [*flags, "--batch-size", "8"]
+    assert main([inp, str(full), *common, "--stream", "--device", "cpu"]) == 0
+    clis = {"jax": (jax_main, jfaults, ["--devices", "1"]),
+            "torch": (main, faults, ["--device", "cpu"])}
+    start, start_faults, start_extra = clis[first]
+    finish, _, finish_extra = clis["torch" if first == "jax" else "jax"]
+    start_faults.arm("batch-written", 3)
+    try:
+        with pytest.raises(start_faults.InjectedFault):
+            start([inp, str(out), *common, "--stream", *start_extra])
+    finally:
+        start_faults.disarm()
+    assert (tmp_path / "x.cfrk.ckpt.json").exists()
+    assert out.read_bytes() != full.read_bytes()
+    capsys.readouterr()
+    assert finish([inp, str(out), *common, "--resume", "--stats", *finish_extra]) == 0
+    assert out.read_bytes() == full.read_bytes()
+    assert not list(tmp_path.glob("x.cfrk.ckpt.json*"))
+    line, summary = map(json.loads, capsys.readouterr().err.strip().splitlines()[-2:])
+    assert (line["reads"], line["batches"], line["mode"]) == (24, 3, "perread")
+    assert {"parse_wait", "dispatch", "materialize", "write", "checkpoint"} == set(
+        line["stages_s"])
+    assert set(summary) == {"files", "reads", "k", "mode", "wall_s"}
+    assert summary["reads"] == 24
+
+
+@pytest.mark.parametrize("fmt", ["cfrk", "tsv", "hist"])
+@pytest.mark.parametrize(
+    "flags", [("-k", "8"), ("-k", "6", "--canonical", "--impl", "scatter", "--min-count", "2")],
+    ids=["k8_auto", "k6_canonical_scatter_min2"],
+)
+def test_stream_spectrum_matches_jax_cli_and_one_shot(tmp_path, fmt, flags):
+    inp = _prefix_fasta(tmp_path, "seq1.fasta.gz", 40)
+    mode = ("--mode", "spectrum", "--spectrum-format", fmt, "--batch-size", "8")
+    got, want = _both_spectrum(tmp_path, inp, "out.spec", *flags, *mode, "--stream",
+                               "--checkpoint-every", "2")
+    assert got == want and got
+    shot = tmp_path / "shot.spec"
+    assert main([inp, "-o", str(shot), *flags, *mode, "--device", "cpu"]) == 0
+    assert shot.read_bytes() == got
+    assert not list(tmp_path.glob("*/*.ckpt.json*"))
+
+
+def test_stream_spectrum_resume_flag(tmp_path):
+    """``--mode spectrum --resume`` after a kill at the second checkpoint
+    writes the uninterrupted run's bytes and removes the checkpoint with
+    its table only once the output exists."""
+    from cfrk_tpu_torch.runtime import faults
+
+    inp = _prefix_fasta(tmp_path, "seq2.fasta.gz", 40)
+    full, out = tmp_path / "full.spectrum", tmp_path / "x.spectrum"
+    common = ["-k", "7", "--mode", "spectrum", "--batch-size", "8", "--checkpoint-every",
+              "2", "--device", "cpu"]
+    assert main([inp, "-o", str(full), *common, "--stream"]) == 0
+    faults.arm("checkpoint", 2)
+    try:
+        with pytest.raises(faults.InjectedFault):
+            main([inp, "-o", str(out), *common, "--stream"])
+    finally:
+        faults.disarm()
+    assert not out.exists() and len(list(tmp_path.glob("x.spectrum.ckpt.json*"))) == 2
+    assert main([inp, "-o", str(out), *common, "--resume"]) == 0
+    assert out.read_bytes() == full.read_bytes()
+    assert not list(tmp_path.glob("x.spectrum.ckpt.json*"))
+
+
+@pytest.mark.parametrize(
+    "argv,message",
+    [
+        (["-k", "9", "--nonzero", "--packed"], "packed mode needs k <= 8"),
+        (["-k", "5", "--packed", "--impl", "scatter"], "use --impl auto/pallas"),
+        (["-k", "5", "--mode", "spectrum", "--impl", "sort"],
+         "not yet ported to cfrk_tpu_torch; --impl scatter"),
+    ],
+    ids=["packed_k9", "packed_scatter", "spectrum_sort"],
+)
+def test_stream_argument_errors_exit_cleanly(tmp_path, argv, message):
+    fa = str(DATA / "seq2.fasta.gz")
+    with pytest.raises(SystemExit, match=message):
+        main([fa, "-o", str(tmp_path / "o.out"), *argv, "--stream", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="streaming .gz output is unsupported"):
+        main([fa, str(tmp_path / "o.cfrk.gz"), "3", "--stream", "--device", "cpu"])
+
+
+def test_large_input_note_names_stream(tmp_path, capsys, monkeypatch):
+    """Above 4 GiB of input an in-memory run says that ``--stream`` runs
+    in constant memory, as the JAX CLI does; a streamed run does not."""
+    from cfrk_tpu_torch import cli as tcli
+
+    fa = str(DATA / "seq2.fasta.gz")
+    monkeypatch.setattr(tcli.os.path, "getsize", lambda p: 5 << 30)
+    assert main([fa, str(tmp_path / "o.cfrk"), "2", "--device", "cpu"]) == 0
+    err = capsys.readouterr().err
+    assert "5.0 GiB of input will be held in memory; --stream runs in constant memory" in err
+    monkeypatch.undo()
+    assert main([fa, str(tmp_path / "s.cfrk"), "2", "--stream", "--device", "cpu"]) == 0
+    assert "held in memory" not in capsys.readouterr().err
+    assert (tmp_path / "s.cfrk").read_bytes() == (tmp_path / "o.cfrk").read_bytes()

@@ -94,6 +94,38 @@ def test_writer_streams_batches_like_jax(tmp_path):
     assert gzip.decompress(out.read_bytes()) == tfmt.format_pairs_bytes(idx, cnt)
 
 
+@pytest.mark.parametrize("nonzero", [False, True], ids=["dense", "nonzero"])
+@pytest.mark.parametrize("target", ["handle", "path"])
+def test_continuing_writer_resumes_mid_file(tmp_path, target, nonzero):
+    """``continuing=True``: rows already exist, so the first row written
+    is preceded by a newline.  A handle opened at the end of the first
+    part yields the one-shot file's bytes; a path is opened anew, so it
+    holds the newline and the remaining rows.  Both as cfrk_tpu's writer."""
+    counts = np.random.default_rng(5).integers(0, 3, size=(9, 16)).astype(np.int32)
+    whole = io.BytesIO()
+    with tfmt.CfrkWriter(whole, nonzero=nonzero) as w:
+        w.write_batch(counts)
+    got = {}
+    for name, fmt in (("torch", tfmt), ("jax", jfmt)):
+        out = tmp_path / f"{name}.cfrk"
+        with fmt.CfrkWriter(str(out), nonzero=nonzero) as w:
+            w.write_batch(counts[:4])
+        head = out.read_bytes()
+        if target == "handle":
+            with open(out, "r+b") as f:
+                f.seek(len(head))
+                w = fmt.CfrkWriter(f, continuing=True, nonzero=nonzero)
+                w.write_batch(counts[:0])
+                w.write_batch(counts[4:6])
+                w.write_batch(counts[6:])
+            got[name] = out.read_bytes()
+        else:
+            with fmt.CfrkWriter(str(out), continuing=True, nonzero=nonzero) as w:
+                w.write_batch(counts[4:])
+            got[name] = head + out.read_bytes()
+    assert got["torch"] == got["jax"] == whole.getvalue()
+
+
 @pytest.mark.parametrize("first_empty", [False, True])
 def test_nonzero_writer_matches_jax(first_empty):
     """CfrkWriter(nonzero=True).write_batch: the nonzero cells of dense

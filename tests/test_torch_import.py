@@ -23,8 +23,14 @@ _MODULES = [
     "cfrk_tpu_torch.cli",
     "cfrk_tpu_torch.format",
     "cfrk_tpu_torch.io.fasta",
+    "cfrk_tpu_torch.io.bgzf",
+    "cfrk_tpu_torch.runtime",
+    "cfrk_tpu_torch.runtime.faults",
+    "cfrk_tpu_torch.runtime.metrics",
+    "cfrk_tpu_torch.runtime.checkpoint",
     "cfrk_tpu_torch.pipeline.batch",
     "cfrk_tpu_torch.pipeline.count",
+    "cfrk_tpu_torch.pipeline.stream",
     "cfrk_tpu_torch.ops.encode",
     "cfrk_tpu_torch.ops.sparse",
     "cfrk_tpu_torch.ops.perread_sparse",
