@@ -235,11 +235,12 @@ def _write_spectrum(path: str, table: np.ndarray, fmt: str,
 def _write_sparse(path: str, keys: np.ndarray, counts: np.ndarray, k: int,
                   fmt: str = "tsv", min_count: int = 1) -> None:
     """Write a key-sorted sparse spectrum: ``hist`` (count-of-counts of
-    the k-mers with count >= min_count), else ``KMER<TAB>count`` tsv."""
+    the k-mers with count >= min_count), else ``KMER<TAB>count`` tsv
+    through the host library's threaded formatter."""
     if fmt == "hist":
         _write_hist(path, counts[counts >= max(min_count, 1)])
         return
-    from .format import format_kmer_tsv_bytes
+    from .io.native import format_kmer_tsv_bytes
 
     with _open_out(path, "wb") as f:
         f.write(format_kmer_tsv_bytes(keys, counts, k, min_count))

@@ -1,5 +1,4 @@
-"""The `.cfrk` output format and the spectrum text writers (host side,
-numpy).
+"""The `.cfrk` output format and the spectrum text writers (host side).
 
 A numpy copy of ``cfrk_tpu/format.py``; its bytes are identical (pinned
 by tests/test_torch_format.py and the goldens).
@@ -11,17 +10,20 @@ The contract, from the reference writer (``src/main.cu:26-62``):
   ``--nonzero`` rows (an empty row is empty);
 * rows are joined by a single ``"\\n"``; no trailing newline.
 
-The JAX package formats through a C++ extension.  Here every cell is
-formatted by one vectorised numpy pass (:func:`_cells_bytes`): decimal
-digits are written into a preallocated byte buffer one digit position
-at a time, so the cost is a few array passes per digit, not a Python
-f-string per cell.  Rows go through in slabs of about
-:data:`_SLAB_CELLS` cells to bound the temporaries.
+:class:`CfrkWriter` formats through the host library
+(``io/native``, C++), as the JAX package's writer does.  The numpy
+functions here write the same bytes and are its oracle in the tests and
+the chip smoke: every cell is formatted by one vectorised numpy pass
+(:func:`_cells_bytes`): decimal digits are written into a preallocated
+byte buffer one digit position at a time, so the cost is a few array
+passes per digit, not a Python f-string per cell.  Rows go through in
+slabs of about :data:`_SLAB_CELLS` cells to bound the temporaries.
 
 The spectrum modes' tab-separated lines are written the same way:
-:func:`format_spectrum_tsv_bytes` (``index<TAB>count`` of a dense table)
-and :func:`format_kmer_tsv_bytes` (``KMER<TAB>count`` of a sparse
-spectrum; the JAX package's C++ ``format_kmer_tsv``), each byte-equal
+:func:`format_spectrum_tsv_bytes` (``index<TAB>count`` of a dense table,
+the writer the CLI uses, as the JAX CLI's is Python) and
+:func:`format_kmer_tsv_bytes` (``KMER<TAB>count`` of a sparse spectrum,
+the oracle of the host library's ``format_kmer_tsv``), each byte-equal
 to the JAX CLI's Python line loop.
 """
 
@@ -32,6 +34,8 @@ import os
 from typing import IO
 
 import numpy as np
+
+from .io import native
 
 __all__ = [
     "CfrkWriter",
@@ -273,6 +277,7 @@ def format_kmer_tsv_bytes(keys: np.ndarray, counts: np.ndarray, k: int,
 class CfrkWriter:
     """Streaming `.cfrk` writer: batches arrive one at a time while the
     file contract holds — a newline before every row but the first.
+    Rows are formatted by the host library (``io/native``).
     A path ending in ``.gz`` is written gzip-compressed.  ``nonzero=True``
     makes :meth:`write_batch` write only the nonzero cells of each row.
     ``continuing=True`` resumes mid-file: rows already exist, so the next
@@ -304,27 +309,28 @@ class CfrkWriter:
         if counts.shape[0] == 0:
             return
         if not self._nonzero:
-            self._write(format_rows_bytes(counts, first=self._first),
+            self._write(native.format_rows_bytes(counts, first=self._first),
                         counts.shape[0])
             return
         # Row slabs of ~64 MB of counts bound the pair matrices.
         rows = max(1, (1 << 26) // max(counts[0].nbytes, 1))
         for s in range(0, counts.shape[0], rows):
             block = counts[s : s + rows]
-            self._write(format_pairs_bytes(*_dense_to_pairs(block), first=self._first),
-                        block.shape[0])
+            self._write(
+                native.format_pairs_bytes(*_dense_to_pairs(block), first=self._first),
+                block.shape[0])
 
     def write_pairs(self, idx: np.ndarray, counts: np.ndarray) -> None:
         """Nonzero rows from (idx, counts) pair matrices."""
         self._write(
-            format_pairs_bytes(idx, counts, first=self._first), len(idx)
+            native.format_pairs_bytes(idx, counts, first=self._first), len(idx)
         )
 
     def write_pairs_dense(self, idx: np.ndarray, counts: np.ndarray,
                           fk: int) -> None:
         """Dense rows (all ``fk`` bins) from (idx, counts) pair matrices."""
         self._write(
-            format_dense_pairs_bytes(idx, counts, fk, first=self._first),
+            native.format_dense_pairs_bytes(idx, counts, fk, first=self._first),
             len(idx),
         )
 

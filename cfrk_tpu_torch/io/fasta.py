@@ -1,12 +1,12 @@
-"""FASTA/FASTQ parsing and 2-bit base encoding (host side, numpy).
+"""FASTA/FASTQ parsing and 2-bit base encoding (host side).
 
-A numpy copy of the parts of ``cfrk_tpu/io/fasta.py`` the drivers need:
-the whole-file reader of the in-memory drivers and the record stream
-with input byte offsets of the streaming ones.  The port cannot import
-that module: any ``cfrk_tpu`` import runs the JAX package's
-``__init__``, which imports jax.  The native C++ parser of the JAX
-package is not used; this pure-Python path gives the same records (the
-JAX package pins the two byte-identical).
+A copy of the parts of ``cfrk_tpu/io/fasta.py`` the drivers need: the
+whole-file reader of the in-memory drivers, which parses through the
+host library (``io/native``, C++) as the JAX package's does, and the
+record loops in numpy and Python, among them the record stream with
+input byte offsets, the oracle of the streaming drivers' chunked
+native ingest.  The port cannot import that module: any ``cfrk_tpu``
+import runs the JAX package's ``__init__``, which imports jax.
 
 Encoding contract: A/a→0, C/c→1, G/g→2, T/t→3, anything else→-1.
 Multi-line records are concatenated without their newlines; gzip inputs
@@ -247,5 +247,10 @@ def _offset_records(f, min_qual: int = 0) -> Iterator[tuple[np.ndarray, int]]:
 
 
 def read_fasta_encoded(path, min_qual: int = 0) -> list[np.ndarray]:
-    """Read and encode all records into a ragged list of int8 code arrays."""
-    return [encode_seq(s) for _, s in iter_reads(path, min_qual)]
+    """Read and encode all records into a ragged list of int8 code
+    arrays, through the host library's parser (gzip and bgzf inputs are
+    read whole and decompressed first); the records of
+    :func:`iter_fasta_encoded`."""
+    from .native import read_fasta_encoded_native
+
+    return read_fasta_encoded_native(path, min_qual)

@@ -1,13 +1,17 @@
-"""Build the package's CUDA sources at first use and load them with ctypes.
+"""Build the package's C sources at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface, so it compiles with
-``nvcc`` alone, without PyTorch's headers, in seconds, into
+Each ``csrc/<name>.cu`` (a CUDA kernel) and ``csrc/<name>.cpp`` (the
+host library) exposes a plain C interface, so it compiles without
+PyTorch's or Python's headers, in seconds, into
 ``build/cfrk_tpu_torch/lib<name>-<hash>.so`` beside the package (the
-hash covers the source, the shared ``csrc/*.cuh`` headers and the
-flags, so an edited source or header rebuilds).  Nothing is built when
-a module is imported: the first kernel launch builds, and
-:func:`build_libraries` builds several sources at once, one ``nvcc``
-each.  A missing ``nvcc`` or a failed build raises.
+hash covers the source, for ``.cu`` the shared ``csrc/*.cuh`` headers,
+and the flags, so an edited source or header rebuilds).  ``.cu`` sources
+compile with ``nvcc``, ``.cpp`` ones with the host C++ compiler
+(``$CXX``, else ``c++`` or ``g++``) and never with ``nvcc``.  Nothing is
+built when a module is imported: the first call builds, and
+:func:`build_libraries` builds several sources at once, one compiler
+each.  A missing compiler, an unwritable build directory or a failed
+build raises; nothing falls back to another route.
 """
 
 from __future__ import annotations
@@ -19,10 +23,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_library", "build_libraries", "load_library"]
+__all__ = ["NVCC_FLAGS", "CXX_FLAGS", "build_library", "build_libraries",
+           "host_compiler", "load_library"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -36,6 +42,8 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler=-fPIC",
 )
+# The JAX package's extension flags (setup.py) for a shared library.
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
 
 def _nvcc() -> str:
@@ -54,36 +62,67 @@ def _nvcc() -> str:
     return found
 
 
+def host_compiler() -> str:
+    """The host C++ compiler: ``$CXX``, else ``c++`` or ``g++`` on PATH."""
+    cxx = os.environ.get("CXX")
+    if cxx:
+        return cxx
+    for cand in ("c++", "g++"):
+        found = shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError(
+        "no host C++ compiler found (set CXX): the host library of "
+        "cfrk_tpu_torch builds from csrc/fastaio.cpp at first use"
+    )
+
+
 def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date build exists;
-    returns the shared library's path.  The compiler's output (with
-    ``-Xptxas=-v``: registers, shared memory and spills per kernel) is
-    kept beside it as ``.log``."""
+    """Compile ``csrc/<name>.cu`` (nvcc) or ``csrc/<name>.cpp`` (the host
+    C++ compiler) unless an up-to-date build exists; returns the shared
+    library's path.  The command, its seconds and the compiler's output
+    (for nvcc with ``-Xptxas=-v``: registers, shared memory and spills
+    per kernel) are kept beside it as ``.log``."""
     src = CSRC / f"{name}.cu"
+    cuda = src.exists()
+    if not cuda:
+        src = CSRC / f"{name}.cpp"
+    flags = NVCC_FLAGS if cuda else CXX_FLAGS
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    for header in sorted(CSRC.glob("*.cuh")) if cuda else ():
         h.update(header.read_bytes())
-    h.update("\0".join(NVCC_FLAGS).encode())
+    h.update("\0".join(flags).encode())
     digest = h.hexdigest()[:16]
     so = BUILD_DIR / f"lib{name}-{digest}.so"
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build to a private name, then rename: concurrent first uses never
-    # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    compiler = _nvcc() if cuda else host_compiler()
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-            capture_output=True, text=True, check=False,
-        )
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # Build to a private name, then rename: concurrent first uses
+        # never load a half-written library.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    except OSError as e:
+        raise RuntimeError(
+            f"cannot write the build directory {BUILD_DIR} for {src.name}: {e}"
+        ) from e
+    os.close(fd)
+    cmd = [compiler, *flags, "-o", tmp, str(src)]
+    try:
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        except OSError as e:
+            raise RuntimeError(f"cannot run {compiler} to build {src}: {e}") from e
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
+                f"{compiler} failed to build {src} (exit {proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}"
             )
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        so.with_suffix(".log").write_text(
+            f"{' '.join(cmd)}\n{time.perf_counter() - t0:.3f} s\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
         os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
@@ -92,7 +131,7 @@ def build_library(name: str) -> Path:
 
 
 def build_libraries(names) -> dict:
-    """Build several sources at once, one ``nvcc`` process each, all
+    """Build several sources at once, one compiler process each, all
     started together; returns {name: library path}.  The first failure
     raises once every build has ended."""
     names = list(names)
@@ -103,6 +142,6 @@ def build_libraries(names) -> dict:
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``'s library once per
+    """Build (if needed) and load ``csrc/<name>``'s library once per
     process."""
     return ctypes.CDLL(str(build_library(name)))

@@ -10,12 +10,13 @@ and invalid windows carry ``INVALID_SENTINEL`` in both words.  torch has
 few uint32 operations, so :func:`kmer_keys` returns the words in int64
 tensors holding the uint32 values.
 
-The rest is numpy, as in the JAX package: :func:`fetched_to_triples`
+The rest is host code, as in the JAX package: :func:`fetched_to_triples`
 turns a drained batch of per-read rows into flat (hi, lo, counts)
 triples, and the accumulators fold them across batches --
-:class:`SparseAccumulator` (sorted (keys uint64, counts int64) arrays)
-for any k, :class:`DenseFoldAccumulator` (an int64 ``4**k`` table,
-through :func:`fold_pairs_into`) for k <= 10.  Both take the JAX
+:class:`SparseAccumulator` (sorted (keys uint64, counts int64) arrays,
+numpy) for any k, :class:`DenseFoldAccumulator` (an int64 ``4**k``
+table, through the host library's threaded fold, ``io/native``) for
+k <= 10.  Both take the JAX
 package's accumulator arrays as they are (``load_arrays``).  The
 device half (``batch_spectrum_triples``, ``rows_to_triples``) lives in
 ``ops/perread_sparse.py``, beside the drain it runs.
@@ -26,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..io import native
 from .encode import horner, shifted_views
 
 __all__ = [
@@ -194,9 +196,10 @@ def fold_pairs_into(table: np.ndarray, idx: np.ndarray, counts: np.ndarray) -> N
 
     ``idx``/``counts``: any shape, same size, in the drain's narrow
     dtypes; cells with count <= 0 (sentinels, padding) or an index
-    outside the table are skipped.  The JAX package runs a threaded
-    native loop here; this is its numpy fallback, a weighted bincount
-    (float64 weights, exact for any batch below 2**53 windows).
+    outside the table are skipped.  A weighted bincount (float64
+    weights, exact for any batch below 2**53 windows): the oracle of
+    the host library's fold, ``io.native.fold_pairs_into``, which
+    :class:`DenseFoldAccumulator` runs.
     """
     if table.dtype != np.int64 or not table.flags.writeable:
         raise ValueError("table must be a writable int64 array")
@@ -222,7 +225,7 @@ class DenseFoldAccumulator:
 
     def add(self, hi, lo, counts) -> None:
         # hi is structurally zero for every k <= 15 pair row.
-        fold_pairs_into(self.table, np.asarray(lo), np.asarray(counts))
+        native.fold_pairs_into(self.table, np.asarray(lo), np.asarray(counts))
 
     def result_arrays(self):
         keys = np.flatnonzero(self.table)

@@ -1,6 +1,8 @@
-"""Ragged reads → fixed-shape padded batches (host side, numpy).
+"""Ragged reads → fixed-shape padded batches (host side).
 
-A numpy copy of ``cfrk_tpu/pipeline/batch.py`` for the per-read path.
+A copy of ``cfrk_tpu/pipeline/batch.py``: :func:`pad_reads` packs a list
+of reads in numpy, :func:`pad_reads_flat` a flat code buffer through the
+host library (``io/native``).
 
 Layout: ``codes[B, L]`` int8 with 0..3 = bases and -1 = invalid/padding,
 ``lengths[B]`` int32.  Padding with -1 makes window validity purely
@@ -18,6 +20,7 @@ import numpy as np
 __all__ = [
     "ReadBatch",
     "pad_reads",
+    "pad_reads_flat",
     "iter_batches",
     "len_bucket",
     "round_up",
@@ -87,6 +90,36 @@ def pad_reads(
         codes[i, : len(r)] = r
         lengths[i] = len(r)
     return ReadBatch(codes=codes, lengths=lengths, n_reads=n)
+
+
+def pad_reads_flat(
+    flat: np.ndarray,
+    lengths: np.ndarray,
+    batch_size: int | None = None,
+    max_len: int | None = None,
+) -> ReadBatch:
+    """:func:`pad_reads` for a FLAT code buffer + lengths: ``flat`` is
+    the reads' codes laid end to end (the chunked parser's output,
+    ``io.native.iter_record_blocks_native``), ``lengths`` their lengths.
+    The host library's ``pack_records`` writes each padded row with one
+    memcpy and one memset, no Python loop over the reads."""
+    from ..io.native import pack_records
+
+    lengths = np.asarray(lengths, dtype=np.int64)
+    n = len(lengths)
+    b = batch_size or n
+    if n > b:
+        raise ValueError(f"{n} reads > batch_size {b}")
+    longest = int(lengths.max(initial=0))
+    ml = max_len or round_up(max(longest, 1), 128)
+    if longest > ml:
+        raise ValueError(f"read of length {longest} exceeds max_len {ml}")
+    if int(lengths.sum()) != len(flat):
+        raise ValueError("lengths do not sum to the flat buffer size")
+    out_lengths = np.zeros(b, dtype=np.int32)
+    out_lengths[:n] = lengths
+    return ReadBatch(codes=pack_records(flat, lengths, b, ml),
+                     lengths=out_lengths, n_reads=n)
 
 
 def len_bucket(n: int, base: int = 128) -> int:

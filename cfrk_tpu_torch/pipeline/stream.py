@@ -8,8 +8,10 @@ The counterpart of the single-device half of
 * **few batch shapes**: each batch is padded to a geometric length
   bucket (128·2^j), so a run touches a handful of shapes and its pinned
   host buffers are reused;
-* **parse/compute overlap**: a background thread parses and packs the
-  next batches into a bounded queue while the device runs;
+* **parse/compute overlap**: a background thread packs the next
+  batches into a bounded queue while the device runs, from blocks that
+  the host library's chunked parser (``io/native``) reads and parses
+  one block ahead on a thread of its own;
 * **two batches in flight**: a batch's rows are taken from the device
   two batches behind its launch.  On a CUDA device
   (:class:`_BatchPipeline`) the codes go up from pinned staging buffers
@@ -22,8 +24,7 @@ The counterpart of the single-device half of
   seeks the input (plain and bgzf files) and writes the same bytes.
 
 Not here yet: the sorted and sparse streaming spectra
-(``stream_sparse_spectrum_file``), stdin input, the native block
-ingest, meshes.
+(``stream_sparse_spectrum_file``), stdin input, meshes.
 """
 
 from __future__ import annotations
@@ -41,12 +42,13 @@ import torch
 from ..format import CfrkWriter
 from ..io.bgzf import is_bgzf
 from ..io.fasta import iter_encoded_with_offsets
+from ..io.native import iter_record_blocks_native
 from ..ops.perread_sparse import count_perread_rows, narrow_for_fetch, pairs_to_host
 from ..ops.spectrum import spectrum as spectrum_op
 from ..runtime import faults
 from ..runtime.checkpoint import StreamCheckpoint, checkpoint_path
 from ..runtime.metrics import RunMetrics
-from .batch import ReadBatch, len_bucket, pad_reads
+from .batch import ReadBatch, len_bucket, pad_reads, pad_reads_flat
 from .count import (
     SPILL_LIMIT,
     DenseSpectrumAccumulator,
@@ -84,19 +86,86 @@ def stream_batches(
     leading records by re-parsing (plain gzip).  ``limit_offset`` stops
     before the first record STARTING at or past it (byte-range sharding
     of one file over several processes).
+
+    The records come from the host library's chunked parser as flat
+    blocks (``io.native.iter_record_blocks_native``, one block read and
+    parsed ahead) and are cut into batches by ``pad_reads_flat``, with
+    the shapes of the per-record loop (:func:`_record_batches`): the tail
+    batch keeps the full batch_size shape, so it runs at the shape of
+    every other batch of its length bucket.  ``skip_reads`` drops
+    leading records block-wise (the gzip resume's re-parse, at parser
+    speed).  A gzip input streams decompressed; its batches carry
+    ``end_offset=None`` unless it is bgzf.
     """
-    if _is_gzip(path) and (start_offset or limit_offset is not None):
+    gz = _is_gzip(path)
+    if gz and (start_offset or limit_offset is not None) and not is_bgzf(path):
         # Raise here, not just in stream_count_file: a limit_offset the
         # gzip path cannot observe (its offsets are all None) would
         # otherwise stream the WHOLE file, which in a ranged run counts
         # reads twice.  bgzf offsets are DECOMPRESSED positions, reached
         # through block metadata, so there both resume and ranges work.
-        if not is_bgzf(path):
-            raise ValueError(
-                "byte offsets cannot address a gzip stream; "
-                "decompress the input first (or recompress with bgzip)"
-            )
+        raise ValueError(
+            "byte offsets cannot address a gzip stream; "
+            "decompress the input first (or recompress with bgzip)"
+        )
+    # bgzf offsets are decompressed positions and remain valid resume
+    # points (BgzfReader.seek_decompressed); plain-gzip offsets are not.
+    offsets_ok = not gz or is_bgzf(path)
+    flat = np.empty(0, np.int8)
+    lens = np.empty(0, np.int64)
+    offs = np.empty(0, np.int64)
 
+    def cut_batch(n: int) -> ReadBatch:
+        nonlocal flat, lens, offs
+        nbytes = int(lens[:n].sum())
+        longest = max(int(lens[:n].max(initial=0)), k)
+        b = pad_reads_flat(
+            flat[:nbytes], lens[:n], batch_size, len_bucket(longest, len_base)
+        )
+        b = dataclasses.replace(
+            b, end_offset=int(offs[n - 1]) if offsets_ok else None
+        )
+        flat = flat[nbytes:]
+        lens = lens[n:]
+        offs = offs[n:]
+        return b
+
+    for bflat, blens, boffs in iter_record_blocks_native(
+        path, start_offset=start_offset, limit_offset=limit_offset,
+        decompress=gz, min_qual=min_qual,
+    ):
+        if skip_reads:
+            n = min(skip_reads, len(blens))
+            nbytes = int(blens[:n].sum())
+            bflat = bflat[nbytes:]
+            blens = blens[n:]
+            boffs = boffs[n:]
+            skip_reads -= n
+            if not len(blens):
+                continue
+        flat = np.concatenate([flat, bflat]) if flat.size else bflat
+        lens = np.concatenate([lens, blens]) if lens.size else blens
+        offs = np.concatenate([offs, boffs]) if offs.size else boffs
+        while len(lens) >= batch_size:
+            yield cut_batch(batch_size)
+    if len(lens):
+        yield cut_batch(len(lens))
+
+
+def _record_batches(
+    path,
+    k: int,
+    batch_size: int,
+    *,
+    skip_reads: int = 0,
+    start_offset: int | None = None,
+    limit_offset: int | None = None,
+    len_base: int = 128,
+    min_qual: int = 0,
+) -> Iterator[ReadBatch]:
+    """:func:`stream_batches` by the per-record loop of
+    ``io.fasta.iter_encoded_with_offsets``: the same batches, the
+    oracle of the native ingest in the tests."""
     buf: list[np.ndarray] = []
     last_off: int | None = None
     prev_end = start_offset or 0  # start position of the next record
@@ -123,8 +192,6 @@ def stream_batches(
             yield flush()
             buf = []
     if buf:
-        # Tail batch: keep the full batch_size shape, so it runs at the
-        # shape of every other batch of its length bucket.
         yield flush()
 
 

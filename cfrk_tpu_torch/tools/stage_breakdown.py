@@ -137,6 +137,9 @@ def stage_breakdown(path, out_path, k: int, *, device, mode: str = "perread",
         return torch.from_numpy(batch.codes).to(device)
 
     host: dict = {}
+    if cuda:  # the CUDA context's creation belongs to no stage
+        torch.zeros(1, device=device)
+        sync()
     t_all = time.perf_counter()
     reads = timed("parse", read_fasta_encoded, path)
     bs, ml = _plan_shapes(reads, k, None, None)

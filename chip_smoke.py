@@ -10,8 +10,10 @@ Phases, each of which exits non-zero on failure:
 
 1. card: the GPU's name and power limit, torch and CUDA versions, the
    host's ``free -g``;
-2. build: compiles the CUDA kernels from csrc/ (one nvcc per source,
-   all started together);
+2. build: compiles the CUDA kernels and the host library from csrc/
+   (one nvcc per kernel source and the host C++ compiler for
+   ``fastaio.cpp``, all started together), logging the host compiler
+   and its seconds;
 3. kernel vs plain: each kernel against its plain PyTorch twin on the
    card's inputs, array-equal, across k, canonical keys, read shapes
    (150 bp, short, 4 kb, past the kernel ceiling, a 20 000-read batch)
@@ -27,7 +29,13 @@ Phases, each of which exits non-zero on failure:
    dinucleotide repeat) and on a batch off a 16-byte boundary, and the
    per-read kernel's "b4" main batch three times over, every word
    compared (a missing fence before its bulk copy shows as rare wrong
-   bytes);
+   bytes); then the host library (``io/native``) against its numpy and
+   Python twins at the main path's sizes, byte- or array-equal: the
+   whole-file and the chunked parser on the 100k x 150 bp file,
+   ``pack_records`` on one batch, the pair formatters on one k=8 and one
+   k=31 canonical batch of the kernels' pairs, the dense formatters, the
+   sparse tsv formatter and the dense fold on one batch; their seconds
+   go on the ``host`` line;
 4. goldens: ``python -m cfrk_tpu_torch <seqN.fasta.gz> <out> 2`` must
    reproduce tests/data/goldens.json;
 5. main path at real size: seeded synthetic reads (100k x 150 bp and
@@ -38,8 +46,10 @@ Phases, each of which exits non-zero on failure:
    "b4" packed kernel; the first 50k reads) and ``4 --impl pallas``
    (dense rows, the unpacked kernel; all 100k), each also byte-equal to
    the auto route (per-read sort + RLE) on the same reads.  Each must
-   launch its kernel, write the same bytes as ``--device cpu`` and agree
-   on sampled rows with string-slicing ground truth;
+   launch its kernel, call the host library (its counters are set to 0
+   just before the leg and read just after, in every leg of phases 5-7),
+   write the same bytes as ``--device cpu`` and agree on sampled rows
+   with string-slicing ground truth;
 6. spectrum legs at real size (BASELINE.json configs 3 and 4): 1M
    seeded 150 bp reads through ``--mode spectrum`` at k=8 (the
    histogram kernel; its row must equal the numpy oracle) and at k=15
@@ -486,6 +496,155 @@ def check_spectrum_kernel(cases: dict, big, skewed: dict) -> int:
     return err
 
 
+def cpu_model() -> str:
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        if line.startswith("model name"):
+            return line.split(":", 1)[1].strip()
+    return "unknown"
+
+
+def check_host_library(r150, r152, fa150: Path, card: str) -> dict:
+    """Phase 3, the host library: each native function against its numpy
+    or Python twin on the same inputs at the main path's sizes, byte- or
+    array-equal; logs and returns the seconds of both, as the ``host``
+    line ({function: {"native_s", "numpy_s"}})."""
+    import numpy as np
+    import torch
+
+    from cfrk_tpu_torch import format as F
+    from cfrk_tpu_torch.io import fasta
+    from cfrk_tpu_torch.io import native as N
+    from cfrk_tpu_torch.ops import sparse
+    from cfrk_tpu_torch.ops.perread import count_perread
+    from cfrk_tpu_torch.ops.perread_sparse import (batch_spectrum_triples,
+                                                   count_perread_rows,
+                                                   narrow_for_fetch, pairs_to_host)
+    from cfrk_tpu_torch.pipeline.batch import pad_reads
+
+    out = {}
+
+    def compare(name, native_fn, numpy_fn, same=lambda a, b: a == b):
+        t0 = time.perf_counter()
+        got = native_fn()
+        t1 = time.perf_counter()
+        want = numpy_fn()
+        t2 = time.perf_counter()
+        if not same(got, want):
+            fail(f"host library {name}: differs from its numpy twin")
+        out[name] = {"native_s": t1 - t0, "numpy_s": t2 - t1}
+        return got
+
+    def same_reads(a, b):
+        return len(a) == len(b) and [len(r) for r in a] == [len(r) for r in b] and (
+            np.array_equal(np.concatenate(a), np.concatenate(b)))
+
+    def same_blocks(blocks, records):
+        flat = np.concatenate([b[0] for b in blocks])
+        lens = np.concatenate([b[1] for b in blocks])
+        offs = np.concatenate([b[2] for b in blocks])
+        return (lens.tolist() == [len(c) for c, _ in records]
+                and offs.tolist() == [o for _, o in records]
+                and np.array_equal(flat, np.concatenate([c for c, _ in records])))
+
+    N.parse_encode_bytes(b">warm\nACGT\n")  # the library's load, not a parse
+    reads = compare("parse_encode_bytes", lambda: N.read_fasta_encoded_native(fa150),
+                    lambda: list(fasta.iter_fasta_encoded(fa150)), same_reads)
+    compare("iter_record_blocks_native", lambda: list(N.iter_record_blocks_native(fa150)),
+            lambda: list(fasta.iter_encoded_with_offsets(fa150)), same_blocks)
+    batch = reads[:BATCH]
+    flat = np.concatenate(batch)
+    lens = np.array([len(r) for r in batch], np.int64)
+    compare("pack_records", lambda: N.pack_records(flat, lens, BATCH, 256),
+            lambda: pad_reads(batch, BATCH, 256).codes, np.array_equal)
+
+    def drained(reads_np, k, canonical):
+        codes = np.full((BATCH, 256), -1, np.int8)
+        codes[:, : reads_np.shape[1]] = reads_np[:BATCH]
+        rows = narrow_for_fetch(count_perread_rows(torch.from_numpy(codes).cuda(), k,
+                                                   canonical), k)
+        narrow = [t[:BATCH].cpu().numpy() for t in rows]
+        t0 = time.perf_counter()
+        narrow[-1].astype(np.int32)
+        widen_s = time.perf_counter() - t0
+        return pairs_to_host(rows, BATCH), widen_s, codes
+
+    (idx8, cnt8), widen8, codes8 = drained(r150, 8, False)
+    (idx31, cnt31), widen31, _ = drained(r152, 31, True)
+    out["widen_counts_to_int32"] = {"k8_s": widen8, "k31_s": widen31}
+    compare("format_pairs_bytes k=8", lambda: N.format_pairs_bytes(idx8, cnt8),
+            lambda: F.format_pairs_bytes(idx8, cnt8))
+    compare("format_pairs_bytes k=31", lambda: N.format_pairs_bytes(idx31, cnt31),
+            lambda: F.format_pairs_bytes(idx31, cnt31))
+    compare("format_dense_pairs_bytes k=8, 256 rows",
+            lambda: N.format_dense_pairs_bytes(idx8[:256], cnt8[:256], 4**8),
+            lambda: F.format_dense_pairs_bytes(idx8[:256], cnt8[:256], 4**8))
+    dense4 = count_perread(torch.from_numpy(codes8).cuda(), 4, impl="pallas").cpu().numpy()
+    compare("format_rows_bytes k=4", lambda: N.format_rows_bytes(dense4),
+            lambda: F.format_rows_bytes(dense4))
+    keys, counts = np.unique(numpy_kmer_keys(r152[:BATCH], 31, True), return_counts=True)
+    compare("format_kmer_tsv_bytes k=31", lambda: N.format_kmer_tsv_bytes(keys, counts, 31),
+            lambda: F.format_kmer_tsv_bytes(keys, counts, 31))
+    _, lo, cnt = batch_spectrum_triples(codes8, 10, max_len=150, device="cuda")
+
+    def fold(fn):
+        table = np.zeros(4**10, np.int64)
+        fn(table, lo, cnt)
+        return table
+
+    compare("fold_pairs_into k=10", lambda: fold(N.fold_pairs_into),
+            lambda: fold(sparse.fold_pairs_into), np.array_equal)
+    log("host library vs numpy: " + ", ".join(n for n in out if "widen" not in n)
+        + ": byte- or array-equal")
+    log("host: " + json.dumps({"card": card, "nproc": os.cpu_count(), "cpu": cpu_model(),
+                               "functions": out}))
+    return out
+
+
+# Host library functions each leg must call (its counters set to 0 just
+# before the leg and read just after).
+NATIVE_BY_LEG = {
+    "k8_nonzero": ("parse_encode_bytes", "format_pairs_bytes"),
+    "k31_canonical_nonzero": ("parse_encode_bytes", "format_pairs_bytes"),
+    "k8_dense_256": ("parse_encode_bytes", "format_dense_pairs_bytes"),
+    "k8_dense_api_nonzero": ("parse_encode_bytes", "format_pairs_bytes"),
+    "k4_dense_api": ("parse_encode_bytes", "format_rows_bytes"),
+    "spectrum_k8": ("parse_encode_bytes", "format_rows_bytes"),
+    "spectrum_k15_hist": ("parse_encode_bytes",),
+    "sparse_k31_canonical": ("parse_encode_bytes", "format_kmer_tsv_bytes"),
+    "k8_nonzero_stream": ("iter_record_blocks_native", "pack_records",
+                          "format_pairs_bytes"),
+    "k8_nonzero_kill_resume": ("iter_record_blocks_native", "pack_records",
+                               "format_pairs_bytes"),
+    "k31_canonical_nonzero_stream": ("iter_record_blocks_native", "pack_records",
+                                     "format_pairs_bytes"),
+    "k8_packed_stream": ("iter_record_blocks_native", "pack_records",
+                         "format_pairs_bytes"),
+    "spectrum_k8_stream": ("iter_record_blocks_native", "pack_records",
+                           "format_rows_bytes"),
+    "spectrum_k8_in_memory": ("parse_encode_bytes", "format_rows_bytes"),
+}
+
+
+def reset_native() -> None:
+    from cfrk_tpu_torch.io import native as N
+
+    for fn in N.COUNTED:
+        fn.calls = 0
+
+
+def native_calls(label: str, calls: dict | None = None) -> dict:
+    """The host library's calls since :func:`reset_native` (or a child's
+    ``calls``); fails if a function ``label`` must call was not called."""
+    from cfrk_tpu_torch.io import native as N
+
+    if calls is None:
+        calls = {fn.__name__: fn.calls for fn in N.COUNTED}
+    missing = [name for name in NATIVE_BY_LEG[label] if calls.get(name, 0) <= 0]
+    if missing:
+        fail(f"{label}: the host library's {missing} were not called: {calls}")
+    return {name: n for name, n in calls.items() if n}
+
+
 def check_goldens() -> None:
     """Phase 4: the reference positional form through the module entry."""
     data = ROOT / "tests" / "data"
@@ -516,11 +675,13 @@ def run_main_path(label: str, fasta: Path, reads, flags: list, kernel,
     out_gpu = WORK / f"{label}.cuda.cfrk"
     out_cpu = WORK / f"{label}.cpu.cfrk"
     before = kernel.launches
+    reset_native()
     t0 = time.perf_counter()
     if main([str(fasta), str(out_gpu), *flags]) != 0:
         fail(f"{label}: CLI exit")
     wall = time.perf_counter() - t0
     launches = kernel.launches - before
+    native = native_calls(label)
     if launches <= 0:
         fail(f"{label}: {kernel.__name__} was not launched")
     t0 = time.perf_counter()
@@ -549,7 +710,7 @@ def run_main_path(label: str, fasta: Path, reads, flags: list, kernel,
     res = {
         "leg": label, "reads": len(reads), "bases": bases,
         "cuda_wall_s": wall, "cpu_route_wall_s": cpu_wall,
-        "bases_per_s": bases / wall, "launches": launches,
+        "bases_per_s": bases / wall, "launches": launches, "native_calls": native,
         "bytes": len(gpu_bytes), "rows_checked": len(sample), "sha256": digest,
         "equal_to_auto_route": same_as is not None,
     }
@@ -596,11 +757,13 @@ def run_spectrum_leg(label: str, fasta: Path, reads, flags: list,
     out_cpu = WORK / f"{label}.cpu.out"
     for fn in kernels.values():
         fn.launches = 0
+    reset_native()
     t0 = time.perf_counter()
     if main([str(fasta), "-o", str(out_gpu), *flags]) != 0:
         fail(f"{label}: CLI exit")
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    native = native_calls(label)
     t0 = time.perf_counter()
     if main([str(fasta), "-o", str(out_cpu), *flags, "--device", "cpu"]) != 0:
         fail(f"{label}: CPU CLI exit")
@@ -615,7 +778,7 @@ def run_spectrum_leg(label: str, fasta: Path, reads, flags: list,
         "leg": label, "reads": len(reads), "bases": int(reads.size),
         "cuda_wall_s": wall, "cpu_route_wall_s": cpu_wall,
         "bases_per_s": int(reads.size) / wall, "launches": launches,
-        "bytes": len(gpu_bytes), "checked": checked,
+        "native_calls": native, "bytes": len(gpu_bytes), "checked": checked,
         "sha256": hashlib.sha256(gpu_bytes).hexdigest(),
     }
     log(f"spectrum leg {label}: " + json.dumps(res))
@@ -688,16 +851,19 @@ def spectrum_legs(seed: int, r152, fa152: Path, fa1m: Path) -> list:
     return legs
 
 
-# A child that runs the CLI and then reports its kernels' launches, which
-# this process cannot count across the process boundary.
+# A child that runs the CLI and then reports its kernels' launches and
+# the host library's calls, which this process cannot count across the
+# process boundary.
 _CLI_CHILD = (
     "import json, sys\n"
     "from cfrk_tpu_torch.cli import main\n"
+    "from cfrk_tpu_torch.io import native\n"
     "from cfrk_tpu_torch.ops.cuda import perread, rowsort, spectrum\n"
     "rc = main(sys.argv[1:])\n"
     "print(json.dumps({'launches': {f.__name__: f.launches for f in ("
     "rowsort.rowsort_rle, rowsort.rowsort_rle_large, spectrum.spectrum_hist, "
-    "perread.perread_hist)}}))\n"
+    "perread.perread_hist)}, "
+    "'native_calls': {f.__name__: f.calls for f in native.COUNTED}}))\n"
     "sys.exit(rc)\n"
 )
 
@@ -742,13 +908,15 @@ def stats_metrics(stderr: str) -> dict:
 
 
 def run_cli_here(label: str, argv: list, kernels: dict) -> dict:
-    """The CLI in this process with every kernel count set to 0 just
-    before and read just after; returns the launches, the wall seconds,
-    what it wrote to stderr and, with ``--stats``, its metrics line."""
+    """The CLI in this process with every kernel count and host library
+    counter set to 0 just before and read just after; returns the
+    launches, the library calls, the wall seconds, what it wrote to
+    stderr and, with ``--stats``, its metrics line."""
     from cfrk_tpu_torch.cli import main
 
     for fn in kernels.values():
         fn.launches = 0
+    reset_native()
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
@@ -757,7 +925,8 @@ def run_cli_here(label: str, argv: list, kernels: dict) -> dict:
     if rc != 0:
         fail(f"{label}: CLI exit {rc}: {err.getvalue()[-400:]}")
     res = {"launches": {name: fn.launches for name, fn in kernels.items()},
-           "wall_s": wall, "stderr": err.getvalue()}
+           "native_calls": native_calls(label), "wall_s": wall,
+           "stderr": err.getvalue()}
     if "--stats" in argv:
         res["metrics"] = stats_metrics(err.getvalue())
     return res
@@ -804,6 +973,7 @@ def killed_then_resumed(label: str, fasta: Path, flags: list, fault: str,
            "reads_done_at_kill": state["reads_done"],
            "input_offset_at_kill": state["input_offset"], "torn_tail_bytes": torn,
            "resume_launches": run["launches"], "fresh_launches": fresh_launches,
+           "resume_native_calls": run["native_calls"],
            "resume_wall_s": run["wall_s"], "resume_stages_s": run["metrics"]["stages_s"],
            "resume_stderr": [line for line in run["stderr"].strip().splitlines()
                              if not line.startswith("{")]}
@@ -839,7 +1009,8 @@ def streamed_legs(fa150: Path, fa152: Path, fa_half: Path, fa1m: Path,
         out.unlink()
         for name, n in run["launches"].items():
             total[name] += n
-        res = {"leg": label, "launches": run["launches"], "cuda_wall_s": run["wall_s"],
+        res = {"leg": label, "launches": run["launches"],
+               "native_calls": run["native_calls"], "cuda_wall_s": run["wall_s"],
                "bases": bases, "bases_per_s": bases / run["wall_s"],
                "metrics": run["metrics"]}
         log(f"streamed leg {label}: " + json.dumps(res))
@@ -885,7 +1056,8 @@ def streamed_legs(fa150: Path, fa152: Path, fa_half: Path, fa1m: Path,
         wall = time.perf_counter() - t0
         if child["rc"] != 0:
             fail(f"{name}: exit {child['rc']}: {child['err'][-400:]}")
-        launches = json.loads(child["out"].strip().splitlines()[-1])["launches"]
+        report = json.loads(child["out"].strip().splitlines()[-1])
+        launches = report["launches"]
         if launches["spectrum_hist"] <= 0:
             fail(f"{name}: spectrum_hist was not launched")
         if sha256_of(out) != sha["spectrum_k8"]:
@@ -893,8 +1065,9 @@ def streamed_legs(fa150: Path, fa152: Path, fa_half: Path, fa1m: Path,
         if Path(str(out) + ".ckpt.json").exists():
             fail(f"{name}: the checkpoint outlived the run")
         out.unlink()
-        spec[name] = {"launches": launches, "process_wall_s": wall,
-                      "peak_rss_mb": child["peak_rss_mb"]}
+        spec[name] = {"launches": launches,
+                      "native_calls": native_calls(name, report["native_calls"]),
+                      "process_wall_s": wall, "peak_rss_mb": child["peak_rss_mb"]}
         if extra:
             spec[name]["metrics"] = stats_metrics(child["err"])
     total["spectrum_hist"] += spec["spectrum_k8_stream"]["launches"]["spectrum_hist"]
@@ -1159,25 +1332,28 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    built = build_libraries(["rowsort", "spectrum", "perread"])
+    built = build_libraries(["rowsort", "spectrum", "perread", "fastaio"])
     R._library()
     S._library()
     P._library()
+    from cfrk_tpu_torch.io import native as N
+    from cfrk_tpu_torch.ops.cuda.build import host_compiler
+
+    N._library()
     log(f"build: {', '.join(so.name for so in built.values())} in "
         f"{time.perf_counter() - t0:.3f} s")
     for so in built.values():
         log(so.with_suffix(".log").read_text().strip())
+    version = subprocess.run([host_compiler(), "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+    host_log = built["fastaio"].with_suffix(".log").read_text().splitlines()
+    log(f"host library: {host_compiler()} ({version[0] if version else '?'}), "
+        f"{host_log[1]}")
 
-    # 3. kernel vs plain
+    # 3. kernel vs plain, and the host library vs numpy
     clock = PhaseClock()
     errs = check_kernels(args.seed)
     clock.lap("3 kernel vs plain")
-
-    # 4. goldens
-    check_goldens()
-    clock.lap("4 goldens")
-
-    # 5. main path at real size
     import numpy as np
 
     r150 = synthetic_reads(args.seed, READS, 150)
@@ -1186,6 +1362,14 @@ def main() -> int:
     write_fasta(fa150, r150)
     write_fasta(fa152, r152)
     write_fasta(fa256, r150[:256])
+    check_host_library(r150, r152, fa150, card)
+    clock.lap("3 host library vs numpy")
+
+    # 4. goldens
+    check_goldens()
+    clock.lap("4 goldens")
+
+    # 5. main path at real size
     R.rowsort_rle.launches = 0
     R.rowsort_rle_large.launches = 0
     legs = [
@@ -1221,7 +1405,6 @@ def main() -> int:
     sha = {leg["leg"]: leg["sha256"] for leg in legs + spec_legs}
     stream_legs, stream_launches = streamed_legs(
         fa150, fa152, WORK / "r150_half.fa", fa1m, sha)
-    fa1m.unlink()
     for name, n in stream_launches.items():
         if n <= 0:
             fail(f"the streamed legs never launched {name}")

@@ -23,14 +23,17 @@ setup(
         "cfrk_tpu.runtime",
         "cfrk_tpu_torch",
         "cfrk_tpu_torch.io",
+        "cfrk_tpu_torch.io.native",
         "cfrk_tpu_torch.ops",
         "cfrk_tpu_torch.ops.cuda",
         "cfrk_tpu_torch.pipeline",
+        "cfrk_tpu_torch.runtime",
         "cfrk_tpu_torch.tools",
     ],
-    # The CUDA kernels of cfrk_tpu_torch are not ext_modules: they build
-    # from csrc/ with nvcc at first use (cfrk_tpu_torch/ops/cuda/build.py).
-    package_data={"cfrk_tpu_torch": ["csrc/*.cu"]},
+    # The CUDA kernels and the host library of cfrk_tpu_torch are not
+    # ext_modules: they build from csrc/ at first use, with nvcc and the
+    # host C++ compiler (cfrk_tpu_torch/ops/cuda/build.py).
+    package_data={"cfrk_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"]},
     ext_modules=[
         Extension(
             "cfrk_tpu.io.native._fastaio",

@@ -385,6 +385,34 @@ def test_stage_breakdown_spectrum_modes_write_the_cli_bytes(tmp_path, capsys, fl
     assert res["device_ms"] is None and res["device_busy_share"] is None
 
 
+def test_leg_breakdowns_runs_each_kind_from_the_tree(tmp_path, monkeypatch, capsys):
+    """The per-leg tool runs an in-memory leg through stage_breakdown and
+    a streamed leg through the CLI's ``--stats`` line, each in a process
+    started from the given tree's root, and appends one JSON line a run
+    to ``--out``."""
+    from cfrk_tpu_torch.tools import leg_breakdowns as L
+
+    for leg in ("k8_nonzero", "spectrum_k8_stream"):
+        kind, name, args = L.LEGS[leg]
+        monkeypatch.setitem(L.LEGS, leg, (kind, name, [*args, "--device", "cpu"]))
+    work = tmp_path / "work"
+    work.mkdir()
+    src = Path(_prefix_fasta(tmp_path, sorted(MANIFEST["files"])[0], 30)).read_bytes()
+    for name in ("r150.fa", "r1m.fa"):
+        (work / name).write_bytes(src)
+    out = tmp_path / "legs.jsonl"
+    assert L.main(["--tree", str(ROOT), "--work", str(work), "--legs",
+                   "k8_nonzero,spectrum_k8_stream", "--out", str(out)]) == 0
+    lines = [json.loads(line) for line in out.read_text().splitlines()]
+    assert capsys.readouterr().out.count("\n") == 2
+    assert [r["leg"] for r in lines] == ["k8_nonzero", "spectrum_k8_stream"]
+    assert lines[0]["result"]["reads"] == 30 and "format" in lines[0]["result"]["host_s"]
+    assert "parse_wait" in lines[1]["result"]["stages_s"]
+    assert not list(work.glob("breakdown_*"))
+    with pytest.raises(SystemExit):
+        L.main(["--tree", str(ROOT), "--legs", "no_such_leg"])
+
+
 def test_int64_cfrk_spectrum_row_to_gz_is_compressed(tmp_path):
     """A `.gz` path always holds gzip bytes, int64 counts included; the
     JAX CLI writes that row uncompressed (cli.py:373-377, ROADMAP

@@ -24,6 +24,7 @@ _MODULES = [
     "cfrk_tpu_torch.format",
     "cfrk_tpu_torch.io.fasta",
     "cfrk_tpu_torch.io.bgzf",
+    "cfrk_tpu_torch.io.native",
     "cfrk_tpu_torch.runtime",
     "cfrk_tpu_torch.runtime.faults",
     "cfrk_tpu_torch.runtime.metrics",
