@@ -22,11 +22,15 @@ CLI, compatible with the reference binary's positional form::
     python -m cfrk_tpu_torch reads.fasta -k 31 --canonical --mode sparse
     python -m cfrk_tpu_torch reads.fasta out.cfrk 8 --nonzero --stream
     python -m cfrk_tpu_torch reads.fasta out.cfrk 8 --nonzero --resume
+    python -m cfrk_tpu_torch reads.fasta -k 31 --canonical --mode sparse \
+        --stream --mem-budget-mb 4096 -o out.kmers.tsv
 
 The library exports the JAX package's names for the dense per-read API
 (whose file drivers take the ``device`` their batches run on) and the
 spectrum API, and the streaming drivers with checkpoint and resume
-(``stream_count_file``, ``stream_spectrum_file``).
+(``stream_count_file``, ``stream_spectrum_file``,
+``stream_sparse_spectrum_file``, the last with disk spilling under a
+memory budget).
 """
 
 from .format import CfrkWriter, format_file_bytes, parse_cfrk
@@ -39,7 +43,11 @@ from .pipeline.count import (
     spectrum_file,
     write_cfrk,
 )
-from .pipeline.stream import stream_count_file, stream_spectrum_file
+from .pipeline.stream import (
+    stream_count_file,
+    stream_sparse_spectrum_file,
+    stream_spectrum_file,
+)
 from .version import __version__
 
 __all__ = [
@@ -54,6 +62,7 @@ __all__ = [
     "spectrum_file",
     "sparse_spectrum_file",
     "stream_count_file",
+    "stream_sparse_spectrum_file",
     "stream_spectrum_file",
     "write_cfrk",
 ]

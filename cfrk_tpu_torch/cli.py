@@ -16,6 +16,8 @@ contract (``cfrk <dataset.fasta>
         [--checkpoint-every N] [--packed]
     python -m cfrk_tpu_torch reads.fa out.cfrk 8 --nonzero --resume
     python -m cfrk_tpu_torch reads.fa -k 8 --mode spectrum --stream -o out
+    python -m cfrk_tpu_torch reads.fa -k 31 --canonical --mode sparse --stream \
+        [--mem-budget-mb MB] [--resume] -o out
 
 Each writes the same bytes as ``cfrk_tpu``'s CLI.  ``--device cuda``
 (the default) runs the CUDA kernels and refuses to run without a
@@ -39,7 +41,7 @@ __all__ = ["main", "build_parser"]
 # Flags of cfrk_tpu's CLI this package does not serve yet.
 _NOT_PORTED = (
     "--list-devices", "--out-dir", "--profile",
-    "--mem-budget-mb", "--max-parallel-tasks", "--retries",
+    "--max-parallel-tasks", "--retries",
     "--no-lazy-errors", "--provenance", "--devices", "--tp", "--seqpar",
     "--slack", "--distributed", "--config",
 )
@@ -138,8 +140,20 @@ def build_parser() -> argparse.ArgumentParser:
         "--checkpoint-every", type=int, default=None, metavar="N",
         help=(
             "checkpoint every N batches in --stream mode (default: 1 for "
-            "perread, 16 for spectrum, whose checkpoint copies the whole "
-            "table to the host and to disk)"
+            "perread, 16 for spectrum, 64 for sparse; a spectrum or "
+            "sparse checkpoint writes the whole accumulator, so they are "
+            "rarer)"
+        ),
+    )
+    p.add_argument(
+        "--mem-budget-mb", type=int, default=None, metavar="MB",
+        help=(
+            "sparse --stream mode, k >= 11: cap host accumulator memory "
+            "— merged (key, count) arrays beyond the budget spill to "
+            "sorted on-disk runs next to the checkpoint and the final "
+            "result is a bounded-memory multiway merge (byte-identical "
+            "to the unbounded run).  The reference OOM-exited instead, "
+            "src/kmer_main.cu:51-56"
         ),
     )
     p.add_argument(
@@ -234,16 +248,38 @@ def _write_spectrum(path: str, table: np.ndarray, fmt: str,
 
 def _write_sparse(path: str, keys: np.ndarray, counts: np.ndarray, k: int,
                   fmt: str = "tsv", min_count: int = 1) -> None:
-    """Write a key-sorted sparse spectrum: ``hist`` (count-of-counts of
-    the k-mers with count >= min_count), else ``KMER<TAB>count`` tsv
-    through the host library's threaded formatter."""
+    """Write a key-sorted sparse spectrum (one chunk of
+    :func:`_write_sparse_chunks`)."""
+    _write_sparse_chunks(path, [(keys, counts)], k, fmt, min_count)
+
+
+def _write_sparse_chunks(path: str, chunks, k: int, fmt: str = "tsv",
+                         min_count: int = 1) -> None:
+    """Write a sparse spectrum from ascending (keys, counts) chunks (an
+    accumulator's ``iter_merged_chunks``), so that the whole key set
+    never has to exist at once: ``hist`` (count-of-counts of the k-mers
+    with count >= min_count, summed chunk by chunk: distinct abundance
+    values are few even where distinct k-mers are billions), else
+    ``KMER<TAB>count`` tsv through the host library's threaded
+    formatter.  Any chunking writes the same bytes."""
     if fmt == "hist":
-        _write_hist(path, counts[counts >= max(min_count, 1)])
+        occ: dict = {}
+        for _, counts in chunks:
+            counts = np.asarray(counts)
+            vals, ns = np.unique(
+                counts[counts >= max(min_count, 1)], return_counts=True
+            )
+            for c, n in zip(vals.tolist(), ns.tolist()):
+                occ[c] = occ.get(c, 0) + n
+        with _open_out(path, "wt") as f:
+            for c in sorted(occ):
+                f.write(f"{c}\t{occ[c]}\n")
         return
     from .io.native import format_kmer_tsv_bytes
 
     with _open_out(path, "wb") as f:
-        f.write(format_kmer_tsv_bytes(keys, counts, k, min_count))
+        for keys, counts in chunks:
+            f.write(format_kmer_tsv_bytes(keys, counts, k, min_count))
 
 
 def _resolve_device(name: str):
@@ -260,26 +296,53 @@ def _resolve_device(name: str):
 
 def _run_stream(args, inp: str, out: str, device) -> int:
     """``--stream``: the constant-memory drivers of pipeline/stream.py;
-    returns the reads this run counted.  The spectrum's checkpoint
-    survives until the real output exists, so a crash while it is
-    written stays resumable."""
+    returns the reads this run counted.  A spectrum's or sparse run's
+    checkpoint survives until the real output exists, so a crash while
+    it is written stays resumable."""
     from .pipeline.batch import auto_batch_size
-    from .pipeline.stream import stream_count_file, stream_spectrum_file
+    from .pipeline.count import _use_sorted_spectrum
+    from .pipeline.stream import (
+        stream_count_file,
+        stream_sparse_spectrum_file,
+        stream_spectrum_file,
+    )
     from .runtime.checkpoint import cleanup_checkpoint
+    from .runtime.metrics import pin_malloc_for_streaming
 
-    common = dict(device=device, canonical=args.canonical, impl=args.impl,
+    if args.mode == "sparse" or (
+        args.mode == "spectrum" and _use_sorted_spectrum(args.k, args.impl, device)
+    ):
+        # The host fold's large, short-lived arrays: keep glibc from
+        # caching them (a setting for the whole process, which the CLI
+        # owns; the drivers only trim at checkpoints).
+        pin_malloc_for_streaming()
+    common = dict(device=device, canonical=args.canonical,
                   batch_size=args.batch_size or auto_batch_size(),
                   resume=args.resume, min_qual=args.min_qual)
     try:
-        if args.mode == "perread":
+        if args.mode == "sparse":
+            acc, _, m = stream_sparse_spectrum_file(
+                inp, args.k, out_path=out, cleanup=False,
+                checkpoint_every=args.checkpoint_every or 64,
+                mem_budget_mb=args.mem_budget_mb, finalize="accumulator",
+                **common,
+            )
+            # The merged chunks go straight into the writer: under a
+            # budget the whole key set never exists in memory.
+            _write_sparse_chunks(out, acc.iter_merged_chunks(), args.k,
+                                 args.spectrum_format, args.min_count)
+            cleanup_checkpoint(out)
+        elif args.mode == "perread":
             m = stream_count_file(
                 inp, out, args.k, checkpoint_every=args.checkpoint_every or 1,
-                nonzero=args.nonzero, packed=args.packed, **common,
+                nonzero=args.nonzero, packed=args.packed, impl=args.impl,
+                **common,
             )
         else:
             table, m = stream_spectrum_file(
                 inp, args.k, out_path=out, cleanup=False,
-                checkpoint_every=args.checkpoint_every or 16, **common,
+                checkpoint_every=args.checkpoint_every or 16, impl=args.impl,
+                **common,
             )
             _write_spectrum(out, table, args.spectrum_format, args.min_count)
             cleanup_checkpoint(out)
@@ -330,8 +393,6 @@ def main(argv=None) -> int:
             )
     if args.resume:
         args.stream = True
-    if args.stream and args.mode == "sparse":
-        raise _not_ported("--mode sparse --stream")
     device = _resolve_device(args.device)
     out = args.output or _out_path(inp, args.mode)
     big = os.path.getsize(inp)

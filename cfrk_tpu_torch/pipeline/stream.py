@@ -1,5 +1,5 @@
-"""Constant-memory streaming drivers: FASTA of any size → `.cfrk` rows
-or a dense spectrum, with checkpoint and resume.
+"""Constant-memory streaming drivers: FASTA of any size → `.cfrk` rows,
+a dense spectrum or a sparse one, with checkpoint and resume.
 
 The counterpart of the single-device half of
 ``cfrk_tpu/pipeline/stream.py``.  The in-memory drivers
@@ -21,19 +21,26 @@ The counterpart of the single-device half of
 * **checkpoint/resume** after every flushed batch
   (``runtime/checkpoint.py``): the output is fsynced before the
   checkpoint claims it, and a resumed run truncates the torn tail,
-  seeks the input (plain and bgzf files) and writes the same bytes.
+  seeks the input (plain and bgzf files) and writes the same bytes;
+* **a host fold behind the device** (:func:`stream_sparse_spectrum_file`,
+  the sparse spectrum and the dense spectrum's sorted route): each
+  batch's per-read pairs fold into a host accumulator on a worker
+  thread while the next batches run and copy; under a memory budget the
+  accumulator spills sorted runs to disk and the result is merged from
+  them in bounded chunks.
 
-Not here yet: the sorted and sparse streaming spectra
-(``stream_sparse_spectrum_file``), stdin input, meshes.
+Not here yet: stdin input, meshes.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import os
 import queue
 import sys
 import threading
+import time
 from typing import Iterator
 
 import numpy as np
@@ -43,11 +50,22 @@ from ..format import CfrkWriter
 from ..io.bgzf import is_bgzf
 from ..io.fasta import iter_encoded_with_offsets
 from ..io.native import iter_record_blocks_native
-from ..ops.perread_sparse import count_perread_rows, narrow_for_fetch, pairs_to_host
+from ..ops.perread_sparse import (
+    count_perread_rows,
+    narrow_for_fetch,
+    pairs_to_host,
+    valid_pair_prefix,
+)
+from ..ops.sparse import (
+    DenseFoldAccumulator,
+    SparseAccumulator,
+    SpillingSparseAccumulator,
+    fetched_to_triples,
+)
 from ..ops.spectrum import spectrum as spectrum_op
 from ..runtime import faults
-from ..runtime.checkpoint import StreamCheckpoint, checkpoint_path
-from ..runtime.metrics import RunMetrics
+from ..runtime.checkpoint import StreamCheckpoint, checkpoint_path, spill_dir_path
+from ..runtime.metrics import RunMetrics, malloc_trim
 from .batch import ReadBatch, len_bucket, pad_reads, pad_reads_flat
 from .count import (
     SPILL_LIMIT,
@@ -61,6 +79,7 @@ __all__ = [
     "stream_batches",
     "stream_count_file",
     "stream_spectrum_file",
+    "stream_sparse_spectrum_file",
 ]
 
 _SENTINEL = None
@@ -327,10 +346,11 @@ class _BatchPipeline:
     """Launches batches on one device and brings their results to the
     host without holding the host.
 
-    ``compute(codes)`` takes a batch's ``[B, L]`` int8 codes on the
-    device and returns ``(outputs, tag)``: a tuple of tensors whose
-    first axis is the batch's rows, and whatever the caller needs to
-    read them.  Only the first ``n_reads`` rows of each output travel.
+    ``compute(codes, batch)`` takes a batch's ``[B, L]`` int8 codes on
+    the device (and the :class:`ReadBatch` they came from) and returns
+    ``(outputs, tag)``: a tuple of tensors whose first axis is the
+    batch's rows, and whatever the caller needs to read them.  Only the
+    first ``n_reads`` rows of each output travel.
 
     On a CUDA device the codes go up from a pinned staging buffer with a
     non-blocking copy; the kernels run on the current stream; a copy
@@ -359,13 +379,14 @@ class _BatchPipeline:
     def submit(self, batch: ReadBatch) -> _InFlight:
         n = batch.n_reads
         if not self._cuda:
-            outs, tag = self._compute(torch.from_numpy(batch.codes))
+            outs, tag = self._compute(torch.from_numpy(batch.codes), batch)
             return _InFlight(n, batch.end_offset, tag,
                              tuple(o[:n] for o in outs), None)
         with torch.cuda.device(self.device):
             staging = self._pinned(batch.codes.shape, torch.int8)
             staging.numpy()[...] = batch.codes
-            outs, tag = self._compute(staging.to(self.device, non_blocking=True))
+            outs, tag = self._compute(
+                staging.to(self.device, non_blocking=True), batch)
             computed = torch.cuda.Event()
             computed.record()
             held, host = [staging], []
@@ -403,11 +424,11 @@ def _perread_compute(k: int, canonical: bool, impl: str, packed: bool,
     RLE, or dense counts in the layout ``dense_counts_on_device`` picks
     (the tag is its packing)."""
     if sparse_rows:
-        return lambda codes: (
+        return lambda codes, batch: (
             narrow_for_fetch(count_perread_rows(codes, k, canonical), k), None
         )
 
-    def dense(codes):
+    def dense(codes, batch):
         counts, packing = dense_counts_on_device(codes, k, canonical, impl, packed)
         return (counts,), packing
 
@@ -586,15 +607,26 @@ def stream_spectrum_file(
     only places the checkpoint sidecar; pass the eventual output path.
     ``cleanup=False`` keeps the checkpoint until the CALLER has written
     the real output (``runtime.checkpoint.cleanup_checkpoint``), so that
-    a crash during that write stays resumable.
+    a crash during that write stays resumable.  Where the sorted route
+    holds (``pipeline.count._use_sorted_spectrum``) the batches go
+    through :func:`stream_sparse_spectrum_file` instead, whose
+    checkpoints are the sparse driver's.
     """
     device = torch.device(device)
     if _use_sorted_spectrum(k, impl, device):
-        raise NotImplementedError(
-            "the streamed sorted-route spectrum (--impl sort; --impl auto at "
-            "k = 11-15 on a CUDA device) is not yet ported to "
-            "cfrk_tpu_torch; --impl scatter streams the dense table"
+        # The sorted route (``--impl sort``; ``auto`` at k = 11-15 on a
+        # CUDA device) streams through the sparse driver (the same
+        # computation and checkpoints) and densifies once at the end;
+        # k <= 10 folds each batch straight into a dense host table.
+        keys, counts, m2 = stream_sparse_spectrum_file(
+            path, k, device=device, canonical=canonical,
+            batch_size=batch_size, out_path=out_path, resume=resume,
+            checkpoint_every=checkpoint_every, cleanup=cleanup,
+            byte_range=byte_range, metrics=metrics, min_qual=min_qual,
         )
+        total = np.zeros(4**k, dtype=np.int64)
+        total[keys] = counts
+        return total, m2
 
     def dispatch(arr, table):
         return spectrum_op(arr, k, canonical=canonical, impl=impl, out=table)
@@ -651,3 +683,209 @@ def stream_spectrum_file(
         ckpt.cleanup(cpath)
     m.total_reads = ckpt.reads_done
     return total, m
+
+
+# Folds that may wait for the worker: each holds its batch's pinned host
+# buffers (about 9 MB at k = 31 and 8192 reads of 150 bp).
+_MAX_FOLD_QUEUE = 4
+
+
+def _sparse_spectrum_compute(k: int, canonical: bool):
+    """Batch → the narrowed per-read sort + RLE rows of the sparse
+    spectrum, cut on the device to the batch's true window count
+    (:func:`valid_pair_prefix`: the bucket's pad columns hold no run
+    start, e.g. 142 of 248 columns for 150 bp reads in a 256 bucket)."""
+    def compute(codes, batch):
+        w = max(int(batch.lengths.max(initial=0)), k) - k + 1
+        rows = valid_pair_prefix(
+            narrow_for_fetch(count_perread_rows(codes, k, canonical), k), w
+        )
+        return tuple(a.contiguous() for a in rows), None
+
+    return compute
+
+
+def stream_sparse_spectrum_file(
+    path,
+    k: int,
+    *,
+    device: torch.device | str,
+    canonical: bool = False,
+    batch_size: int = 8192,
+    out_path=None,
+    resume: bool = False,
+    checkpoint_every: int = 64,
+    merge_every: int = 32,
+    cleanup: bool = True,
+    byte_range=None,
+    metrics: RunMetrics | None = None,
+    min_qual: int = 0,
+    mem_budget_mb: int | None = None,
+    finalize: str = "arrays",
+):
+    """Stream a FASTA/FASTQ file into a sparse spectrum (any k <= 31),
+    its batches run on ``device``.
+
+    Returns (keys uint64 sorted, counts int64, metrics).  Each batch's
+    per-read rows are sorted and run-length encoded on the device (the
+    rowsort kernels on a GPU), cut to the batch's true window count and
+    copied down narrowed; the host folds them into one accumulator:
+    :class:`DenseFoldAccumulator` for k <= 10, else
+    :class:`SparseAccumulator` (merged every ``merge_every`` batches).
+    Checkpoints every ``checkpoint_every`` batches persist its merged
+    arrays as ``.npz``.
+
+    ``mem_budget_mb`` caps the host accumulator for k >= 11: merged
+    arrays beyond the budget spill to sorted runs under
+    ``<out>.ckpt.json.spill/`` and the result multiway-merges them in
+    bounded chunks (:class:`SpillingSparseAccumulator`); checkpoints
+    then record the append-only run list.  It needs ``out_path``, and
+    the result is the same as without it.  A resumed run honours the
+    checkpoint's run list whatever this call's budget.
+
+    Two batches are in flight on the device (:class:`_BatchPipeline`),
+    and the fold runs on one worker thread, so that it overlaps the next
+    batches' copies; a batch's host buffers go back to the pipeline only
+    after its fold has read them, and at most ``_MAX_FOLD_QUEUE`` folds
+    wait.  Only folded batches are checkpointed.  Stages: "dispatch"
+    (launch), "materialize" (the wait for the batch's copy), "fold_bg"
+    (fold work on the worker), "fold_wait" (the main thread's wait for
+    folds: the exposed fold), "checkpoint".
+
+    ``finalize="accumulator"`` returns ``(accumulator, None, metrics)``:
+    the caller streams ``iter_merged_chunks()`` into its writer and
+    then removes the checkpoint and the spill runs
+    (``runtime.checkpoint.cleanup_checkpoint``).
+    """
+    device = torch.device(device)
+    m = metrics or RunMetrics(k=k, mode="sparse")
+    fp, cpath = _resume_fingerprint(
+        path, k, "sparse", canonical, out_path, byte_range, min_qual
+    )
+
+    ckpt = StreamCheckpoint(fingerprint=fp)
+    prev = None
+    if resume and cpath and os.path.exists(cpath):
+        prev = StreamCheckpoint.load_if_valid(cpath)
+        if prev is not None and not prev.matches(fp):
+            prev = None
+
+    spilling = False
+    if k <= 10:
+        acc = DenseFoldAccumulator(k)  # <= 8 MB: no budget needed
+    elif mem_budget_mb or (prev is not None and prev.sparse_runs is not None):
+        # A budget was asked for, or the checkpoint is a budgeted run's:
+        # its run list defines the state, whatever this call asks.
+        if cpath is None:
+            raise ValueError(
+                "mem_budget_mb needs an out_path (spill runs live next "
+                "to the checkpoint sidecar)"
+            )
+        acc = SpillingSparseAccumulator(
+            spill_dir_path(cpath),
+            (mem_budget_mb or 8192) * (1 << 20),
+            merge_every=merge_every,
+        )
+        spilling = True
+    else:
+        acc = SparseAccumulator(merge_every=merge_every)
+    if prev is not None:
+        try:
+            if prev.sparse_runs is not None:
+                acc.adopt_runs(prev.sparse_runs)
+            else:
+                acc.load_arrays(*prev.load_sparse())
+            ckpt = prev
+        except (OSError, ValueError, KeyError):
+            # Torn sidecar or missing runs: restart from scratch, and
+            # clear stale spill files so that they cannot double-count.
+            ckpt = StreamCheckpoint(fingerprint=fp)
+            if spilling:
+                acc.adopt_runs([])
+
+    dense_fold = isinstance(acc, DenseFoldAccumulator)
+    pipe = _BatchPipeline(device, _sparse_spectrum_compute(k, canonical))
+
+    def fold(host) -> None:
+        t0 = time.perf_counter()
+        arrs = [t.numpy() for t in host]
+        if dense_fold and len(arrs) == 2:
+            acc.add_pairs(*arrs)
+        else:
+            acc.add(*fetched_to_triples(arrs, k))
+        m.stages["fold_bg"] = m.stages.get("fold_bg", 0.0) + (
+            time.perf_counter() - t0
+        )
+
+    pending: list[_InFlight] = []
+    folds: list = []  # (future, job) in submission order
+    since_ckpt = 0
+    folder = concurrent.futures.ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix="cfrk-fold"
+    )
+
+    def wait_folds(keep: int = 0) -> None:
+        """Join folds, oldest first, until ``keep`` remain; each joined
+        fold's host buffers go back to the pipeline."""
+        with m.stage("fold_wait"):
+            while len(folds) > keep:
+                fut, job = folds.pop(0)
+                fut.result()  # re-raise the worker's error
+                pipe.release(job)
+
+    def drain_one() -> None:
+        nonlocal since_ckpt
+        job = pending.pop(0)
+        with m.stage("materialize"):
+            host = pipe.wait(job)
+        folds.append((folder.submit(fold, host), job))
+        while folds and folds[0][0].done():
+            fut, done_job = folds.pop(0)
+            fut.result()
+            pipe.release(done_job)
+        if len(folds) > _MAX_FOLD_QUEUE:
+            wait_folds(_MAX_FOLD_QUEUE)
+        # reads_done never runs ahead of the state a checkpoint holds:
+        # every outstanding fold is joined before one is written.
+        ckpt.reads_done += job.n_reads
+        ckpt.input_offset = job.end_offset
+        since_ckpt += 1
+        if cpath and since_ckpt >= checkpoint_every:
+            wait_folds()
+            with m.stage("checkpoint"):
+                if spilling:
+                    ckpt.sparse_runs = acc.checkpoint_runs()
+                else:
+                    ckpt.save_sparse(cpath, *acc.result_arrays())
+                ckpt.save(cpath)
+                malloc_trim()  # return freed arena pages at the quiet point
+            since_ckpt = 0
+
+    gen = _resume_batches(path, k, batch_size, ckpt, byte_range, min_qual)
+    batches = _prefetched(gen, metrics=m)
+    try:
+        for batch in batches:
+            with m.stage("dispatch"):
+                pending.append(pipe.submit(batch))
+            m.batches += 1
+            m.reads += batch.n_reads
+            m.bases += int(batch.lengths.sum())
+            if len(pending) > 2:
+                drain_one()
+        while pending:
+            drain_one()
+        wait_folds()
+    finally:
+        batches.close()
+        folder.shutdown(wait=True, cancel_futures=True)
+
+    m.total_reads = ckpt.reads_done
+    if finalize == "accumulator":
+        return acc, None, m
+    keys, counts = acc.result_arrays()
+    if cleanup:
+        if cpath and os.path.exists(cpath):
+            ckpt.cleanup(cpath)
+        elif spilling:
+            acc.cleanup_spill()
+    return keys, counts, m

@@ -13,11 +13,9 @@ other's checkpoint:
   seeks the input (plain and bgzf files) or re-parses and skips the
   processed reads (plain gzip);
 * spectrum-mode runs also persist the partial table as ``.npy`` next to
-  the checkpoint.
-
-The ``.npz`` sidecar of the sparse streaming driver (``save_sparse`` /
-``load_sparse``) comes with that driver; :meth:`StreamCheckpoint.cleanup`
-already removes one that the JAX package left.
+  the checkpoint, and sparse runs their merged (keys, counts) arrays as
+  ``.npz`` -- or, under a memory budget, the list of sorted runs spilled
+  to ``<ckpt>.spill/`` (:func:`spill_dir_path`).
 """
 
 from __future__ import annotations
@@ -81,10 +79,11 @@ class StreamCheckpoint:
     # files; the decompressed offset for bgzf): resume seeks here instead
     # of re-parsing reads_done records.  None = no offsets (plain gzip).
     input_offset: int | None = None
-    # Memory-bounded sparse runs of the JAX package: the spilled run
-    # basenames under ``<ckpt>.spill/`` as of this checkpoint.  Carried
-    # so that the JSON layout stays the JAX package's; no driver of this
-    # package sets it yet.
+    # Memory-bounded sparse runs (ops/sparse.SpillingSparseAccumulator):
+    # the authoritative list of spilled run basenames under
+    # ``<ckpt>.spill/`` as of this checkpoint.  Runs spilled after the
+    # JSON flip are stale (their batches get replayed) and are deleted
+    # by adopt_runs on resume.  None = unbounded npz checkpointing.
     sparse_runs: list | None = None
 
     @staticmethod
@@ -174,6 +173,23 @@ class StreamCheckpoint:
         if not self.spectrum_path:
             raise ValueError("checkpoint has no spectrum accumulator")
         return np.load(self.spectrum_path)
+
+    def save_sparse(self, ckpt_path: str, keys: np.ndarray,
+                    counts: np.ndarray) -> None:
+        spath = os.path.abspath(f"{ckpt_path}.sparse.{self.reads_done}.npz")
+        tmp = spath + ".tmp.npz"
+        with open(tmp, "wb") as f:
+            np.savez(f, keys=keys, counts=counts)
+            f.flush()
+            os.fsync(f.fileno())  # data durable BEFORE the JSON claims it
+        os.replace(tmp, spath)
+        self._pending_cleanup = self._sidecar_swap(spath)
+
+    def load_sparse(self) -> tuple[np.ndarray, np.ndarray]:
+        if not self.spectrum_path:
+            raise ValueError("checkpoint has no sparse accumulator")
+        with np.load(self.spectrum_path) as z:
+            return z["keys"], z["counts"]
 
     def cleanup(self, ckpt_path: str) -> None:
         """Remove checkpoint files after a successful run (including any

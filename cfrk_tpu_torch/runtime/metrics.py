@@ -18,7 +18,7 @@ import json
 import time
 from contextlib import contextmanager
 
-__all__ = ["RunMetrics", "StageTimer"]
+__all__ = ["RunMetrics", "StageTimer", "malloc_trim", "pin_malloc_for_streaming"]
 
 
 @dataclasses.dataclass
@@ -79,6 +79,40 @@ class RunMetrics:
 
     def json_line(self) -> str:
         return json.dumps(self.to_dict())
+
+
+def pin_malloc_for_streaming() -> bool:
+    """Keep glibc from retaining the sparse streaming drain's buffers.
+
+    The per-batch host arrays of the sparse fold (tens of MB of masked
+    keys and fold transients) sit under glibc's DYNAMIC mmap threshold,
+    so freed blocks stay cached in its arenas: the JAX package measured
+    a 20M-read k=31 run creeping to 11.1 GB of resident set against a
+    4 GB accumulator budget.  Pinning ``M_MMAP_THRESHOLD`` to 1 MB routes
+    the big blocks through mmap/munmap, and the resident set tracks the
+    live set.  The setting holds for the whole PROCESS, so only a
+    program that owns its process calls it (the CLI, once, before a
+    streamed sparse or sorted-spectrum run); a library function never
+    does.  No-op off glibc.  Returns True when applied."""
+    try:
+        import ctypes
+
+        libc = ctypes.CDLL("libc.so.6", use_errno=True)
+        m_mmap_threshold = -3
+        return bool(libc.mallopt(m_mmap_threshold, 1 << 20))
+    except (OSError, AttributeError):
+        return False
+
+
+def malloc_trim() -> None:
+    """Return freed arena pages to the OS (the streaming drivers call it
+    at checkpoints, their quiet point).  No-op off glibc."""
+    try:
+        import ctypes
+
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
 
 
 class StageTimer:

@@ -47,6 +47,10 @@ LEGS = {
     "k8_nonzero_stream": ("stream", "r150.fa", ["8", "--nonzero"]),
     "k8_packed_stream": ("stream", "r150_half.fa", ["8", "--nonzero", "--packed"]),
     "spectrum_k8_stream": ("stream", "r1m.fa", ["-k", "8", "--mode", "spectrum"]),
+    "sparse_k31_canonical_stream": ("stream", "r152.fa",
+                                    ["-k", "31", "--canonical", "--mode", "sparse"]),
+    "spectrum_k15_stream": ("stream", "r1m.fa", ["-k", "15", "--mode", "spectrum",
+                                                 "--spectrum-format", "hist"]),
 }
 
 

@@ -73,7 +73,18 @@ Phases, each of which exits non-zero on failure:
    reads (the per-read histogram kernel, sha256 of phase 5's dense-API
    leg); and ``--mode spectrum --stream`` at k=8 on the 1M reads as a
    subprocess beside a non-streamed subprocess (each reports its
-   launches; bytes equal to phase 6's leg; both peak RSS logged);
+   launches; bytes equal to phase 6's leg; both peak RSS logged); then
+   the sparse streaming driver: ``31 --canonical --mode sparse --stream
+   --stats`` on the 100k x 152 bp file (13 launches of the k=31 kernel,
+   the sha256 of phase 6's sparse leg, no checkpoint or spill directory
+   left); 600k x 152 bp seeded reads through the same command with
+   ``--mem-budget-mb 256 --checkpoint-every 16`` as a child killed at
+   ``CFRK_FAULT_INJECT=checkpoint:3`` (its checkpoint lists at least 2
+   spilled runs), resumed in this process (fewer launches than a fresh
+   run) and held to the sha256 of an unbudgeted ``--stream`` child, both
+   children's peak RSS logged; and ``-k 15 --mode spectrum --stream
+   --spectrum-format hist`` on the 1M x 150 bp reads (the sorted route:
+   the k <= 15 rowsort kernel, the sha256 of phase 6's k=15 leg);
 8. times: each kernel's ms per 8192-read batch beside the plain route's
    on the card (CUDA events, after warm-up; the rowsort kernels as a
    CUDA-graph replay, also at 70 bp and 4 kb, with ``torch.sort`` on
@@ -123,6 +134,12 @@ READS = 100_000  # BASELINE.json config 2: 100k reads per leg
 # the whole run.
 DENSE_API_READS = 50_000
 SPECTRUM_READS = 1_000_000  # BASELINE.json config 3: a 1M-read metagenome
+# The budgeted sparse leg: config 4's k = 31 canonical reads of 152 bp,
+# cut from config 3's 1M reads to 600k so that the smoke stays well under
+# 600 s (at 1M the leg took 112 s of a 579 s run); about 17 M distinct
+# k-mers, 270 MB of keys and counts, against a 256 MB budget: it spills.
+BUDGET_READS = 600_000
+BUDGET_MB = 256
 _COMP = str.maketrans("ACGT", "TGCA")
 _DIGITS = str.maketrans("ACGT", "0123")
 
@@ -622,6 +639,13 @@ NATIVE_BY_LEG = {
     "spectrum_k8_stream": ("iter_record_blocks_native", "pack_records",
                            "format_rows_bytes"),
     "spectrum_k8_in_memory": ("parse_encode_bytes", "format_rows_bytes"),
+    "sparse_k31_canonical_stream": ("iter_record_blocks_native", "pack_records",
+                                    "format_kmer_tsv_bytes"),
+    "sparse_k31_budget_kill_resume": ("iter_record_blocks_native", "pack_records",
+                                      "format_kmer_tsv_bytes"),
+    "sparse_k31_unbudgeted_child": ("iter_record_blocks_native", "pack_records",
+                                    "format_kmer_tsv_bytes"),
+    "spectrum_k15_stream": ("iter_record_blocks_native", "pack_records"),
 }
 
 
@@ -982,11 +1006,11 @@ def killed_then_resumed(label: str, fasta: Path, flags: list, fault: str,
 
 
 def streamed_legs(fa150: Path, fa152: Path, fa_half: Path, fa1m: Path,
-                  sha: dict) -> tuple:
+                  sha: dict, seed: int) -> tuple:
     """Phase 7: the streaming drivers at the sizes of phases 5 and 6.
     ``sha`` holds the sha256 of the non-streamed legs' bytes by leg name.
     Returns (legs, launches by kernel over the runs made in this process
-    and the streamed spectrum child)."""
+    and the children that report theirs)."""
     from cfrk_tpu_torch.io.bgzf import is_bgzf, write_bgzf
     from cfrk_tpu_torch.ops.cuda import perread as P
     from cfrk_tpu_torch.ops.cuda import rowsort as R
@@ -1079,7 +1103,145 @@ def streamed_legs(fa150: Path, fa152: Path, fa_half: Path, fa1m: Path,
         f"{streamed['peak_rss_mb']:.1f}, in memory "
         f"{spec['spectrum_k8_in_memory']['peak_rss_mb']:.1f}")
     legs.append(res)
+
+    for leg in sparse_streamed_legs(fa152, fa1m, sha, kernels, seed):
+        legs.append(leg)
+        for launches in (leg["launches"], leg.get("unbudgeted_launches", {})):
+            for name, n in launches.items():
+                total[name] += n
     return legs, total
+
+
+def spill_state(out: Path) -> tuple:
+    """(checkpoint path, spill directory) of a streamed run's output."""
+    ckpt = Path(str(out) + ".ckpt.json")
+    return ckpt, Path(str(ckpt) + ".spill")
+
+
+def sparse_streamed_legs(fa152: Path, fa1m: Path, sha: dict, kernels: dict,
+                         seed: int) -> list:
+    """Phase 7, the sparse streaming driver and the sorted hand-over:
+    the 100k x 152 bp k=31 canonical sparse spectrum streamed; the same
+    at 600k reads under a memory budget, killed at its third checkpoint,
+    resumed and held to an unbudgeted child; the k=15 dense spectrum
+    streamed through the sorted route.  Each leg's counts are set to 0
+    just before it and read just after (``run_cli_here``; a child
+    reports its own)."""
+    legs = []
+    sparse = ["-k", "31", "--canonical", "--mode", "sparse", "--stream"]
+
+    label = "sparse_k31_canonical_stream"
+    out = WORK / f"{label}.kmers.tsv"
+    run = run_cli_here(label, [str(fa152), "-o", str(out), *sparse, "--stats"], kernels)
+    if run["launches"]["rowsort_rle_large"] != -(-READS // BATCH):
+        fail(f"{label}: rowsort_rle_large launched {run['launches']['rowsort_rle_large']} "
+             f"times, not {-(-READS // BATCH)}")
+    if sha256_of(out) != sha["sparse_k31_canonical"]:
+        fail(f"{label}: the streamed bytes differ from the sparse_k31_canonical leg's")
+    if any(p.exists() for p in spill_state(out)):
+        fail(f"{label}: a checkpoint or spill directory outlived the run")
+    out.unlink()
+    legs.append({"leg": label, "launches": run["launches"],
+                 "native_calls": run["native_calls"], "cuda_wall_s": run["wall_s"],
+                 "bases": READS * 152, "bases_per_s": READS * 152 / run["wall_s"],
+                 "metrics": run["metrics"]})
+    log(f"streamed leg {label}: " + json.dumps(legs[-1]))
+
+    # BUDGET_READS x 152 bp under a budget: a child killed at its third
+    # checkpoint, resumed here, against an unbudgeted child of the file.
+    label = "sparse_k31_budget_kill_resume"
+    fa = WORK / "r1m152.fa"
+    t0 = time.perf_counter()
+    write_fasta(fa, synthetic_reads(seed + 4, BUDGET_READS, 152))
+    made_s = time.perf_counter() - t0
+    out = WORK / f"{label}.kmers.tsv"
+    ckpt, spill = spill_state(out)
+    budget = ["--mem-budget-mb", str(BUDGET_MB), "--checkpoint-every", "16"]
+    t0 = time.perf_counter()
+    killed = run_child(f"{label}_killed", [sys.executable, "-m", "cfrk_tpu_torch", str(fa),
+                                           "-o", str(out), *sparse, *budget],
+                       {"CFRK_FAULT_INJECT": "checkpoint:3"})
+    killed_wall = time.perf_counter() - t0
+    if killed["rc"] == 0 or "InjectedFault" not in killed["err"]:
+        fail(f"{label}: the child armed with checkpoint:3 exited {killed['rc']}: "
+             f"{killed['err'][-400:]}")
+    if out.exists() or not ckpt.exists():
+        fail(f"{label}: the killed run left an output or no checkpoint")
+    state = json.loads(ckpt.read_text())
+    runs = state["sparse_runs"] or []
+    if len(runs) < 2 or sorted(p.name for p in spill.iterdir()) != sorted(
+            f"{b}.{part}.npy" for b in runs for part in ("counts", "keys")):
+        fail(f"{label}: the checkpoint lists {runs}, the spill directory holds "
+             f"{sorted(p.name for p in spill.iterdir()) if spill.exists() else None}")
+    spilled_mb = sum(p.stat().st_size for p in spill.iterdir()) / 2**20
+    fresh_launches = -(-BUDGET_READS // BATCH)
+    run = run_cli_here(label, [str(fa), "-o", str(out), *sparse, *budget, "--resume",
+                               "--stats"], kernels)
+    if not 0 < run["launches"]["rowsort_rle_large"] < fresh_launches:
+        fail(f"{label}: the resumed run launched rowsort_rle_large "
+             f"{run['launches']['rowsort_rle_large']} times, a fresh run {fresh_launches}")
+    if any(p.exists() for p in (ckpt, spill)):
+        fail(f"{label}: a checkpoint or spill directory outlived the resumed run")
+    resumed_sha = sha256_of(out)
+    out.unlink()
+    full = WORK / f"{label}.unbudgeted.kmers.tsv"
+    t0 = time.perf_counter()
+    child = run_child("sparse_k31_unbudgeted_child", [sys.executable, "-c", _CLI_CHILD,
+                                                      str(fa), "-o", str(full), *sparse,
+                                                      "--stats"])
+    child_wall = time.perf_counter() - t0
+    if child["rc"] != 0:
+        fail(f"{label}: the unbudgeted child exited {child['rc']}: {child['err'][-400:]}")
+    report = json.loads(child["out"].strip().splitlines()[-1])
+    if report["launches"]["rowsort_rle_large"] != fresh_launches:
+        fail(f"{label}: the unbudgeted child launched rowsort_rle_large "
+             f"{report['launches']['rowsort_rle_large']} times, not {fresh_launches}")
+    if sha256_of(full) != resumed_sha:
+        fail(f"{label}: the budgeted, killed and resumed bytes differ from the "
+             "unbudgeted run's")
+    tsv_bytes = full.stat().st_size
+    full.unlink()
+    fa.unlink()
+    legs.append({
+        "leg": label, "reads": BUDGET_READS, "budget_mb": BUDGET_MB,
+        "fasta_made_s": made_s, "killed_process_wall_s": killed_wall,
+        "killed_peak_rss_mb": killed["peak_rss_mb"],
+        "reads_done_at_kill": state["reads_done"], "runs_at_kill": runs,
+        "spilled_mb_at_kill": spilled_mb, "fresh_launches": fresh_launches,
+        "launches": run["launches"], "native_calls": run["native_calls"],
+        "resume_wall_s": run["wall_s"], "resume_metrics": run["metrics"],
+        "unbudgeted_process_wall_s": child_wall,
+        "unbudgeted_peak_rss_mb": child["peak_rss_mb"],
+        "unbudgeted_launches": report["launches"],
+        "unbudgeted_native_calls": native_calls("sparse_k31_unbudgeted_child",
+                                                report["native_calls"]),
+        "unbudgeted_metrics": stats_metrics(child["err"]), "tsv_bytes": tsv_bytes,
+        "sha256": resumed_sha,
+    })
+    log(f"streamed leg {label}: " + json.dumps(legs[-1]))
+    log(f"peak_rss_mb at {BUDGET_READS} x 152 bp, k=31 canonical sparse --stream: "
+        f"budgeted {BUDGET_MB} MB child (killed at checkpoint 3 of "
+        f"{fresh_launches // 16}) {killed['peak_rss_mb']:.1f}, unbudgeted child "
+        f"{child['peak_rss_mb']:.1f}")
+
+    label = "spectrum_k15_stream"
+    out = WORK / f"{label}.hist"
+    run = run_cli_here(label, [str(fa1m), "-o", str(out), "-k", "15", "--mode", "spectrum",
+                               "--stream", "--spectrum-format", "hist", "--stats"], kernels)
+    if run["launches"]["rowsort_rle"] <= 0:
+        fail(f"{label}: rowsort_rle was not launched")
+    if sha256_of(out) != sha["spectrum_k15_hist"]:
+        fail(f"{label}: the streamed bytes differ from the spectrum_k15_hist leg's")
+    if any(p.exists() for p in spill_state(out)):
+        fail(f"{label}: a checkpoint outlived the run")
+    out.unlink()
+    legs.append({"leg": label, "launches": run["launches"],
+                 "native_calls": run["native_calls"], "cuda_wall_s": run["wall_s"],
+                 "bases": SPECTRUM_READS * 150,
+                 "bases_per_s": SPECTRUM_READS * 150 / run["wall_s"],
+                 "metrics": run["metrics"]})
+    log(f"streamed leg {label}: " + json.dumps(legs[-1]))
+    return legs
 
 
 def time_spectrum_routes(seed: int, card: str) -> dict:
@@ -1404,7 +1566,7 @@ def main() -> int:
     # 7. streamed legs: their launches join the main path's counts
     sha = {leg["leg"]: leg["sha256"] for leg in legs + spec_legs}
     stream_legs, stream_launches = streamed_legs(
-        fa150, fa152, WORK / "r150_half.fa", fa1m, sha)
+        fa150, fa152, WORK / "r150_half.fa", fa1m, sha, args.seed)
     for name, n in stream_launches.items():
         if n <= 0:
             fail(f"the streamed legs never launched {name}")

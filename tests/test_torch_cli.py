@@ -118,11 +118,6 @@ def test_stats_line(tmp_path, capsys):
         (["--config", "run.json"], "--config is not yet ported"),
         (["--devices=2"], "--devices is not yet ported"),
         (["--profile", "trace"], "--profile is not yet ported"),
-        (["--mode", "sparse", "--stream"], "--mode sparse --stream is not yet ported"),
-        (["--mode", "sparse", "--resume"], "--mode sparse --stream is not yet ported"),
-        (["--stream", "--mem-budget-mb", "64"], "--mem-budget-mb is not yet ported"),
-        (["--mode", "sparse", "--mem-budget-mb", "64"],
-         "--mem-budget-mb is not yet ported"),
         (["--impl", "scatter", "--seqpar"], "--seqpar is not yet ported"),
     ],
 )
@@ -130,6 +125,32 @@ def test_unported_flags_fail_clearly(tmp_path, argv, message):
     fa = str(DATA / "seq2.fasta.gz")
     with pytest.raises(SystemExit, match=message):
         main([fa, str(tmp_path / "o.cfrk"), "2", "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["--mode", "sparse", "--stream"],
+        ["--mode", "sparse", "--resume"],
+        ["--stream", "--mem-budget-mb", "64"],
+        ["--mode", "sparse", "--mem-budget-mb", "64"],
+    ],
+    ids=["sparse_stream", "sparse_resume", "stream_budget", "sparse_budget"],
+)
+def test_sparse_stream_flags_match_jax_cli(tmp_path, argv):
+    """The flags of the sparse streaming slice write cfrk_tpu's bytes:
+    ``--mode sparse --stream`` (and ``--resume`` with no checkpoint, a
+    fresh streamed run); ``--mem-budget-mb`` is read only by a streamed
+    sparse run at k >= 11 and changes no byte anywhere."""
+    fa = _prefix_fasta(tmp_path, "seq2.fasta.gz", 60)
+    k = "17" if "sparse" in argv else "2"
+    a, b = tmp_path / "torch.out", tmp_path / "jax.out"
+    assert main([fa, "-o", str(a), "-k", k, *argv, "--batch-size", "16",
+                 "--device", "cpu"]) == 0
+    assert jax_main([fa, "-o", str(b), "-k", k, *argv, "--batch-size", "16",
+                     "--devices", "1"]) == 0
+    assert a.read_bytes() == b.read_bytes() and a.read_bytes()
+    assert not list(tmp_path.glob("*.ckpt.json*"))
 
 
 @pytest.mark.parametrize("name", sorted(MANIFEST["files"]))
@@ -543,8 +564,8 @@ def test_stream_spectrum_resume_flag(tmp_path):
     [
         (["-k", "9", "--nonzero", "--packed"], "packed mode needs k <= 8"),
         (["-k", "5", "--packed", "--impl", "scatter"], "use --impl auto/pallas"),
-        (["-k", "5", "--mode", "spectrum", "--impl", "sort"],
-         "not yet ported to cfrk_tpu_torch; --impl scatter"),
+        (["-k", "16", "--mode", "spectrum", "--impl", "sort"],
+         "dense spectrum needs k <= 15"),
     ],
     ids=["packed_k9", "packed_scatter", "spectrum_sort"],
 )
@@ -570,3 +591,183 @@ def test_large_input_note_names_stream(tmp_path, capsys, monkeypatch):
     assert main([fa, str(tmp_path / "s.cfrk"), "2", "--stream", "--device", "cpu"]) == 0
     assert "held in memory" not in capsys.readouterr().err
     assert (tmp_path / "s.cfrk").read_bytes() == (tmp_path / "o.cfrk").read_bytes()
+
+
+# ------------------------------------------------ sparse streaming
+
+
+def _seeded_fasta(path, n, length, seed, genome=None):
+    """n random reads, or n reads sampled from a random genome of
+    ``genome`` bases (so that k-mers repeat)."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    src = rng.integers(0, 4, genome) if genome else None
+    with open(path, "wb") as f:
+        for i in range(n):
+            if genome:
+                s = int(rng.integers(0, genome - length))
+                codes = src[s:s + length]
+            else:
+                codes = rng.integers(0, 4, length)
+            f.write(b">r%d\n" % i + bases[codes].tobytes() + b"\n")
+    return str(path)
+
+
+def test_cli_stream_sparse_mode(tmp_path):
+    """``-k 19 --mode sparse --stream`` writes one KMER<TAB>count line per
+    distinct k-mer of the one-shot spectrum, the JAX CLI's bytes."""
+    from cfrk_tpu_torch.ops.sparse import decode_key
+    from cfrk_tpu_torch.pipeline.count import sparse_spectrum_file
+
+    fa = _seeded_fasta(tmp_path / "r.fasta", 10, 60, 5)
+    got, want = _both_spectrum(tmp_path, fa, "o.kmers.tsv", "-k", "19", "--mode",
+                               "sparse", "--stream", "--batch-size", "4")
+    assert got == want
+    spec = sparse_spectrum_file(fa, 19, device="cpu")
+    lines = got.decode().strip().splitlines()
+    assert dict(line.split("\t") for line in lines) == {
+        decode_key(key, 19): str(c) for key, c in spec.items()}
+
+
+def test_sparse_hist_format_streamed(tmp_path):
+    """``--spectrum-format hist`` streamed equals the in-memory hist, the
+    count-of-counts of the tsv, and the JAX CLI's streamed hist."""
+    from collections import Counter
+
+    fa = _seeded_fasta(tmp_path / "h.fasta", 12, 50, 4)
+    tsv, hist, hist2 = (tmp_path / n for n in ("o.kmers.tsv", "o.hist", "o2.hist"))
+    assert main([fa, "-k", "17", "--mode", "sparse", "-o", str(tsv), "--device", "cpu"]) == 0
+    assert main([fa, "-k", "17", "--mode", "sparse", "-o", str(hist),
+                 "--spectrum-format", "hist", "--device", "cpu"]) == 0
+    occ = Counter(int(line.split("\t")[1]) for line in tsv.read_text().splitlines())
+    assert dict(map(int, line.split("\t")) for line in hist.read_text().splitlines()) \
+        == dict(occ)
+    assert main([fa, "-k", "17", "--mode", "sparse", "-o", str(hist2), "--device", "cpu",
+                 "--spectrum-format", "hist", "--stream", "--batch-size", "4"]) == 0
+    assert hist2.read_text() == hist.read_text()
+    got, want = _both_spectrum(tmp_path, fa, "s.hist", "-k", "17", "--mode", "sparse",
+                               "--spectrum-format", "hist", "--stream", "--batch-size", "4")
+    assert got == want == hist.read_bytes()
+
+
+@pytest.mark.parametrize("fmt", ["tsv", "hist"])
+@pytest.mark.parametrize("extra", [["--min-count", "2"], []], ids=["min2", "min1"])
+def test_sparse_stream_budget_chunked_writer_byte_identical(tmp_path, fmt, extra):
+    """``--mem-budget-mb`` routes the output through the chunked writer
+    over spilled runs: the bytes equal the unbudgeted streamed run, the
+    in-memory run and the JAX CLI's budgeted run, and no spill
+    directory is left."""
+    fa = _seeded_fasta(tmp_path / "in.fasta", 300, 90, 5, genome=8000)
+    mode = ["-k", "16", "--mode", "sparse", "--spectrum-format", fmt, *extra]
+    outs = []
+    for i, flags in enumerate((["--stream", "--mem-budget-mb", "1", "--batch-size", "64"],
+                               ["--stream", "--batch-size", "64"], [])):
+        out = tmp_path / f"{i}.out"
+        assert main([fa, "-o", str(out), *mode, *flags, "--device", "cpu"]) == 0
+        outs.append(out.read_bytes())
+    jout = tmp_path / "jax.out"
+    assert jax_main([fa, "-o", str(jout), *mode, "--stream", "--mem-budget-mb", "1",
+                     "--batch-size", "64", "--devices", "1"]) == 0
+    assert outs[0] == outs[1] == outs[2] == jout.read_bytes() and outs[0]
+    assert not [p for p in os.listdir(tmp_path) if ".spill" in p or ".ckpt" in p]
+
+
+def test_write_sparse_chunks_equals_write_sparse(tmp_path):
+    """The chunked writer equals the one-shot writer for any chunking,
+    tsv and hist, min-count included."""
+    from cfrk_tpu_torch import cli as tcli
+
+    rng = np.random.default_rng(2)
+    keys = np.unique(rng.integers(0, 4**21, 500).astype(np.uint64))
+    counts = rng.integers(1, 6, keys.size).astype(np.int64)
+    for fmt in ("tsv", "hist"):
+        for min_count in (1, 3):
+            a, b = tmp_path / f"a.{fmt}", tmp_path / f"b.{fmt}"
+            tcli._write_sparse(str(a), keys, counts, 21, fmt, min_count)
+            chunks = ((keys[s:s + 37], counts[s:s + 37]) for s in range(0, keys.size, 37))
+            tcli._write_sparse_chunks(str(b), chunks, 21, fmt, min_count)
+            assert a.read_bytes() == b.read_bytes() and a.read_bytes()
+
+
+@pytest.mark.parametrize("first", ["jax", "torch"])
+@pytest.mark.parametrize("budget", [[], ["--mem-budget-mb", "1"]], ids=["npz", "spill"])
+def test_sparse_resume_flag_finishes_a_killed_stream_of_either_cli(tmp_path, capsys,
+                                                                  first, budget):
+    """A ``--mode sparse --stream`` run of one CLI killed at its second
+    checkpoint is finished by the other CLI's ``--resume`` (the budget
+    given to the first run only: the run list is honoured without it),
+    and ``--stats`` prints the streamed run's metrics line."""
+    from cfrk_tpu.runtime import faults as jfaults
+    from cfrk_tpu_torch.runtime import faults
+
+    fa = _seeded_fasta(tmp_path / "in.fasta", 80, 70, 9)
+    full, out = tmp_path / "full.tsv", tmp_path / "x.tsv"
+    common = ["-k", "21", "--canonical", "--mode", "sparse", "--batch-size", "8",
+              "--checkpoint-every", "2"]
+    assert main([fa, "-o", str(full), *common, "--stream", "--device", "cpu"]) == 0
+    clis = {"jax": (jax_main, jfaults, ["--devices", "1"]),
+            "torch": (main, faults, ["--device", "cpu"])}
+    start, start_faults, start_extra = clis[first]
+    finish, _, finish_extra = clis["torch" if first == "jax" else "jax"]
+    start_faults.arm("checkpoint", 2)
+    try:
+        with pytest.raises(start_faults.InjectedFault):
+            start([fa, "-o", str(out), *common, "--stream", *budget, *start_extra])
+    finally:
+        start_faults.disarm()
+    state = json.loads((tmp_path / "x.tsv.ckpt.json").read_text())
+    assert state["reads_done"] == 32 and (state["sparse_runs"] is not None) == bool(budget)
+    assert not out.exists()
+    capsys.readouterr()
+    assert finish([fa, "-o", str(out), *common, "--resume", "--stats", *finish_extra]) == 0
+    assert out.read_bytes() == full.read_bytes()
+    assert not list(tmp_path.glob("x.tsv.ckpt.json*"))
+    if finish is main:
+        line, summary = map(json.loads, capsys.readouterr().err.strip().splitlines()[-2:])
+        assert (line["reads"], line["batches"], line["mode"]) == (48, 6, "sparse")
+        assert {"parse_wait", "dispatch", "materialize", "fold_bg", "fold_wait",
+                "checkpoint"} == set(line["stages_s"])
+        assert summary["reads"] == 48 and summary["mode"] == "sparse"
+
+
+@pytest.mark.parametrize("k,impl", [("12", "sort"), ("9", "sort"), ("13", "scatter")])
+def test_stream_spectrum_sort_route_matches_jax_cli(tmp_path, k, impl):
+    """``--mode spectrum --stream --impl sort`` (the sorted route through
+    the sparse driver) writes the JAX CLI's bytes and the one-shot
+    run's; ``scatter`` at k = 13 stays on the dense table."""
+    fa = _prefix_fasta(tmp_path, "seq1.fasta.gz", 40)
+    mode = ["-k", k, "--mode", "spectrum", "--impl", impl, "--spectrum-format", "tsv",
+            "--batch-size", "8"]
+    got, want = _both_spectrum(tmp_path, fa, "o.spec", *mode, "--stream",
+                               "--checkpoint-every", "2")
+    assert got == want and got
+    shot = tmp_path / "shot.spec"
+    assert main([fa, "-o", str(shot), *mode, "--device", "cpu"]) == 0
+    assert shot.read_bytes() == got
+    assert not list(tmp_path.glob("*/*.ckpt.json*"))
+
+
+def test_pin_malloc_only_for_sparse_and_sorted_streams(tmp_path, monkeypatch):
+    """The CLI, which owns its process, pins glibc's mmap threshold once
+    for a streamed sparse or sorted-spectrum run and for nothing else;
+    the drivers never do."""
+    from cfrk_tpu_torch.runtime import metrics
+
+    calls = []
+    monkeypatch.setattr(metrics, "pin_malloc_for_streaming", lambda: calls.append(1))
+    fa = _prefix_fasta(tmp_path, "seq2.fasta.gz", 20)
+    out = str(tmp_path / "o")
+    for argv, pins in ((["-k", "3", "--stream"], 0),
+                       (["-k", "5", "--mode", "spectrum", "--stream"], 0),
+                       (["-k", "17", "--mode", "sparse"], 0),
+                       (["-k", "17", "--mode", "sparse", "--stream"], 1),
+                       (["-k", "5", "--mode", "spectrum", "--impl", "sort", "--stream"], 1)):
+        calls.clear()
+        assert main([fa, "-o", out, *argv, "--device", "cpu"]) == 0
+        assert len(calls) == pins, argv
+    from cfrk_tpu_torch.pipeline import stream as tstream
+
+    calls.clear()
+    tstream.stream_sparse_spectrum_file(fa, 17, device="cpu", out_path=out,
+                                        checkpoint_every=1)
+    assert not calls

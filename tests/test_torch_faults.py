@@ -192,3 +192,120 @@ def test_cli_child_killed_through_the_environment(tmp_path, spec, reads_done):
     assert main([str(fasta), str(out), *argv, "--resume"]) == 0
     assert out.read_bytes() == full.read_bytes()
     assert not os.path.exists(checkpoint_path(out))
+
+
+# ------------------------------------------------- sparse spilling runs
+
+
+def _sparse(path, k, **kw):
+    from cfrk_tpu_torch.pipeline.stream import stream_sparse_spectrum_file
+
+    return stream_sparse_spectrum_file(path, k, device="cpu", **kw)
+
+
+def _spill_runs(tmp_path, out):
+    return json.loads((tmp_path / (out.name + ".ckpt.json")).read_text())["sparse_runs"]
+
+
+@pytest.mark.parametrize("crash_after", [1, 2, 3, 4, 5])
+def test_stream_sparse_spill_crash_resume(tmp_path, crash_after):
+    """A budgeted run checkpoints an append-only run list: die right
+    after each of its five checkpoints in turn, resume, and the result
+    equals the uninterrupted run of both packages; a run spilled after
+    the last durable checkpoint is dropped, and the spill directory goes
+    with the checkpoint."""
+    fasta = _fasta(tmp_path / "in.fasta", 17, n=40, lo=40, hi=80)
+    k, bs = 16, 8
+    want = _sparse(fasta, k, batch_size=bs)
+    jwant = jstream.stream_sparse_spectrum_file(fasta, k, batch_size=bs)
+    np.testing.assert_array_equal(want[0], jwant[0])
+    np.testing.assert_array_equal(want[1], jwant[1])
+
+    out = tmp_path / "crashed.tsv"
+    faults.arm("checkpoint", crash_after)
+    with pytest.raises(faults.InjectedFault):
+        _sparse(fasta, k, batch_size=bs, out_path=out, mem_budget_mb=1,
+                checkpoint_every=1, cleanup=False)
+    runs = _spill_runs(tmp_path, out)
+    assert runs == [f"run{i:05d}" for i in range(crash_after)]
+    # A run spilled after the checkpoint, which the resume must drop.
+    spill = tmp_path / (out.name + ".ckpt.json.spill")
+    for part in ("keys", "counts"):
+        (spill / f"run{crash_after:05d}.{part}.npy").write_bytes(
+            (spill / f"run00000.{part}.npy").read_bytes())
+
+    gk, gc, m = _sparse(fasta, k, batch_size=bs, out_path=out, mem_budget_mb=1,
+                        checkpoint_every=1, resume=True, cleanup=False)
+    assert m.reads == 40 - crash_after * bs and m.total_reads == 40
+    np.testing.assert_array_equal(gk, want[0])
+    np.testing.assert_array_equal(gc, want[1])
+    assert spill.is_dir()
+    cleanup_checkpoint(out)
+    assert not spill.exists() and not list(tmp_path.glob("crashed.tsv.ckpt*"))
+
+
+@pytest.mark.parametrize("first", ["jax", "torch"])
+def test_stream_sparse_spill_resume_without_budget(tmp_path, first):
+    """Resuming a budgeted run WITHOUT a budget still honours the
+    checkpointed run list (the run list, not the caller's flags, is the
+    accumulator's state), from either package's run."""
+    fasta = _fasta(tmp_path / "in.fasta", 23, n=30, lo=40, hi=80)
+    k, bs = 16, 8
+    want = _sparse(fasta, k, batch_size=bs)
+    out = tmp_path / "crashed.tsv"
+    start, fl = {"jax": (jstream.stream_sparse_spectrum_file, jfaults),
+                 "torch": (_sparse, faults)}[first]
+    fl.arm("checkpoint", 2)
+    with pytest.raises(fl.InjectedFault):
+        start(fasta, k, batch_size=bs, out_path=out, mem_budget_mb=1,
+              checkpoint_every=1, cleanup=False)
+    assert _spill_runs(tmp_path, out) == ["run00000", "run00001"]
+    gk, gc, m = _sparse(fasta, k, batch_size=bs, out_path=out, checkpoint_every=1,
+                        resume=True)
+    np.testing.assert_array_equal(gk, want[0])
+    np.testing.assert_array_equal(gc, want[1])
+    assert m.reads == 14 and not list(tmp_path.glob("crashed.tsv.ckpt*"))
+
+
+def test_stream_sparse_missing_spill_run_restarts(tmp_path):
+    """A checkpoint whose listed run is gone restarts from scratch (and
+    clears the directory) instead of undercounting."""
+    fasta = _fasta(tmp_path / "in.fasta", 29, n=30, lo=40, hi=80)
+    want = _sparse(fasta, 16, batch_size=8)
+    out = tmp_path / "x.tsv"
+    faults.arm("checkpoint", 2)
+    with pytest.raises(faults.InjectedFault):
+        _sparse(fasta, 16, batch_size=8, out_path=out, mem_budget_mb=1,
+                checkpoint_every=1, cleanup=False)
+    os.remove(tmp_path / "x.tsv.ckpt.json.spill" / "run00001.counts.npy")
+    gk, gc, m = _sparse(fasta, 16, batch_size=8, out_path=out, mem_budget_mb=1,
+                        checkpoint_every=1, resume=True)
+    assert m.reads == 30
+    np.testing.assert_array_equal(gk, want[0])
+    np.testing.assert_array_equal(gc, want[1])
+
+
+def test_cli_sparse_budget_child_killed_through_the_environment(tmp_path):
+    """A budgeted ``--mode sparse --stream`` child armed with
+    ``CFRK_FAULT_INJECT=checkpoint:2`` dies with its run list and runs
+    on disk and no output; ``--resume`` writes the uninterrupted bytes
+    and removes the checkpoint and the runs."""
+    from cfrk_tpu_torch.cli import main
+
+    root = Path(__file__).resolve().parent.parent
+    fasta = _fasta(tmp_path / "r.fasta", 31, n=40, lo=40, hi=80)
+    full, out = tmp_path / "full.tsv", tmp_path / "x.tsv"
+    argv = ["-k", "18", "--canonical", "--mode", "sparse", "--batch-size", "8",
+            "--checkpoint-every", "1", "--mem-budget-mb", "1", "--device", "cpu"]
+    assert main([str(fasta), "-o", str(full), *argv, "--stream"]) == 0
+    env = dict(os.environ, CFRK_FAULT_INJECT="checkpoint:2")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    proc = subprocess.run(
+        [sys.executable, "-m", "cfrk_tpu_torch", str(fasta), "-o", str(out), *argv,
+         "--stream"], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "InjectedFault" in proc.stderr
+    assert _spill_runs(tmp_path, out) == ["run00000", "run00001"] and not out.exists()
+    assert main([str(fasta), "-o", str(out), *argv, "--resume"]) == 0
+    assert out.read_bytes() == full.read_bytes()
+    assert not list(tmp_path.glob("x.tsv.ckpt*"))

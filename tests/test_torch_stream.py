@@ -583,15 +583,51 @@ def test_stream_spectrum_stage_names_and_cleanup(tmp_path):
     "impl,k,device",
     [("sort", 5, "cpu"), ("sort", 12, "cpu"), ("auto", 11, "cuda"), ("auto", 15, "cuda")],
 )
-def test_stream_spectrum_sorted_route_not_ported(tmp_path, impl, k, device):
+def test_stream_spectrum_sorted_route_matches_jax(tmp_path, monkeypatch, impl, k, device):
     """Where the sorted route holds (``--impl sort``; ``auto`` at
-    k = 11-15 on a CUDA device, refused before the device is touched),
-    the JAX driver hands over to its sparse streaming driver, which this
-    package does not have yet."""
-    fasta = _write_fasta(tmp_path / "r.fasta", _random_reads(3, 5))
-    with pytest.raises(NotImplementedError,
-                       match="not yet ported to cfrk_tpu_torch; --impl scatter"):
-        stream_spectrum_file(fasta, k, device=device, impl=impl)
+    k = 11-15 on a CUDA device) the driver hands over to the sparse
+    streaming driver, as the JAX driver does.  ``sort`` runs here for
+    real, its table equal to cfrk_tpu's streamed sorted spectrum.  The
+    ``auto`` cases hold the routing rule without a card: the hand-over
+    receives the CUDA device, and the sparse result it would densify is
+    computed on the CPU and held against cfrk_tpu's (at k = 11 the whole
+    table too; the 4**15 table is never built here)."""
+    import torch
+
+    fasta = _write_fasta(tmp_path / "r.fasta", _random_reads(30, 5, lo=20, hi=120))
+    kw = dict(canonical=True, batch_size=8, checkpoint_every=2)
+    handed = []
+    real = tstream.stream_sparse_spectrum_file
+
+    class _Stop(Exception):
+        pass
+
+    def hand_over(path, k_, **args):
+        handed.append(args["device"])
+        got = real(path, k_, **{**args, "device": "cpu"})
+        want = jstream.stream_sparse_spectrum_file(path, k_, canonical=True, batch_size=8)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        if k_ == 15:
+            raise _Stop
+        return got
+
+    monkeypatch.setattr(tstream, "stream_sparse_spectrum_file", hand_over)
+    assert tstream._use_sorted_spectrum(k, impl, torch.device(device))
+    assert tstream._use_sorted_spectrum(k, impl, torch.device("cpu")) == (impl == "sort")
+    if k == 15:
+        with pytest.raises(_Stop):
+            stream_spectrum_file(fasta, k, device=device, impl=impl,
+                                 out_path=tmp_path / "s", **kw)
+    else:
+        got, m = stream_spectrum_file(fasta, k, device=device, impl=impl,
+                                      out_path=tmp_path / "s", **kw)
+        want, jm = jstream.stream_spectrum_file(fasta, k, impl="sort",
+                                                out_path=tmp_path / "j", **kw)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        assert m.reads == 30 and m.mode == jm.mode == "sparse"
+        assert not list(tmp_path.glob("*.ckpt.json*"))
+    assert handed == [torch.device(device)]
 
 
 def test_checkpoint_sidecar_paths_absolute_and_mtime_ns(tmp_path, monkeypatch):
