@@ -2,11 +2,12 @@
 
 A copy of the parts of ``cfrk_tpu/io/fasta.py`` the drivers need: the
 whole-file reader of the in-memory drivers, which parses through the
-host library (``io/native``, C++) as the JAX package's does, and the
-record loops in numpy and Python, among them the record stream with
-input byte offsets, the oracle of the streaming drivers' chunked
-native ingest.  The port cannot import that module: any ``cfrk_tpu``
-import runs the JAX package's ``__init__``, which imports jax.
+host library (``io/native``, C++) as the JAX package's does, stdin
+(``-``, plain or gzip bytes), and the record loops in numpy and Python,
+among them the record stream with input byte offsets, the oracle of the
+streaming drivers' chunked native ingest.  The port cannot import that
+module: any ``cfrk_tpu`` import runs the JAX package's ``__init__``,
+which imports jax.
 
 Encoding contract: A/a→0, C/c→1, G/g→2, T/t→3, anything else→-1.
 Multi-line records are concatenated without their newlines; gzip inputs
@@ -17,7 +18,9 @@ are read transparently, BGZF ones through the block reader of
 from __future__ import annotations
 
 import gzip
+import io
 import os
+import sys
 from typing import IO, Iterator
 
 import numpy as np
@@ -26,7 +29,12 @@ from .bgzf import is_bgzf, open_maybe_bgzf
 
 __all__ = [
     "ENCODE_LUT",
+    "DECODE_LUT",
     "encode_seq",
+    "decode_codes",
+    "is_stdin",
+    "open_stdin_reads",
+    "read_fasta",
     "iter_fasta",
     "iter_fastq",
     "iter_reads",
@@ -40,6 +48,7 @@ ENCODE_LUT = np.full(256, -1, dtype=np.int8)
 for _b, _v in ((b"Aa", 0), (b"Cc", 1), (b"Gg", 2), (b"Tt", 3)):
     ENCODE_LUT[_b[0]] = _v
     ENCODE_LUT[_b[1]] = _v
+DECODE_LUT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
 def encode_seq(seq: bytes | np.ndarray) -> np.ndarray:
@@ -50,6 +59,32 @@ def encode_seq(seq: bytes | np.ndarray) -> np.ndarray:
         else seq
     )
     return ENCODE_LUT[buf]
+
+
+def decode_codes(codes: np.ndarray, invalid: bytes = b"N") -> bytes:
+    """Decode int8 codes back to bases (invalid/-1 → ``invalid`` byte)."""
+    codes = np.asarray(codes)
+    out = np.where(codes >= 0, DECODE_LUT[np.clip(codes, 0, 3)], ord(invalid))
+    return out.astype(np.uint8).tobytes()
+
+
+def is_stdin(path) -> bool:
+    """True for the conventional ``-`` stdin path (pipe ingest)."""
+    return isinstance(path, (str, os.PathLike)) and str(path) == "-"
+
+
+def open_stdin_reads() -> IO[bytes]:
+    """Binary stdin as a buffered reader, gzip-decompressed when the
+    pipe carries gzip bytes (``zcat x.gz | … -`` works either way).  A
+    pipe has no random access: no offsets, no resume."""
+    f: IO[bytes] = sys.stdin.buffer
+    if not hasattr(f, "peek"):
+        f = io.BufferedReader(f)  # type: ignore[arg-type]
+    if f.peek(2)[:2] == b"\x1f\x8b":
+        # GzipFile reads multi-member streams, so a bgzf pipe inflates
+        # too (in order: blocks in parallel need a seekable file).
+        return io.BufferedReader(gzip.GzipFile(fileobj=f))  # type: ignore[arg-type]
+    return f
 
 
 def _mask_low_qual(seq: bytes, qual: bytes, min_qual: int) -> bytes:
@@ -89,6 +124,17 @@ def iter_fasta(f: IO[bytes]) -> Iterator[tuple[bytes, bytes]]:
             parts.append(line)
     if header is not None:
         yield header, b"".join(parts)
+
+
+def read_fasta(path) -> tuple[list[bytes], list[bytes]]:
+    """Read all FASTA records of a path (gzip and bgzf transparent) or
+    an open binary stream; returns (headers, sequences)."""
+    if hasattr(path, "read"):
+        pairs = list(iter_fasta(path))
+    else:
+        with _open_maybe_gzip(path) as f:
+            pairs = list(iter_fasta(f))
+    return [h for h, _ in pairs], [s for _, s in pairs]
 
 
 def iter_fastq(f: IO[bytes], min_qual: int = 0) -> Iterator[tuple[bytes, bytes]]:
@@ -250,7 +296,10 @@ def read_fasta_encoded(path, min_qual: int = 0) -> list[np.ndarray]:
     """Read and encode all records into a ragged list of int8 code
     arrays, through the host library's parser (gzip and bgzf inputs are
     read whole and decompressed first); the records of
-    :func:`iter_fasta_encoded`."""
-    from .native import read_fasta_encoded_native
+    :func:`iter_fasta_encoded`.  ``-`` reads stdin whole (a gzip pipe
+    decompresses)."""
+    from .native import parse_encode_bytes, read_fasta_encoded_native
 
+    if is_stdin(path):
+        return parse_encode_bytes(open_stdin_reads().read(), min_qual)
     return read_fasta_encoded_native(path, min_qual)

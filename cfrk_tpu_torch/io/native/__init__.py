@@ -23,12 +23,11 @@ their launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 import threading
 
 import numpy as np
 
-from ...ops.cuda.build import load_library
+from ...ops.cuda.build import load_library, once
 
 __all__ = [
     "COUNTED",
@@ -65,7 +64,7 @@ _bytes_data.argtypes = (ctypes.py_object,)
 _bytes_data.restype = _PTR
 
 
-@functools.cache
+@once
 def _library() -> ctypes.CDLL:
     """The built library with its signatures declared, once per process
     (a failed build is not cached: the next call builds again)."""

@@ -23,12 +23,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "CXX_FLAGS", "build_library", "build_libraries",
-           "host_compiler", "load_library"]
+           "host_compiler", "load_library", "once"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -140,7 +141,29 @@ def build_libraries(names) -> dict:
         return {n: f.result() for n, f in futures.items()}
 
 
-@functools.cache
+def once(fn):
+    """``functools.cache`` whose first call for given arguments runs
+    once per process even when several threads make it together (the
+    workflow's tasks reach a library first at the same moment): a lock
+    per argument tuple holds the others until the result is cached.  A
+    call that raises caches nothing, so the next call tries again."""
+    cached = functools.cache(fn)
+    locks: dict = {}
+    guard = threading.Lock()
+
+    @functools.wraps(fn)
+    def call(*args):
+        with guard:
+            lock = locks.setdefault(args, threading.Lock())
+        with lock:
+            return cached(*args)
+
+    call.cache_info = cached.cache_info
+    call.cache_clear = cached.cache_clear
+    return call
+
+
+@once
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>``'s library once per
     process."""

@@ -34,13 +34,12 @@ raises; a build or launch failure is never replaced by the plain route.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from ..encode import split_k, window_indices
-from .build import load_library
+from .build import load_library, once
 
 __all__ = [
     "DEFAULT_READ_BLOCK",
@@ -270,7 +269,7 @@ def perread_image_model(codes: np.ndarray, k: int, canonical: bool = False, *,
     return (out, chk.astype(np.int32)) if checksum else out
 
 
-@functools.cache
+@once
 def _library() -> ctypes.CDLL:
     lib = load_library("perread")
     lib.cfrk_perread_hist.argtypes = [_PTR, _PTR, _PTR] + [_INT] * 9 + [_PTR]

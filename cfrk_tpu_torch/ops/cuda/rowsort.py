@@ -35,14 +35,13 @@ so a run can show it went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from ..encode import window_indices
 from ..sparse import INVALID_SENTINEL, LO_BASES, kmer_keys
-from .build import load_library
+from .build import load_library, once
 
 __all__ = [
     "PROBE_VARIANTS",
@@ -381,7 +380,7 @@ def sort_in_registers_model(keys: np.ndarray, keys_per_thread: int) -> np.ndarra
 # ---------------------------------------------------------------- kernels
 
 
-@functools.cache
+@once
 def _library() -> ctypes.CDLL:
     lib = load_library("rowsort")
     lib.cfrk_rowsort_rle.argtypes = [_PTR, _PTR, _PTR] + [_INT] * 5 + [_PTR]

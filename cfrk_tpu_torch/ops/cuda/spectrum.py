@@ -27,13 +27,12 @@ raises; a build or launch failure is never replaced by the plain route.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from ..encode import window_indices
-from .build import load_library
+from .build import load_library, once
 from .rowsort import UNIT_BASES, pack_units_model, packed_window_keys_model
 
 __all__ = ["SPECTRUM_MAX_K", "spectrum_hist", "spectrum_hist_model",
@@ -147,7 +146,7 @@ def spectrum_hist_model(codes: np.ndarray, k: int, canonical: bool = False,
     return table, atomics
 
 
-@functools.cache
+@once
 def _library() -> ctypes.CDLL:
     lib = load_library("spectrum")
     lib.cfrk_spectrum_hist.argtypes = [_PTR, _PTR] + [_INT] * 5 + [_PTR]

@@ -29,7 +29,8 @@ The counterpart of the single-device half of
   accumulator spills sorted runs to disk and the result is merged from
   them in bounded chunks.
 
-Not here yet: stdin input, meshes.
+A path of ``-`` streams stdin (plain or gzip bytes) in one pass: no
+offsets, no resume.  Not here yet: meshes.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ import torch
 
 from ..format import CfrkWriter
 from ..io.bgzf import is_bgzf
-from ..io.fasta import iter_encoded_with_offsets
+from ..io.fasta import is_stdin, iter_encoded_with_offsets, open_stdin_reads
 from ..io.native import iter_record_blocks_native
 from ..ops.perread_sparse import (
     count_perread_rows,
@@ -114,9 +115,21 @@ def stream_batches(
     every other batch of its length bucket.  ``skip_reads`` drops
     leading records block-wise (the gzip resume's re-parse, at parser
     speed).  A gzip input streams decompressed; its batches carry
-    ``end_offset=None`` unless it is bgzf.
+    ``end_offset=None`` unless it is bgzf.  ``-`` reads stdin in order
+    (a gzip pipe decompresses), with ``end_offset=None`` and no offsets.
     """
-    gz = _is_gzip(path)
+    if is_stdin(path):
+        if start_offset or limit_offset is not None:
+            raise ValueError(
+                "byte offsets cannot address a pipe; '-' reads stdin "
+                "sequentially"
+            )
+        source, gz, offsets_ok = _Borrowed(open_stdin_reads()), False, False
+    else:
+        source, gz = path, _is_gzip(path)
+        # bgzf offsets are decompressed positions and remain valid resume
+        # points (BgzfReader.seek_decompressed); plain-gzip offsets are not.
+        offsets_ok = not gz or is_bgzf(path)
     if gz and (start_offset or limit_offset is not None) and not is_bgzf(path):
         # Raise here, not just in stream_count_file: a limit_offset the
         # gzip path cannot observe (its offsets are all None) would
@@ -127,9 +140,6 @@ def stream_batches(
             "byte offsets cannot address a gzip stream; "
             "decompress the input first (or recompress with bgzip)"
         )
-    # bgzf offsets are decompressed positions and remain valid resume
-    # points (BgzfReader.seek_decompressed); plain-gzip offsets are not.
-    offsets_ok = not gz or is_bgzf(path)
     flat = np.empty(0, np.int8)
     lens = np.empty(0, np.int64)
     offs = np.empty(0, np.int64)
@@ -150,7 +160,7 @@ def stream_batches(
         return b
 
     for bflat, blens, boffs in iter_record_blocks_native(
-        path, start_offset=start_offset, limit_offset=limit_offset,
+        source, start_offset=start_offset, limit_offset=limit_offset,
         decompress=gz, min_qual=min_qual,
     ):
         if skip_reads:
@@ -169,6 +179,24 @@ def stream_batches(
             yield cut_batch(batch_size)
     if len(lens):
         yield cut_batch(len(lens))
+
+
+class _Borrowed:
+    """An open stream lent to a reader that closes what it has read
+    (``iter_record_blocks_native``): closing it leaves the stream, such
+    as ``sys.stdin.buffer``, open for its owner."""
+
+    def __init__(self, f):
+        self._f = f
+
+    def read(self, n: int = -1) -> bytes:
+        return self._f.read(n)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
 
 
 def _record_batches(
@@ -220,11 +248,27 @@ def _is_gzip(path) -> bool:
 
 
 def _resume_fingerprint(path, k, mode_tag, canonical, out_path, byte_range,
-                        min_qual=0):
+                        min_qual=0, resume=False):
     """Shared resume plumbing of the stream drivers: reject gzip byte
     ranges, tag ranged runs as a distinct unit of work (resume must
     never mix a ranged checkpoint with a whole-file one), and build the
     (fingerprint, checkpoint-path) pair."""
+    cpath = checkpoint_path(out_path) if out_path else None
+    if is_stdin(path):
+        # A pipe is a one-shot stream: a resumed re-run would read a
+        # DIFFERENT stream, and ranges have nothing to address.
+        if byte_range is not None:
+            raise ValueError("byte_range cannot address a pipe ('-')")
+        if resume:
+            raise ValueError(
+                "cannot resume from a pipe ('-'); stream from a file "
+                "for checkpoint/resume"
+            )
+        fp = {"input": "<stdin>", "k": k, "mode": mode_tag,
+              "canonical": bool(canonical)}
+        if min_qual:
+            fp["min_qual"] = int(min_qual)
+        return fp, cpath
     if byte_range is not None:
         if _is_gzip(path) and not is_bgzf(path):
             raise ValueError(
@@ -239,7 +283,6 @@ def _resume_fingerprint(path, k, mode_tag, canonical, out_path, byte_range,
         # masked counts.  Only set when active, so checkpoints written
         # without the flag still match unmasked runs.
         fp["min_qual"] = int(min_qual)
-    cpath = checkpoint_path(out_path) if out_path else None
     return fp, cpath
 
 
@@ -499,7 +542,7 @@ def stream_count_file(
     m = metrics or RunMetrics(k=k, mode="perread")
     fp, cpath = _resume_fingerprint(
         path, k, "perread-nonzero" if nonzero else "perread",
-        canonical, out_path, byte_range, min_qual,
+        canonical, out_path, byte_range, min_qual, resume,
     )
 
     ckpt = StreamCheckpoint(fingerprint=fp)
@@ -633,7 +676,7 @@ def stream_spectrum_file(
 
     m = metrics or RunMetrics(k=k, mode="spectrum")
     fp, cpath = _resume_fingerprint(
-        path, k, "spectrum", canonical, out_path, byte_range, min_qual
+        path, k, "spectrum", canonical, out_path, byte_range, min_qual, resume
     )
 
     ckpt = StreamCheckpoint(fingerprint=fp)
@@ -760,7 +803,7 @@ def stream_sparse_spectrum_file(
     device = torch.device(device)
     m = metrics or RunMetrics(k=k, mode="sparse")
     fp, cpath = _resume_fingerprint(
-        path, k, "sparse", canonical, out_path, byte_range, min_qual
+        path, k, "sparse", canonical, out_path, byte_range, min_qual, resume
     )
 
     ckpt = StreamCheckpoint(fingerprint=fp)

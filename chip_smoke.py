@@ -43,11 +43,12 @@ Phases, each of which exits non-zero on failure:
    through the CLI on the GPU — k=8 ``--nonzero``, k=31 ``--canonical
    --nonzero``, dense k=8 rows of the first 256 reads; then the dense
    per-read API on the 150 bp reads, ``8 --nonzero --impl pallas`` (the
-   "b4" packed kernel; the first 50k reads) and ``4 --impl pallas``
-   (dense rows, the unpacked kernel; all 100k), each also byte-equal to
-   the auto route (per-read sort + RLE) on the same reads.  Each must
-   launch its kernel, call the host library (its counters are set to 0
-   just before the leg and read just after, in every leg of phases 5-7),
+   "b4" packed kernel; the first 3 batches of reads) and ``4 --impl
+   pallas`` (dense rows, the unpacked kernel; all 100k), each also
+   byte-equal to the auto route (per-read sort + RLE) on the same
+   reads.  Each must launch its kernel, call the host library (its
+   counters are set to 0 just before the leg and read just after, in
+   every leg of phases 5-7),
    write the same bytes as ``--device cpu`` and agree on sampled rows
    with string-slicing ground truth;
 6. spectrum legs at real size (BASELINE.json configs 3 and 4): 1M
@@ -69,10 +70,10 @@ Phases, each of which exits non-zero on failure:
    the fresh run, the same sha256); ``31 --canonical --nonzero --stream``
    on a BGZF copy of the 152 bp file, killed at ``checkpoint:5`` and
    resumed by a seek to the checkpoint's decompressed offset (no
-   re-parse warning); ``8 --nonzero --stream --packed`` on the first 50k
-   reads (the per-read histogram kernel, sha256 of phase 5's dense-API
-   leg); and ``--mode spectrum --stream`` at k=8 on the 1M reads as a
-   subprocess beside a non-streamed subprocess (each reports its
+   re-parse warning); ``8 --nonzero --stream --packed`` on the first 3
+   batches of reads (the per-read histogram kernel, sha256 of phase 5's
+   dense-API leg); and ``--mode spectrum --stream`` at k=8 on the 1M
+   reads as a subprocess beside a non-streamed subprocess (each reports its
    launches; bytes equal to phase 6's leg; both peak RSS logged); then
    the sparse streaming driver: ``31 --canonical --mode sparse --stream
    --stats`` on the 100k x 152 bp file (13 launches of the k=31 kernel,
@@ -99,7 +100,27 @@ Phases, each of which exits non-zero on failure:
    10 on the random and the poly-A batch, the end-to-end
    bases/s of phases 5 to 7, and the rowsort probe tool
    (``python -m cfrk_tpu_torch.tools.rowsort_probe``) for each variant
-   at k = 8 and k = 31, its checksums held to the plain twin's.
+   at k = 8 and k = 31, its checksums held to the plain twin's;
+9. entry layer, each leg the CLI in a child process reporting its
+   launches: ``workflow_k8_8shards`` (eight 100k x 150 bp shards, seeds
+   0-7, shard 0 the phase 5 file, through ``8 --nonzero --out-dir D
+   --stats --config`` with a JSON config of 2 parallel tasks, 1 retry
+   and a provenance log; shard 0's sha256 that of ``k8_nonzero``, the
+   eight parts merged by ``tools/merge_outputs`` equal to one run over
+   the joined shards in this process, sampled merged rows against string
+   slicing, 8 ok
+   provenance records; the same at 1 parallel task, the overlap, the sum
+   of task durations over the wall, logged for both);
+   ``workflow_retry_resume`` (two shards, ``--stream --retries 1`` under
+   ``CFRK_FAULT_INJECT=checkpoint:5``: one task retried, counting fewer
+   reads than its shard, both outputs equal the uninterrupted ones);
+   ``workflow_spectrum_k8_4shards`` (the 1M-read file in 4 shards,
+   ``--mode spectrum -k 8``, merged equal to ``spectrum_k8``);
+   ``stdin_k8_nonzero`` (the phase 5 file piped through ``cat``, ``gzip
+   -1 -c`` and into ``--stream``, each equal to ``k8_nonzero``);
+   ``profile_k8`` (``--profile``: a Chrome trace whose kernel events
+   name ``rowsort_rle`` with device time); ``list_devices`` (one line,
+   an H100 with its memory).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON record of the kernels, and the one before that the card's
@@ -129,10 +150,11 @@ BATCH = 8192
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 33.5e12
 READS = 100_000  # BASELINE.json config 2: 100k reads per leg
-# The k=8 dense-API leg takes the first half of them: its host side
-# unpacks 2.1 GB a batch, on both routes, and 100k reads held a third of
-# the whole run.
-DENSE_API_READS = 50_000
+# The k=8 dense-API leg takes the first three batches of them: its host
+# side unpacks 2.1 GB a batch, on both routes (and again in the packed
+# stream of phase 7), so at 50k reads it and its streamed twin held a
+# fifth of a 634 s run of this script (NVIDIA H100 80GB HBM3, 700 W).
+DENSE_API_READS = 3 * BATCH
 SPECTRUM_READS = 1_000_000  # BASELINE.json config 3: a 1M-read metagenome
 # The budgeted sparse leg: config 4's k = 31 canonical reads of 152 bp,
 # cut from config 3's 1M reads to 600k so that the smoke stays well under
@@ -646,6 +668,7 @@ NATIVE_BY_LEG = {
     "sparse_k31_unbudgeted_child": ("iter_record_blocks_native", "pack_records",
                                     "format_kmer_tsv_bytes"),
     "spectrum_k15_stream": ("iter_record_blocks_native", "pack_records"),
+    "workflow_k8_joined": ("parse_encode_bytes", "format_pairs_bytes"),
 }
 
 
@@ -892,17 +915,19 @@ _CLI_CHILD = (
 )
 
 
-def run_child(label: str, argv: list, env_extra: dict | None = None) -> dict:
+def run_child(label: str, argv: list, env_extra: dict | None = None,
+              stdin=None) -> dict:
     """One child process to its end: its exit code, what it wrote, and
     the peak of its resident set in MB, sampled from ``/proc/<pid>/statm``
     every 20 ms.  (``ru_maxrss`` of a child starts at its parent's
     resident set at the fork, here many times the child's own, and
-    ``VmHWM`` is not on every kernel's ``/proc``.)"""
+    ``VmHWM`` is not on every kernel's ``/proc``.)  ``stdin``: a pipe
+    or file the child reads as its standard input."""
     paths = [WORK / f"{label}.child.{name}" for name in ("out", "err")]
     page_mb = os.sysconf("SC_PAGE_SIZE") / 2**20
     peak, deadline = 0, time.perf_counter() + 600
     with open(paths[0], "wb") as out, open(paths[1], "wb") as err:
-        proc = subprocess.Popen(argv, cwd=ROOT, stdout=out, stderr=err,
+        proc = subprocess.Popen(argv, cwd=ROOT, stdin=stdin, stdout=out, stderr=err,
                                 env={**os.environ, **(env_extra or {})})
         while proc.poll() is None:
             try:
@@ -1244,6 +1269,304 @@ def sparse_streamed_legs(fa152: Path, fa1m: Path, sha: dict, kernels: dict,
     return legs
 
 
+# ---------------------------------------------------------------- entry layer
+
+ENTRY_SHARDS = 8  # the 8-shard per-read workflow: shard i of seed + i
+SPECTRUM_SHARDS = 4  # the 1M-read file cut into 4 shards of 250k
+
+
+def cli_child(label: str, argv: list, env_extra: dict | None = None, stdin=None,
+              rc: int = 0) -> dict:
+    """The CLI (``_CLI_CHILD``) in a child process that must exit ``rc``:
+    ``run_child``'s record with the child's wall, its kernels' launches
+    and host library calls, and the ``--stats`` summary line if any."""
+    t0 = time.perf_counter()
+    res = run_child(label, [sys.executable, "-c", _CLI_CHILD, *argv], env_extra, stdin)
+    res["process_wall_s"] = time.perf_counter() - t0
+    if res["rc"] != rc:
+        fail(f"{label}: the child exited {res['rc']}, not {rc}: {res['err'][-600:]}")
+    report = json.loads(res["out"].strip().splitlines()[-1])
+    res["launches"] = {name: n for name, n in report["launches"].items() if n}
+    res["native_calls"] = {name: n for name, n in report["native_calls"].items() if n}
+    summary = [line for line in res["err"].splitlines() if line.startswith('{"files"')]
+    res["stats"] = json.loads(summary[-1]) if summary else None
+    return res
+
+
+def provenance(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+
+
+def overlap(records: list, wall_s: float) -> float:
+    """Sum of the tasks' successful attempt durations over the workflow
+    wall: 1 is no overlap, the task count the most there could be."""
+    return sum(r["duration_s"] for r in records if r["ok"]) / wall_s
+
+
+def workflow_legs(seed: int, fa150: Path, sha: dict, work: Path, total: dict) -> list:
+    """Phase 9, the per-read workflow: ``workflow_k8_8shards`` (at 2 and
+    at 1 parallel tasks, merged and held to one run over the joined
+    shards) and ``workflow_retry_resume``."""
+    import numpy as np
+
+    from cfrk_tpu_torch.ops.cuda import rowsort as R
+    from cfrk_tpu_torch.tools import merge_outputs
+
+    kernels = {"rowsort_rle": R.rowsort_rle}
+    shards, reads = [fa150], [synthetic_reads(seed, READS, 150)]
+    t0 = time.perf_counter()
+    for i in range(1, ENTRY_SHARDS):
+        reads.append(synthetic_reads(seed + i, READS, 150))
+        shards.append(work / f"s{i}.fa")
+        write_fasta(shards[-1], reads[-1])
+    made_s = time.perf_counter() - t0
+    cfg = work / "entry.json"
+    prov2, prov1 = work / "prov2.jsonl", work / "prov1.jsonl"
+    cfg.write_text(json.dumps({"max-parallel-tasks": 2, "retries": 1,
+                               "provenance": str(prov2)}))
+    label = "workflow_k8_8shards"
+    argv = [*map(str, shards), "8", "--nonzero", "--stats"]
+    runs = {}
+    for tasks, prov in ((2, prov2), (1, prov1)):
+        out_dir = work / f"wf{tasks}"
+        extra = [] if tasks == 2 else ["--max-parallel-tasks", "1", "--provenance", str(prov)]
+        run = cli_child(f"{label}_p{tasks}", [*argv, "--out-dir", str(out_dir), "--config",
+                                              str(cfg), *extra])
+        stats, records = run["stats"], provenance(prov)
+        if (stats["files"], stats["failed"], stats["reads"]) != (ENTRY_SHARDS, 0,
+                                                                ENTRY_SHARDS * READS):
+            fail(f"{label} at {tasks} tasks: stats line {stats}")
+        if len(records) != ENTRY_SHARDS or not all(r["ok"] and r["attempt"] == 0
+                                                  for r in records):
+            fail(f"{label} at {tasks} tasks: provenance {records}")
+        if run["launches"].get("rowsort_rle", 0) <= 0:
+            fail(f"{label} at {tasks} tasks: rowsort_rle was not launched")
+        total["rowsort_rle"] += run["launches"].get("rowsort_rle", 0)
+        parts = [out_dir / (p.stem + ".cfrk") for p in shards]
+        run["sha"] = [sha256_of(p) for p in parts]
+        run["parts"] = parts
+        run["overlap"] = overlap(records, stats["wall_s"])
+        run["task_s"] = [r["duration_s"] for r in records]  # in order of completion
+        runs[tasks] = run
+    if runs[2]["sha"][0] != sha["k8_nonzero"]:
+        fail(f"{label}: shard 0's bytes differ from the k8_nonzero leg's")
+    if runs[1]["sha"] != runs[2]["sha"]:
+        fail(f"{label}: the shards' bytes differ between 1 and 2 parallel tasks")
+    for p in runs[1]["parts"]:
+        p.unlink()
+    merged = work / "merged.cfrk"
+    t0 = time.perf_counter()
+    if merge_outputs.main(["--mode", "perread", "-o", str(merged),
+                           *map(str, runs[2]["parts"])]) != 0:
+        fail(f"{label}: merge_outputs exit")
+    merge_s = time.perf_counter() - t0
+    # The reference: one run over the joined shards, in this process (a
+    # child's start would add its seconds to the smoke for no check).
+    joined = work / "joined.fa"
+    with open(joined, "wb") as f:
+        for p in shards:
+            f.write(p.read_bytes())
+    single = run_cli_here("workflow_k8_joined", [str(joined), str(work / "joined.cfrk"),
+                                                 "8", "--nonzero"], kernels)
+    total["rowsort_rle"] += single["launches"]["rowsort_rle"]
+    joined.unlink()
+    merged_sha = sha256_of(merged)
+    if merged_sha != sha256_of(work / "joined.cfrk"):
+        fail(f"{label}: the merged shards differ from one run over the joined shards")
+    (work / "joined.cfrk").unlink()
+    rows = merged.read_bytes().split(b"\n")
+    merged.unlink()
+    every = np.concatenate(reads)
+    if len(rows) != len(every):
+        fail(f"{label}: {len(rows)} merged rows for {len(every)} reads")
+    lut = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    sample = sorted({0, READS - 1, READS, len(every) - 1,
+                     *np.random.default_rng(seed).integers(0, len(every), 16).tolist()})
+    for i in sample:
+        seq = lut[np.where(every[i] < 0, 4, every[i])].tobytes().decode()
+        if row_cells(rows[i]) != string_counts(seq, 8, False):
+            fail(f"{label}: merged row {i} disagrees with the string ground truth")
+    del rows, every
+    bases = ENTRY_SHARDS * READS * 150
+    leg = {
+        "leg": label, "shards": ENTRY_SHARDS, "reads": ENTRY_SHARDS * READS,
+        "bases": bases, "fasta_made_s": made_s,
+        **{f"p{t}_{key}": value for t, run in runs.items() for key, value in (
+            ("wall_s", run["stats"]["wall_s"]), ("process_wall_s", run["process_wall_s"]),
+            ("bases_per_s", bases / run["stats"]["wall_s"]), ("overlap", run["overlap"]),
+            ("launches", run["launches"]), ("native_calls", run["native_calls"]),
+            ("peak_rss_mb", run["peak_rss_mb"]), ("task_s", run["task_s"]))},
+        "merge_s": merge_s, "joined_wall_s": single["wall_s"],
+        "rows_checked": len(sample), "sha256_merged": merged_sha,
+    }
+    log(f"entry leg {label}: " + json.dumps(leg))
+    legs = [leg]
+
+    label = "workflow_retry_resume"
+    prov = work / "prov_retry.jsonl"
+    pair = [shards[0], shards[1]]
+    run = cli_child(label, [*map(str, pair), "8", "--nonzero", "--stream", "--retries", "1",
+                            "--out-dir", str(work / "retry"), "--provenance", str(prov),
+                            "--stats"], {"CFRK_FAULT_INJECT": "checkpoint:5"})
+    records = provenance(prov)
+    failed = [r for r in records if not r["ok"]]
+    if len(failed) != 1 or failed[0]["attempt"] != 0 or "InjectedFault" not in failed[0]["error"]:
+        fail(f"{label}: provenance {records}")
+    retried = failed[0]["input"]
+    attempts = {str(p): [(r["attempt"], r["ok"]) for r in records if r["input"] == str(p)]
+                for p in pair}
+    if sorted(attempts[retried]) != [(0, False), (1, True)] or sorted(
+            a for p, a in attempts.items() if p != retried) != [[(0, True)]]:
+        fail(f"{label}: attempts {attempts}")
+    stats = run["stats"]
+    # The task that ran once counted its READS; the retried one resumed
+    # from its checkpoint and counted fewer.
+    if not (stats["failed"] == 0 and READS < stats["reads"] < 2 * READS):
+        fail(f"{label}: stats line {stats}: the retry did not resume")
+    for i, p in enumerate(pair):
+        out = work / "retry" / (p.stem + ".cfrk")
+        if sha256_of(out) != runs[2]["sha"][i]:
+            fail(f"{label}: {out.name} differs from the uninterrupted run's")
+        if Path(str(out) + ".ckpt.json").exists():
+            fail(f"{label}: a checkpoint outlived the run")
+        out.unlink()
+    total["rowsort_rle"] += run["launches"].get("rowsort_rle", 0)
+    leg = {"leg": label, "retried": Path(retried).name,
+           "retried_reads": stats["reads"] - READS, "shard_reads": READS,
+           "wall_s": stats["wall_s"], "process_wall_s": run["process_wall_s"],
+           "launches": run["launches"], "attempts": attempts}
+    log(f"entry leg {label}: " + json.dumps(leg))
+    legs.append(leg)
+    for p in runs[2]["parts"]:
+        p.unlink()
+    for p in shards[1:]:
+        p.unlink()
+    return legs
+
+
+def split_fasta(path: Path, n: int, work: Path) -> list:
+    """``write_fasta``'s file cut into ``n`` shards of whole records."""
+    data = path.read_bytes()
+    per = data.count(b"\n>") // n + 1
+    cuts = [0] + [data.index(b"\n>r%d\n" % (per * i)) + 1 for i in range(1, n)] + [len(data)]
+    out = []
+    for i in range(n):
+        out.append(work / f"q{i}.fa")
+        out[-1].write_bytes(data[cuts[i]:cuts[i + 1]])
+    return out
+
+
+def entry_layer_legs(seed: int, fa150: Path, fa1m: Path, sha: dict) -> tuple:
+    """Phase 9: the CLI's entry layer, each leg the real CLI in a child
+    process on the card: multi-file workflow runs (with a config file,
+    retries and provenance) merged by ``tools/merge_outputs``, a crashed
+    shard resumed on retry, the spectrum shards, stdin three ways,
+    ``--profile`` and ``--list-devices``.  Returns (legs, launches by
+    kernel over every child)."""
+    import shutil
+
+    from cfrk_tpu_torch.tools import merge_outputs
+
+    work = WORK / "entry"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    total = {"rowsort_rle": 0, "spectrum_hist": 0}
+    legs = workflow_legs(seed, fa150, sha, work, total)
+
+    label = "workflow_spectrum_k8_4shards"
+    parts = split_fasta(fa1m, SPECTRUM_SHARDS, work)
+    run = cli_child(label, [*map(str, parts), "-k", "8", "--mode", "spectrum", "--out-dir",
+                            str(work / "spec"), "--stats"])
+    if run["launches"].get("spectrum_hist", 0) <= 0:
+        fail(f"{label}: spectrum_hist was not launched")
+    total["spectrum_hist"] += run["launches"].get("spectrum_hist", 0)
+    merged = work / "merged.spectrum"
+    if merge_outputs.main(["--mode", "spectrum", "-o", str(merged),
+                           *(str(work / "spec" / (p.stem + ".spectrum")) for p in parts)]) != 0:
+        fail(f"{label}: merge_outputs exit")
+    if sha256_of(merged) != sha["spectrum_k8"]:
+        fail(f"{label}: the merged spectrum differs from the spectrum_k8 leg's")
+    bases = SPECTRUM_READS * 150
+    leg = {"leg": label, "shards": SPECTRUM_SHARDS, "bases": bases,
+           "wall_s": run["stats"]["wall_s"], "process_wall_s": run["process_wall_s"],
+           "bases_per_s": bases / run["stats"]["wall_s"], "launches": run["launches"],
+           "native_calls": run["native_calls"], "peak_rss_mb": run["peak_rss_mb"]}
+    log(f"entry leg {label}: " + json.dumps(leg))
+    legs.append(leg)
+    for p in parts:
+        p.unlink()
+
+    label = "stdin_k8_nonzero"
+    leg = {"leg": label, "bases": READS * 150}
+    for way, feeder, extra in (("plain", ["cat", str(fa150)], []),
+                               # level 1: the pipe, not the compressor, is timed
+                               ("gzip", ["gzip", "-1", "-c", str(fa150)], []),
+                               ("stream", ["cat", str(fa150)], ["--stream"])):
+        out = work / f"stdin_{way}.cfrk"
+        pipe = subprocess.Popen(feeder, stdout=subprocess.PIPE)
+        try:
+            run = cli_child(f"{label}_{way}", ["-", "-k", "8", "--nonzero", "-o", str(out),
+                                               "--stats", *extra], stdin=pipe.stdout)
+        finally:
+            pipe.stdout.close()
+            pipe.wait()
+        if pipe.returncode != 0:
+            fail(f"{label}: {feeder[0]} exited {pipe.returncode}")
+        if sha256_of(out) != sha["k8_nonzero"]:
+            fail(f"{label} ({way}): bytes differ from the k8_nonzero leg's")
+        if run["launches"].get("rowsort_rle", 0) <= 0:
+            fail(f"{label} ({way}): rowsort_rle was not launched")
+        total["rowsort_rle"] += run["launches"].get("rowsort_rle", 0)
+        out.unlink()
+        leg[way] = {"wall_s": run["stats"]["wall_s"], "process_wall_s": run["process_wall_s"],
+                    "bases_per_s": READS * 150 / run["stats"]["wall_s"],
+                    "launches": run["launches"], "native_calls": run["native_calls"]}
+    log(f"entry leg {label}: " + json.dumps(leg))
+    legs.append(leg)
+
+    label = "profile_k8"
+    trace_dir, out = work / "trace", work / "profiled.cfrk"
+    run = cli_child(label, [str(fa150), str(out), "8", "--nonzero", "--profile",
+                            str(trace_dir)])
+    if sha256_of(out) != sha["k8_nonzero"]:
+        fail(f"{label}: bytes differ from the k8_nonzero leg's")
+    total["rowsort_rle"] += run["launches"].get("rowsort_rle", 0)
+    traces = sorted(trace_dir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"{label}: {len(traces)} trace files in {trace_dir}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            k = kernels.setdefault(e["name"][:80], [0, 0.0])
+            k[0] += 1
+            k[1] += float(e.get("dur", 0))
+    rowsort_us = sum(us for name, (n, us) in kernels.items() if "rowsort_rle" in name)
+    leg = {"leg": label, "trace_mb": traces[0].stat().st_size / 2**20,
+           "events": len(events), "launches": run["launches"],
+           "kernel_events": {name: {"n": n, "device_us": us} for name, (n, us) in kernels.items()},
+           "process_wall_s": run["process_wall_s"]}
+    log(f"entry leg {label}: " + json.dumps(leg))
+    if rowsort_us <= 0:
+        fail(f"{label}: the trace holds no rowsort_rle kernel with device time")
+    legs.append(leg)
+    shutil.rmtree(trace_dir)
+    out.unlink()
+
+    label = "list_devices"
+    run = cli_child(label, ["--list-devices"])
+    lines = [json.loads(line) for line in run["out"].strip().splitlines()[:-1]]
+    import torch
+
+    if (len(lines) != torch.cuda.device_count() or "H100" not in lines[0]["kind"]
+            or lines[0]["platform"] != "gpu" or not lines[0]["bytes_limit"] > 0):
+        fail(f"{label}: {lines}")
+    legs.append({"leg": label, "lines": lines, "process_wall_s": run["process_wall_s"]})
+    log(f"entry leg {label}: " + json.dumps(legs[-1]))
+    shutil.rmtree(work)
+    return legs, total
+
+
 def time_spectrum_routes(seed: int, card: str) -> dict:
     """Phase 8, spectrum: ms per 8192-read batch (150 bp padded to 256)
     of the histogram kernel at k = 7, 8, 9, 10 on the random and the
@@ -1308,7 +1631,7 @@ def time_spectrum_routes(seed: int, card: str) -> dict:
 def dense_api_legs(r150, fa150: Path) -> list:
     """Phase 5, the dense per-read API (``--impl pallas``) on the 150 bp
     reads: k=8 ``--nonzero`` (the "b4" packed kernel, unpacked on the
-    host) on the first 50k reads, and dense k=4 rows (the unpacked
+    host) on the first 3 batches of reads, and dense k=4 rows (the unpacked
     kernel) on all 100k.  Each is also held to the bytes of the auto
     route (per-read sort + RLE), run here first on the same reads."""
     from cfrk_tpu_torch.cli import main
@@ -1627,10 +1950,20 @@ def main() -> int:
     log("rowsort_probe_step_ms: " + json.dumps({
         "card": card, **{name: r["step_ms"] for name, r in probe["records"].items()}}))
     clock.lap("8 times")
+
+    # 9. entry layer: children of the CLI; their launches join the counts
+    entry_legs, entry_launches = entry_layer_legs(args.seed, fa150, fa1m, sha)
+    for name, n in entry_launches.items():
+        if n <= 0:
+            fail(f"the entry-layer legs never launched {name}")
+        launches[name] += n
+    log("entry_launches: " + json.dumps(entry_launches))
+    clock.lap("9 entry layer")
     log("end_to_end: " + json.dumps({
         "card": card,
         "legs": {leg["leg"]: leg["bases_per_s"]
-                 for leg in legs + spec_legs + stream_legs if "bases_per_s" in leg},
+                 for leg in legs + spec_legs + stream_legs + entry_legs
+                 if "bases_per_s" in leg},
     }))
 
     kernels = []

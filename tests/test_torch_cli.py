@@ -2,8 +2,11 @@
 against cfrk_tpu's CLI bytes.
 
 The whole per-read slice runs here: FASTA parse → batches → the plain
-PyTorch route of the per-read sort + RLE → narrowed drain → formatter.
-Tolerance: exact equality of the output bytes.
+PyTorch route of the per-read sort + RLE → narrowed drain → formatter;
+and the entry layer: stdin, multi-file runs into ``--out-dir``, the
+``--stats`` line, ``--list-devices``, ``--profile``.  Tolerance: exact
+equality of the output bytes.  Each test runs in its own empty working
+directory, so that no ``cfrk.json`` around the checkout supplies flags.
 """
 
 import gzip
@@ -23,6 +26,11 @@ from cfrk_tpu_torch.cli import main
 ROOT = Path(__file__).resolve().parent.parent
 DATA = Path(__file__).parent / "data"
 MANIFEST = json.loads((DATA / "goldens.json").read_text())
+
+
+@pytest.fixture(autouse=True)
+def _empty_cwd(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
 
 
 @pytest.mark.parametrize("name", sorted(MANIFEST["files"]))
@@ -114,10 +122,10 @@ def test_stats_line(tmp_path, capsys):
 @pytest.mark.parametrize(
     "argv,message",
     [
-        (["--out-dir", "parts"], "--out-dir is not yet ported"),
-        (["--config", "run.json"], "--config is not yet ported"),
+        (["--tp", "2"], "--tp is not yet ported"),
+        (["--slack", "3"], "--slack is not yet ported"),
         (["--devices=2"], "--devices is not yet ported"),
-        (["--profile", "trace"], "--profile is not yet ported"),
+        (["--distributed"], "--distributed is not yet ported"),
         (["--impl", "scatter", "--seqpar"], "--seqpar is not yet ported"),
     ],
 )
@@ -200,7 +208,7 @@ def test_argument_errors(tmp_path):
         main([fa, "-o", out, "--device", "cpu"])
     with pytest.raises(SystemExit, match="input not found"):
         main([str(tmp_path / "missing.fa"), out, "2", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="multi-file run is not yet ported"):
+    with pytest.raises(SystemExit, match="multiple inputs require --out-dir"):
         main([fa, fa, "-k", "2", "--device", "cpu"])
 
 
@@ -771,3 +779,237 @@ def test_pin_malloc_only_for_sparse_and_sorted_streams(tmp_path, monkeypatch):
     tstream.stream_sparse_spectrum_file(fa, 17, device="cpu", out_path=out,
                                         checkpoint_every=1)
     assert not calls
+
+
+# ------------------------------------------------------------ entry layer
+
+
+def _last_json(err: str) -> dict:
+    return json.loads(err.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["in_memory", "stream"])
+@pytest.mark.parametrize(
+    "mode,flags",
+    [("perread", ("-k", "5", "--nonzero")), ("spectrum", ("-k", "5")),
+     ("sparse", ("-k", "17", "--canonical"))],
+)
+def test_stats_line_matches_jax_cli(tmp_path, capsys, mode, flags, stream):
+    """Every key of the ``--stats`` summary but ``wall_s`` equals
+    cfrk_tpu's: ``reads`` is 0 for an in-memory spectrum or sparse run
+    and the reads counted when streamed."""
+    fa = _prefix_fasta(tmp_path, "seq2.fasta.gz", 30)
+    extra = ["--mode", mode, *flags, "--stats"] + (["--stream"] if stream else [])
+    assert main([fa, "-o", str(tmp_path / "a"), *extra, "--device", "cpu"]) == 0
+    got = _last_json(capsys.readouterr().err)
+    assert jax_main([fa, "-o", str(tmp_path / "b"), *extra]) == 0
+    want = _last_json(capsys.readouterr().err)
+    got.pop("wall_s"), want.pop("wall_s")
+    assert got == want
+    assert got["reads"] == (30 if stream or mode == "perread" else 0)
+    assert (tmp_path / "a").read_bytes() == (tmp_path / "b").read_bytes()
+
+
+def test_abbreviated_long_options_match_jax_cli(tmp_path):
+    """Both packages take an unambiguous prefix of a long option
+    (``--batch 64``); a prefix of a flag still to port is refused as
+    such, never as an unknown argument."""
+    fa = _prefix_fasta(tmp_path, "seq1.fasta.gz", 20)
+    got, want = _both(tmp_path, fa, "4", "--batch", "64", "--nonz")
+    assert got == want and got.count(b"\n") == 19
+    with pytest.raises(SystemExit, match="--distributed is not yet ported"):
+        main([fa, str(tmp_path / "o"), "4", "--device", "cpu", "--distrib"])
+
+
+class _FakeStdin:
+    def __init__(self, data: bytes):
+        import io
+
+        self.buffer = io.BufferedReader(io.BytesIO(data))
+
+
+@pytest.mark.parametrize("gz", [False, True], ids=["plain", "gzip"])
+@pytest.mark.parametrize(
+    "flags",
+    [("-k", "8", "--nonzero"), ("-k", "8", "--nonzero", "--stream"), ("-k", "3"),
+     ("-k", "6", "--mode", "spectrum", "--stream"),
+     ("-k", "19", "--canonical", "--mode", "sparse", "--stream")],
+    ids=["k8_nonzero", "k8_nonzero_stream", "k3_dense", "spectrum_stream",
+         "sparse_stream"],
+)
+def test_stdin_matches_file_and_jax_cli(tmp_path, monkeypatch, gz, flags):
+    """``-`` reads stdin, plain or gzip bytes, in memory and streamed:
+    the bytes of the same file run and of cfrk_tpu's stdin run.  The
+    port leaves the pipe open for its owner (cfrk_tpu's streamed run
+    closes it)."""
+    fa = _prefix_fasta(tmp_path, "seq2.fasta.gz", 40)
+    data = Path(fa).read_bytes()
+    blob = gzip.compress(data) if gz else data
+    out = {}
+    for name, cli_main, dev in (("file", main, ["--device", "cpu"]),
+                                ("torch", main, ["--device", "cpu"]),
+                                ("jax", jax_main, [])):
+        out[name] = tmp_path / f"{name}.out"
+        src = fa if name == "file" else "-"
+        stdin = _FakeStdin(blob)
+        monkeypatch.setattr(sys, "stdin", stdin)
+        assert cli_main([src, "-o", str(out[name]), *flags, *dev]) == 0
+        assert name == "jax" or not stdin.buffer.closed
+    got = out["torch"].read_bytes()
+    assert got and got == out["file"].read_bytes() == out["jax"].read_bytes()
+    assert not list(tmp_path.glob("*.ckpt.json*"))
+
+
+@pytest.mark.parametrize(
+    "argv,message",
+    [(["-", "-k", "2", "-o", "o", "--resume"], "cannot --resume from a pipe"),
+     (["-", "-k", "2"], "stdin input needs an explicit -o/--output"),
+     (["-", "IN", "-k", "2", "-o", "o"], "'-' \\(stdin\\) cannot mix with file inputs")],
+    ids=["resume", "no_output", "mixed"],
+)
+def test_stdin_refusals_match_jax_cli(tmp_path, argv, message):
+    fa = _prefix_fasta(tmp_path, "seq2.fasta.gz", 2)
+    argv = [fa if a == "IN" else a for a in argv]
+    for cli_main in (main, jax_main):
+        with pytest.raises(SystemExit, match=message):
+            cli_main(argv)
+
+
+def test_stream_driver_refuses_pipe_offsets_and_resume(monkeypatch):
+    """The streaming drivers' own refusals for a pipe, with the JAX
+    package's messages."""
+    from cfrk_tpu.pipeline import stream as jstream
+    from cfrk_tpu_torch.pipeline import stream as tstream
+
+    for mod in (tstream, jstream):
+        with pytest.raises(ValueError, match="byte offsets cannot address a pipe"):
+            next(mod.stream_batches("-", 3, 4, start_offset=10))
+        with pytest.raises(ValueError, match="cannot resume from a pipe"):
+            mod._resume_fingerprint("-", 3, "perread", False, "o", None, 0, True)
+    want = jstream._resume_fingerprint("-", 3, "perread", True, "o", None, 20)
+    assert tstream._resume_fingerprint("-", 3, "perread", True, "o", None, 20) == want
+    assert want[0]["input"] == "<stdin>"
+
+
+def _shards(tmp_path, n=3, reads=12, seed=4):
+    """``n`` FASTA shards of seeded reads (with N bases and a read
+    shorter than k)."""
+    from cfrk_tpu_torch.io.fasta import decode_codes
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        p = tmp_path / f"shard{i}.fa"
+        p.write_bytes(b"".join(
+            b">r%d\n" % j + decode_codes(rng.integers(-1, 4, int(rng.integers(2, 90)))
+                                         .astype(np.int8)) + b"\n"
+            for j in range(reads)))
+        paths.append(str(p))
+    return paths
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["in_memory", "stream"])
+@pytest.mark.parametrize(
+    "flags,suffix",
+    [(("-k", "4"), ".cfrk"), (("-k", "9", "--nonzero"), ".cfrk"),
+     (("-k", "5", "--mode", "spectrum", "--spectrum-format", "tsv"), ".spectrum"),
+     (("-k", "21", "--canonical", "--mode", "sparse"), ".kmers.tsv")],
+    ids=["perread_dense", "perread_k9_nonzero", "spectrum_tsv", "sparse"],
+)
+def test_multi_file_out_dir_matches_jax_cli(tmp_path, capsys, flags, suffix, stream):
+    """Three inputs into ``--out-dir``: each shard's bytes and the
+    ``--stats`` line (but ``wall_s``) equal cfrk_tpu's; the provenance
+    holds one successful attempt a file."""
+    shards = _shards(tmp_path)
+    extra = [*flags, "--stats", "--max-parallel-tasks", "3"] + (["--stream"] if stream else [])
+    prov = tmp_path / "prov.jsonl"
+    assert main([*shards, "--out-dir", str(tmp_path / "t"), *extra, "--device", "cpu",
+                 "--provenance", str(prov)]) == 0
+    got = _last_json(capsys.readouterr().err)
+    assert jax_main([*shards, "--out-dir", str(tmp_path / "j"), *extra]) == 0
+    want = _last_json(capsys.readouterr().err)
+    got.pop("wall_s"), want.pop("wall_s")
+    assert got == want and got["files"] == 3 and got["failed"] == 0
+    for shard in shards:
+        name = Path(shard).stem + suffix
+        a, b = (tmp_path / d / name for d in ("t", "j"))
+        assert a.read_bytes() == b.read_bytes(), name
+    from cfrk_tpu_torch.runtime.workflow import query_provenance
+
+    records = query_provenance(str(prov))
+    assert sorted(r["input"] for r in records) == shards
+    assert all(r["ok"] and r["attempt"] == 0 for r in records)
+
+
+def test_multi_file_failure_lines_and_exit_code(tmp_path, capsys):
+    """A shard that fails (malformed FASTQ) leaves the others written,
+    prints ``FAILED <input>`` and exits 1, as cfrk_tpu does; with
+    ``--no-lazy-errors`` the run raises."""
+    shards = _shards(tmp_path, n=2)
+    bad = tmp_path / "bad.fq"
+    bad.write_bytes(b"@r\nACGT\n+\nII\n")
+    argv = [shards[0], str(bad), shards[1], "-k", "3", "--stats"]
+    assert main([*argv, "--out-dir", str(tmp_path / "t"), "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert jax_main([*argv, "--out-dir", str(tmp_path / "j")]) == 1
+    jerr = capsys.readouterr().err
+    for text in (err, jerr):
+        assert f"FAILED {bad}:" in text and "quality length mismatch" in text
+    stats = [json.loads(next(line for line in t.splitlines() if line.startswith("{")))
+             for t in (err, jerr)]
+    assert [(s["files"], s["failed"], s["reads"]) for s in stats] == [(3, 1, 24)] * 2
+    for shard in shards:
+        name = Path(shard).stem + ".cfrk"
+        assert (tmp_path / "t" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
+    with pytest.raises(RuntimeError, match="workflow task failed"):
+        main([*argv, "--out-dir", str(tmp_path / "s"), "--device", "cpu",
+              "--no-lazy-errors"])
+
+
+@pytest.mark.parametrize("mode,suffix", [("perread", ".cfrk"), ("spectrum", ".spectrum")])
+def test_out_dir_single_input_matches_jax_cli(tmp_path, mode, suffix):
+    """One input with ``--out-dir`` writes its default name there."""
+    fa = _prefix_fasta(tmp_path, "seq1.fasta.gz", 10)
+    assert main([fa, "-k", "3", "--mode", mode, "--out-dir", "t", "--device", "cpu"]) == 0
+    assert jax_main([fa, "-k", "3", "--mode", mode, "--out-dir", "j"]) == 0
+    name = "head_seq1" + suffix
+    assert (tmp_path / "t" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
+
+
+def test_list_devices_on_a_cpu_host(capsys):
+    """``--list-devices`` prints cfrk_tpu's CPU line where no CUDA device
+    is visible, and needs no input."""
+    assert main(["--list-devices"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    assert jax_main(["--list-devices"]) == 0
+    jax_first = capsys.readouterr().out.strip().splitlines()[0]
+    assert json.loads(lines[0]) == json.loads(jax_first) == {
+        "id": 0, "platform": "cpu", "kind": "cpu", "process": 0}
+
+
+def test_profile_writes_a_trace(tmp_path):
+    """``--profile DIR`` on ``--device cpu`` writes one Chrome trace of
+    the run into DIR, and the output is unchanged."""
+    fa = _prefix_fasta(tmp_path, "seq2.fasta.gz", 20)
+    assert main([fa, "a.cfrk", "4", "--device", "cpu", "--profile", "trace"]) == 0
+    assert main([fa, "b.cfrk", "4", "--device", "cpu"]) == 0
+    assert (tmp_path / "a.cfrk").read_bytes() == (tmp_path / "b.cfrk").read_bytes()
+    traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+def test_multi_file_dense_k9_fails_each_task_as_jax_cli(tmp_path, capsys):
+    """Per-read k > 8 without ``--nonzero`` over many inputs: as in
+    cfrk_tpu, every task fails, each prints its ``FAILED`` line and the
+    run exits 1; a single input is refused before it starts."""
+    shards = _shards(tmp_path, n=2)
+    for cli_main, dev in ((main, ["--device", "cpu"]), (jax_main, [])):
+        assert cli_main([*shards, "-k", "9", "--out-dir", "o", *dev]) == 1
+        err = capsys.readouterr().err
+        assert [line.split(":")[0] for line in err.splitlines()
+                if line.startswith("FAILED")] == [f"FAILED {s}" for s in shards]
+        with pytest.raises(SystemExit, match="requires --nonzero"):
+            cli_main([shards[0], "-k", "9", "-o", "x", *dev])

@@ -168,11 +168,14 @@ def test_checkpoint_trip_is_noop_when_disarmed(tmp_path):
 
 
 @pytest.mark.parametrize("spec,reads_done", [("batch-written:2", 4), ("checkpoint:3", 12)])
-def test_cli_child_killed_through_the_environment(tmp_path, spec, reads_done):
+def test_cli_child_killed_through_the_environment(tmp_path, monkeypatch, spec,
+                                                   reads_done):
     """``CFRK_FAULT_INJECT=site:N`` arms a child process at import, as in
     the JAX package: the streamed CLI run dies non-zero with its
     checkpoint left, and ``--resume`` writes the uninterrupted bytes."""
     from cfrk_tpu_torch.cli import main
+
+    monkeypatch.chdir(tmp_path)  # no cfrk.json around the checkout applies
 
     root = Path(__file__).resolve().parent.parent
     fasta = _fasta(tmp_path / "r.fasta", 17)
@@ -285,12 +288,14 @@ def test_stream_sparse_missing_spill_run_restarts(tmp_path):
     np.testing.assert_array_equal(gc, want[1])
 
 
-def test_cli_sparse_budget_child_killed_through_the_environment(tmp_path):
+def test_cli_sparse_budget_child_killed_through_the_environment(tmp_path, monkeypatch):
     """A budgeted ``--mode sparse --stream`` child armed with
     ``CFRK_FAULT_INJECT=checkpoint:2`` dies with its run list and runs
     on disk and no output; ``--resume`` writes the uninterrupted bytes
     and removes the checkpoint and the runs."""
     from cfrk_tpu_torch.cli import main
+
+    monkeypatch.chdir(tmp_path)  # no cfrk.json around the checkout applies
 
     root = Path(__file__).resolve().parent.parent
     fasta = _fasta(tmp_path / "r.fasta", 31, n=40, lo=40, hi=80)

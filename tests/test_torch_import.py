@@ -29,6 +29,8 @@ _MODULES = [
     "cfrk_tpu_torch.runtime.faults",
     "cfrk_tpu_torch.runtime.metrics",
     "cfrk_tpu_torch.runtime.checkpoint",
+    "cfrk_tpu_torch.runtime.config",
+    "cfrk_tpu_torch.runtime.workflow",
     "cfrk_tpu_torch.pipeline.batch",
     "cfrk_tpu_torch.pipeline.count",
     "cfrk_tpu_torch.pipeline.stream",
@@ -44,6 +46,7 @@ _MODULES = [
     "cfrk_tpu_torch.ops.spectrum",
     "cfrk_tpu_torch.tools.rowsort_probe",
     "cfrk_tpu_torch.tools.stage_breakdown",
+    "cfrk_tpu_torch.tools.merge_outputs",
 ]
 
 

@@ -616,11 +616,13 @@ def _calls():
     return {fn.__name__: fn.calls for fn in N.COUNTED}
 
 
-def test_drivers_take_the_native_route(tmp_path):
+def test_drivers_take_the_native_route(tmp_path, monkeypatch):
     """CfrkWriter, read_fasta_encoded, the dense fold, pad_reads_flat,
     the streamed ingest and the sparse tsv writer each call the library
     (its counters move), with bytes equal to cfrk_tpu's."""
     from cfrk_tpu_torch.cli import main
+
+    monkeypatch.chdir(tmp_path)  # no cfrk.json around the checkout applies
 
     rng = np.random.default_rng(12)
     fa = tmp_path / "r.fa"
@@ -795,3 +797,46 @@ def test_concurrent_calls_count_every_call():
         sys.setswitchinterval(old)
     assert not bad
     assert N.format_pairs_bytes.calls == before + per * n_threads
+
+
+def test_first_use_from_two_threads_builds_once(monkeypatch, tmp_path):
+    """Two threads that reach the host library first at the same moment
+    (two workflow tasks) run the compiler once and share one library
+    whose signatures were declared once."""
+    import shutil
+    import subprocess
+    import time
+
+    built = build.build_library("fastaio")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    runs = []
+
+    def slow_compiler(cmd, **kw):
+        runs.append(cmd)
+        time.sleep(0.5)  # both threads are inside the first use meanwhile
+        shutil.copyfile(built, cmd[cmd.index("-o") + 1])
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(build.subprocess, "run", slow_compiler)
+    build.load_library.cache_clear()
+    N._library.cache_clear()
+    got, start = [], threading.Barrier(2)
+
+    def first_use():
+        start.wait()
+        got.append(N._library())
+
+    try:
+        threads = [threading.Thread(target=first_use) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert len(runs) == 1 and len(got) == 2 and got[0] is got[1]
+        assert N._library.cache_info().currsize == 1
+        idx, cnt = np.arange(4, dtype=np.int32)[None], np.ones((1, 4), np.int32)
+        assert N.format_pairs_bytes(idx, cnt) == tfmt.format_pairs_bytes(idx, cnt)
+    finally:
+        build.load_library.cache_clear()
+        N._library.cache_clear()
