@@ -53,9 +53,10 @@ Phases, each of which exits non-zero on failure:
    with string-slicing ground truth;
 6. spectrum legs at real size (BASELINE.json configs 3 and 4): 1M
    seeded 150 bp reads through ``--mode spectrum`` at k=8 (the
-   histogram kernel; its row must equal the numpy oracle) and at k=15
-   ``--spectrum-format hist`` (the sorted route on the rowsort kernel;
-   sum of count x kmers must equal the valid windows), and the 100k x
+   histogram kernel; its row must equal the numpy oracle) and, on the
+   first 500k of them, at k=15 ``--spectrum-format hist`` (the sorted
+   route on the rowsort kernel; sum of count x kmers must equal the
+   valid windows), and the 100k x
    152 bp reads through ``-k 31 --canonical --mode sparse`` (tsv equal
    to an independent numpy spectrum on sampled lines).  Each leg's
    counts are set to 0 just before it, must show its kernel launched,
@@ -84,7 +85,7 @@ Phases, each of which exits non-zero on failure:
    spilled runs), resumed in this process (fewer launches than a fresh
    run) and held to the sha256 of an unbudgeted ``--stream`` child, both
    children's peak RSS logged; and ``-k 15 --mode spectrum --stream
-   --spectrum-format hist`` on the 1M x 150 bp reads (the sorted route:
+   --spectrum-format hist`` on the 500k x 150 bp reads (the sorted route:
    the k <= 15 rowsort kernel, the sha256 of phase 6's k=15 leg);
 8. times: each kernel's ms per 8192-read batch beside the plain route's
    on the card (CUDA events, after warm-up; the rowsort kernels as a
@@ -120,7 +121,22 @@ Phases, each of which exits non-zero on failure:
    -1 -c`` and into ``--stream``, each equal to ``k8_nonzero``);
    ``profile_k8`` (``--profile``: a Chrome trace whose kernel events
    name ``rowsort_rle`` with device time); ``list_devices`` (one line,
-   an H100 with its memory).
+   an H100 with its memory);
+10. the user and validation tools of ``cfrk_tpu_torch/tools``, each in
+   this process with every kernel count set to 0 before it and read
+   after it: ``onchip_validate`` (its ``GPU_VALID.json`` under
+   ``build/chip_smoke``, every check ok, all five kernels launched);
+   ``onchip_fuzz`` (40 trials, at least one past the kernel ceiling
+   through the tiled route); ``fuzz_cli`` (24 trials of the CLI on the
+   card against the numpy spec, the two row-sort kernels and the
+   spectrum kernel launched; its launches join the main path's counts);
+   the golden round trip (phase 4's k=2 ``.cfrk`` of seq2 rebuilt by
+   ``reconstruct_fasta`` and counted again to the golden sha256);
+   ``make_synthetic`` (100k reads, BGZF) and ``query_spectrum --stats``
+   on phase 6's ``spectrum_k8`` row (its total equal to the valid
+   windows); ``scale_demo --reads 100000 --skip sparse
+   --scale-check-reads 0`` on that file (two CLI children, each leg with
+   its sha256, ``--stats`` line and bases/s).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON record of the kernels, and the one before that the card's
@@ -156,6 +172,12 @@ READS = 100_000  # BASELINE.json config 2: 100k reads per leg
 # fifth of a 634 s run of this script (NVIDIA H100 80GB HBM3, 700 W).
 DENSE_API_READS = 3 * BATCH
 SPECTRUM_READS = 1_000_000  # BASELINE.json config 3: a 1M-read metagenome
+# The two k = 15 sorted-route legs (phase 6's in-memory run, phase 7's
+# streamed run pinned to its sha256) take the first half of those reads:
+# at 1M each took 40-47 s of the host's fold and checkpoints, and the
+# tools of phase 10 would have taken a slow host's run past 600 s.
+K15_READS = 500_000
+K15_FASTA = WORK / "r500k.fa"
 # The budgeted sparse leg: config 4's k = 31 canonical reads of 152 bp,
 # cut from config 3's 1M reads to 600k so that the smoke stays well under
 # 600 s (at 1M the leg took 112 s of a 579 s run); about 17 M distinct
@@ -793,11 +815,12 @@ def numpy_kmer_keys(reads, k: int, canonical: bool):
 
 
 def run_spectrum_leg(label: str, fasta: Path, reads, flags: list,
-                     kernels: dict, check) -> dict:
+                     kernels: dict, check, keep: bool = False) -> dict:
     """Phase 6, one leg: every kernel count set to 0 just before the CLI
     runs on the GPU and read just after (the leg's own kernel must have
     launched), the same CLI on ``--device cpu``, byte comparison, then
-    ``check(output bytes)``.  Returns the leg's numbers."""
+    ``check(output bytes)``.  Returns the leg's numbers; with ``keep``,
+    the GPU's output stays at ``WORK/<label>.cfrk`` (its ``output``)."""
     from cfrk_tpu_torch.cli import main
 
     out_gpu = WORK / f"{label}.cuda.out"
@@ -819,7 +842,11 @@ def run_spectrum_leg(label: str, fasta: Path, reads, flags: list,
     if gpu_bytes != out_cpu.read_bytes():
         fail(f"{label}: GPU bytes differ from --device cpu bytes")
     checked = check(gpu_bytes)
-    out_gpu.unlink()
+    kept = None
+    if keep:
+        kept = out_gpu.rename(WORK / f"{label}.cfrk")
+    else:
+        out_gpu.unlink()
     out_cpu.unlink()
     res = {
         "leg": label, "reads": len(reads), "bases": int(reads.size),
@@ -829,6 +856,7 @@ def run_spectrum_leg(label: str, fasta: Path, reads, flags: list,
         "sha256": hashlib.sha256(gpu_bytes).hexdigest(),
     }
     log(f"spectrum leg {label}: " + json.dumps(res))
+    res["output"] = kept
     return res
 
 
@@ -858,11 +886,14 @@ def spectrum_legs(seed: int, r152, fa152: Path, fa1m: Path) -> list:
             fail("spectrum_k8: the row differs from spectrum_np")
         return f"row of {row.size} cells equals spectrum_np; sum {int(row.sum())}"
 
+    r500k = r1m[:K15_READS]
+    write_fasta(K15_FASTA, r500k)
+
     def check_k15(out: bytes) -> str:
         pairs = np.array([[int(x) for x in line.split(b"\t")]
                           for line in out.splitlines()], np.int64)
         total = int((pairs[:, 0] * pairs[:, 1]).sum())
-        want = valid_windows(r1m, 15)
+        want = valid_windows(r500k, 15)
         if total != want:
             fail(f"spectrum_k15_hist: sum count x kmers {total} != {want} windows")
         return f"sum count x kmers = {total} valid windows; {int(pairs[:, 1].sum())} distinct"
@@ -884,8 +915,8 @@ def spectrum_legs(seed: int, r152, fa152: Path, fa1m: Path) -> list:
 
     legs = [
         run_spectrum_leg("spectrum_k8", fa1m, r1m, ["-k", "8", "--mode", "spectrum"],
-                         kernels, check_k8),
-        run_spectrum_leg("spectrum_k15_hist", fa1m, r1m,
+                         kernels, check_k8, keep=True),
+        run_spectrum_leg("spectrum_k15_hist", K15_FASTA, r500k,
                          ["-k", "15", "--mode", "spectrum", "--spectrum-format", "hist"],
                          kernels, check_k15),
         run_spectrum_leg("sparse_k31_canonical", fa152, r152,
@@ -895,6 +926,7 @@ def spectrum_legs(seed: int, r152, fa152: Path, fa1m: Path) -> list:
     for leg, name in zip(legs, ("spectrum_hist", "rowsort_rle", "rowsort_rle_large")):
         if leg["launches"][name] <= 0:
             fail(f"{leg['leg']}: {name} was not launched")
+    legs[0]["valid_windows"] = valid_windows(r1m, 8)
     return legs
 
 
@@ -1251,8 +1283,9 @@ def sparse_streamed_legs(fa152: Path, fa1m: Path, sha: dict, kernels: dict,
 
     label = "spectrum_k15_stream"
     out = WORK / f"{label}.hist"
-    run = run_cli_here(label, [str(fa1m), "-o", str(out), "-k", "15", "--mode", "spectrum",
-                               "--stream", "--spectrum-format", "hist", "--stats"], kernels)
+    run = run_cli_here(label, [str(K15_FASTA), "-o", str(out), "-k", "15", "--mode",
+                               "spectrum", "--stream", "--spectrum-format", "hist", "--stats"],
+                       kernels)
     if run["launches"]["rowsort_rle"] <= 0:
         fail(f"{label}: rowsort_rle was not launched")
     if sha256_of(out) != sha["spectrum_k15_hist"]:
@@ -1262,8 +1295,8 @@ def sparse_streamed_legs(fa152: Path, fa1m: Path, sha: dict, kernels: dict,
     out.unlink()
     legs.append({"leg": label, "launches": run["launches"],
                  "native_calls": run["native_calls"], "cuda_wall_s": run["wall_s"],
-                 "bases": SPECTRUM_READS * 150,
-                 "bases_per_s": SPECTRUM_READS * 150 / run["wall_s"],
+                 "bases": K15_READS * 150,
+                 "bases_per_s": K15_READS * 150 / run["wall_s"],
                  "metrics": run["metrics"]})
     log(f"streamed leg {label}: " + json.dumps(legs[-1]))
     return legs
@@ -1565,6 +1598,134 @@ def entry_layer_legs(seed: int, fa150: Path, fa1m: Path, sha: dict) -> tuple:
     log(f"entry leg {label}: " + json.dumps(legs[-1]))
     shutil.rmtree(work)
     return legs, total
+
+
+# Phase 10: make_synthetic's and scale_demo's reads, cut from 200k so
+# that a slow host's run stays under 600 s.
+TOOL_READS = 100_000
+
+
+def _tool_main(label: str, fn, argv: list) -> list:
+    """A tool's ``main(argv)`` in this process: it must return 0; returns
+    what it printed, line by line (its last line is its JSON record)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = fn(argv)
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0:
+        fail(f"{label}: exit {rc}: {lines[-3:]}")
+    log(f"tool {label}: {time.perf_counter() - t0:.3f} s")
+    return lines
+
+
+def tool_legs(seed: int, spectrum_k8: dict) -> tuple:
+    """Phase 10: the port's user and validation tools on the card, every
+    kernel count set to 0 before a tool and read after it.  Returns (the
+    tools' records, the launches of the one tool that drives the main
+    path, ``fuzz_cli``: the others compare kernels with their twins)."""
+    import shutil
+
+    from cfrk_tpu_torch.cli import main as cli_main
+    from cfrk_tpu_torch.io.bgzf import is_bgzf
+    from cfrk_tpu_torch.tools import (
+        card,
+        fuzz_cli,
+        make_synthetic,
+        onchip_fuzz,
+        onchip_validate,
+        query_spectrum,
+        reconstruct_fasta,
+        scale_demo,
+    )
+
+    def zero():
+        for fn in card.KERNELS.values():
+            fn.launches = 0
+
+    records = {}
+    zero()
+    artifact = WORK / "GPU_VALID.json"
+    _tool_main("onchip_validate", onchip_validate.main, ["--out", str(artifact)])
+    valid = json.loads(artifact.read_text())
+    if not valid["ok"] or set(valid["checks"]) != set(onchip_validate.CHECKS):
+        fail(f"onchip_validate: {valid['checks']}")
+    for name, n in card.launches().items():
+        if n <= 0:
+            fail(f"onchip_validate never launched {name}")
+    records["onchip_validate"] = {
+        "launches": card.launches(), "wall_s": valid["wall_s"],
+        "checks_wall_s": {name: c["wall_s"] for name, c in valid["checks"].items()}}
+
+    zero()
+    fuzz = json.loads(_tool_main("onchip_fuzz", onchip_fuzz.main,
+                                 ["--trials", "40", "--seed", str(seed)])[-1])
+    if not fuzz["ok"] or fuzz["routes"]["tiled"] < 1:
+        fail(f"onchip_fuzz: {fuzz}")
+    records["onchip_fuzz"] = fuzz
+
+    zero()
+    campaign = fuzz_cli.run_campaign(24, seed, "cuda")
+    for name in ("rowsort_rle", "rowsort_rle_large", "spectrum_hist"):
+        if campaign["launches"][name] <= 0:
+            fail(f"fuzz_cli never launched {name}: {campaign}")
+    records["fuzz_cli"] = campaign
+    main_path = {name: campaign["launches"][name]
+                 for name in ("rowsort_rle", "rowsort_rle_large", "spectrum_hist")}
+
+    # The golden round trip: phase 4's k=2 .cfrk of seq2 rebuilt into a
+    # FASTA, counted again on the card.
+    zero()
+    data = ROOT / "tests" / "data"
+    golden = json.loads((data / "goldens.json").read_text())["files"]["seq2.fasta.gz"]
+    rebuilt, recount = WORK / "seq2_rebuilt.fa", WORK / "seq2_rebuilt.cfrk"
+    _tool_main("reconstruct_fasta", reconstruct_fasta.main,
+               [str(WORK / "golden_seq2.fasta.gz.cfrk"), str(rebuilt)])
+    if cli_main([str(rebuilt), str(recount), "2"]) != 0 or sha256_of(recount) != golden["sha256"]:
+        fail("round trip: the rebuilt seq2 does not count to the golden sha256")
+    records["round_trip"] = {"sha256": golden["sha256"], "reads": golden["n_reads"]}
+    rebuilt.unlink()
+    recount.unlink()
+
+    # make_synthetic writes the input scale_demo then finds in its work
+    # directory; query_spectrum reads phase 6's spectrum_k8 row.
+    work = WORK / "scale"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    fasta = work / f"reads_{TOOL_READS}.fasta.bgz"
+    t0 = time.perf_counter()
+    _tool_main("make_synthetic", make_synthetic.main,
+               [str(fasta), "--reads", str(TOOL_READS), "--genome-len", "2500000", "--bgzf"])
+    records["make_synthetic"] = {"reads": TOOL_READS, "bytes": fasta.stat().st_size,
+                                 "wall_s": time.perf_counter() - t0}
+    if not is_bgzf(fasta):
+        fail("make_synthetic --bgzf did not write BGZF")
+    stats = dict(line.split("\t", 1) for line in _tool_main(
+        "query_spectrum", query_spectrum.main, [str(spectrum_k8["output"]), "--stats"]))
+    if int(stats["total"]) != spectrum_k8["valid_windows"]:
+        fail(f"query_spectrum: total {stats['total']} != {spectrum_k8['valid_windows']} "
+             "valid windows of spectrum_k8")
+    records["query_spectrum"] = stats
+    spectrum_k8["output"].unlink()
+
+    zero()
+    doc_path = work / "GPU_SCALE.json"
+    _tool_main("scale_demo", scale_demo.main, [
+        "--reads", str(TOOL_READS), "--skip", "sparse", "--scale-check-reads", "0",
+        "--workdir", str(work), "--json-out", str(doc_path)])
+    doc = json.loads(doc_path.read_text())
+    if doc["synth_s"] is not None:
+        fail("scale_demo synthesised its input again instead of make_synthetic's")
+    for leg in ("perread_k8_nonzero", "spectrum_k8"):
+        rec = doc["legs"].get(leg)
+        if (not rec or len(rec["sha256"]) != 64 or not rec["stats"]
+                or rec["stats"]["reads"] != TOOL_READS or not rec["bases_per_s"] > 0):
+            fail(f"scale_demo leg {leg}: {rec}")
+    records["scale_demo"] = doc
+    shutil.rmtree(work)
+    for name, rec in records.items():
+        log(f"tool record {name}: " + json.dumps(rec, default=str))
+    return records, main_path
 
 
 def time_spectrum_routes(seed: int, card: str) -> dict:
@@ -1959,6 +2120,16 @@ def main() -> int:
         launches[name] += n
     log("entry_launches: " + json.dumps(entry_launches))
     clock.lap("9 entry layer")
+
+    # 10. the user and validation tools; fuzz_cli's CLI runs join the counts
+    tool_records, tool_launches = tool_legs(args.seed, spec_legs[0])
+    for name, n in tool_launches.items():
+        launches[name] += n
+    log("tool_launches: " + json.dumps({
+        "fuzz_cli": tool_launches,
+        "onchip_validate": tool_records["onchip_validate"]["launches"],
+        "onchip_fuzz": tool_records["onchip_fuzz"]["launches"]}))
+    clock.lap("10 tools")
     log("end_to_end: " + json.dumps({
         "card": card,
         "legs": {leg["leg"]: leg["bases_per_s"]

@@ -47,6 +47,14 @@ _MODULES = [
     "cfrk_tpu_torch.tools.rowsort_probe",
     "cfrk_tpu_torch.tools.stage_breakdown",
     "cfrk_tpu_torch.tools.merge_outputs",
+    "cfrk_tpu_torch.tools.card",
+    "cfrk_tpu_torch.tools.make_synthetic",
+    "cfrk_tpu_torch.tools.query_spectrum",
+    "cfrk_tpu_torch.tools.reconstruct_fasta",
+    "cfrk_tpu_torch.tools.onchip_validate",
+    "cfrk_tpu_torch.tools.onchip_fuzz",
+    "cfrk_tpu_torch.tools.fuzz_cli",
+    "cfrk_tpu_torch.tools.scale_demo",
 ]
 
 
