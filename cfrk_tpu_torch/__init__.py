@@ -25,17 +25,22 @@ CLI, compatible with the reference binary's positional form::
     python -m cfrk_tpu_torch reads.fasta -k 31 --canonical --mode sparse \
         --stream --mem-budget-mb 4096 -o out.kmers.tsv
 
-The library exports the JAX package's names for the dense per-read API
-(whose file drivers take the ``device`` their batches run on) and the
-spectrum API, and the streaming drivers with checkpoint and resume
-(``stream_count_file``, ``stream_spectrum_file``,
-``stream_sparse_spectrum_file``, the last with disk spilling under a
-memory budget).
+The library exports every name of ``cfrk_tpu.__all__``: the FASTA
+readers and encoder, the window index functions, the dense and sparse
+per-read ops and the spectrum, the batching helpers, the file-level
+counts (which take the ``device`` their batches run on), the streamed
+counts with checkpoint and resume (``stream_sparse_spectrum_file`` with disk
+spilling under a memory budget), the run metrics and checkpoint, and
+the multi-file workflow.
 """
 
 from .format import CfrkWriter, format_file_bytes, parse_cfrk
+from .io.fasta import encode_seq, iter_fasta, read_fasta, read_fasta_encoded
+from .ops.encode import window_components, window_indices
 from .ops.perread import count_perread
+from .ops.perread_sparse import count_perread_sparse
 from .ops.spectrum import spectrum
+from .pipeline.batch import ReadBatch, iter_batches, pad_reads
 from .pipeline.count import (
     count_file,
     count_file_sparse_rows,
@@ -48,21 +53,35 @@ from .pipeline.stream import (
     stream_sparse_spectrum_file,
     stream_spectrum_file,
 )
+from .runtime import RunMetrics, StreamCheckpoint, run_workflow
 from .version import __version__
 
 __all__ = [
     "__version__",
     "CfrkWriter",
-    "count_file",
-    "count_file_sparse_rows",
-    "count_perread",
     "format_file_bytes",
     "parse_cfrk",
+    "encode_seq",
+    "iter_fasta",
+    "read_fasta",
+    "read_fasta_encoded",
+    "window_components",
+    "window_indices",
+    "count_perread",
+    "count_perread_sparse",
     "spectrum",
-    "spectrum_file",
+    "ReadBatch",
+    "iter_batches",
+    "pad_reads",
+    "count_file",
+    "count_file_sparse_rows",
     "sparse_spectrum_file",
+    "spectrum_file",
+    "write_cfrk",
     "stream_count_file",
     "stream_sparse_spectrum_file",
     "stream_spectrum_file",
-    "write_cfrk",
+    "RunMetrics",
+    "StreamCheckpoint",
+    "run_workflow",
 ]

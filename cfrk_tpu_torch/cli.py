@@ -24,14 +24,21 @@ files per run, reference ``swift/cfrk.swf:14-20``)::
     python -m cfrk_tpu_torch reads.fa out.cfrk 8 --config site.json \
         [--profile trace_dir]
     python -m cfrk_tpu_torch --list-devices
+    JAX_COORDINATOR_ADDRESS=host:port JAX_NUM_PROCESSES=N JAX_PROCESS_ID=i \
+        python -m cfrk_tpu_torch reads.fa out.cfrk 8 --nonzero --distributed
 
 Each writes the same bytes as ``cfrk_tpu``'s CLI.  ``--device cuda``
 (the default) runs the CUDA kernels and refuses to run without a
 visible GPU; ``--device cpu`` runs the plain PyTorch route.  A
 ``cfrk.json`` in the working directory supplies flag defaults, as in
-``cfrk_tpu``.  The JAX package's scale-out flags (``--devices``,
-``--tp``, ``--seqpar``, ``--slack``, ``--distributed``) are not ported
-yet: each exits with an error that says so.
+``cfrk_tpu``.  ``--distributed`` with one input splits it by
+record-aligned byte ranges across the processes of a gloo group (one
+process a rank, started with the JAX package's coordinator variables);
+process 0 merges the parts.  The device mesh is not ported yet:
+``--devices 1``, ``--tp 1`` and ``--slack`` run as on one device, and
+every value that would build a mesh (``--seqpar`` among them) exits
+with an error that says so, as does ``--distributed`` with several
+inputs.
 """
 
 from __future__ import annotations
@@ -47,25 +54,11 @@ import numpy as np
 
 __all__ = ["main", "build_parser", "count_one_file"]
 
-# Flags of cfrk_tpu's CLI this package does not serve yet: its
-# scale-out over several devices and hosts.
-_NOT_PORTED = ("--devices", "--tp", "--seqpar", "--slack", "--distributed")
 _FASTA_EXTS = (".fasta", ".fa", ".fna", ".fastq", ".fq")
 
 
 def _not_ported(what: str) -> SystemExit:
     return SystemExit(f"{what} is not yet ported to cfrk_tpu_torch")
-
-
-def _unported_flag(token: str) -> str | None:
-    """The flag of :data:`_NOT_PORTED` that an unknown argv token names,
-    exactly or as argparse's unambiguous long-option prefix (``--distrib``
-    for ``--distributed``), else None."""
-    name = token.split("=", 1)[0]
-    if not name.startswith("--"):
-        return None
-    hits = [flag for flag in _NOT_PORTED if flag.startswith(name)]
-    return hits[0] if len(hits) == 1 else None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -225,6 +218,52 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         metavar="PATH",
         help="append per-task JSONL provenance records (durations, errors)",
+    )
+    p.add_argument(
+        "--devices",
+        type=int,
+        default=None,
+        metavar="N",
+        help=(
+            "shard work over the first N visible devices as one mesh "
+            "(--devices 1 forces single-device; a mesh is not ported "
+            "yet, so the default is one device)"
+        ),
+    )
+    p.add_argument(
+        "--tp",
+        type=int,
+        default=1,
+        metavar="N",
+        help=(
+            "table-parallel degree for --mode spectrum over a mesh "
+            "(not ported yet; 1 = no table split)"
+        ),
+    )
+    p.add_argument(
+        "--seqpar",
+        action="store_true",
+        help="shard the position axis over a device mesh (not ported yet)",
+    )
+    p.add_argument(
+        "--slack",
+        type=float,
+        default=2.0,
+        metavar="X",
+        help=(
+            "sparse mode over a mesh: initial bucket capacity factor of "
+            "the key exchange (read only by a mesh)"
+        ),
+    )
+    p.add_argument(
+        "--distributed",
+        action="store_true",
+        help=(
+            "start a torch.distributed (gloo) group from "
+            "JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID "
+            "and split the one input by record-aligned byte ranges across "
+            "its processes"
+        ),
     )
     p.add_argument(
         "--config",
@@ -554,13 +593,7 @@ def _run_workflow(args, device) -> int:
 
 def main(argv=None) -> int:
     parser = build_parser()
-    args, unknown = parser.parse_known_args(argv)
-    for tok in unknown:
-        flag = _unported_flag(tok)
-        if flag:
-            raise _not_ported(flag)
-    if unknown:
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = parser.parse_args(argv)
     if args.list_devices:
         return _list_devices()
     if not args.paths:
@@ -570,12 +603,8 @@ def main(argv=None) -> int:
     _split_reference_positionals(args)
     from .runtime.config import apply_config, explicit_dests, load_config
 
-    cfg = load_config(args.config)
-    for key in cfg:
-        if "--" + key.replace("_", "-") in _NOT_PORTED:
-            raise _not_ported("--" + key.replace("_", "-"))
     apply_config(
-        args, cfg, parser,
+        args, load_config(args.config), parser,
         explicit=explicit_dests(argv if argv is not None else sys.argv[1:], parser),
     )
     if "-" in args.inputs:
@@ -587,6 +616,11 @@ def main(argv=None) -> int:
             raise SystemExit("stdin input needs an explicit -o/--output")
         if args.resume:
             raise SystemExit("cannot --resume from a pipe; use a file")
+        if args.distributed:
+            raise SystemExit(
+                "--distributed needs file inputs (a pipe cannot be "
+                "byte-range sharded)"
+            )
     for inp in args.inputs:
         if inp != "-" and not os.path.exists(inp):
             raise SystemExit(f"input not found: {inp}")
@@ -619,6 +653,20 @@ def main(argv=None) -> int:
     if args.resume:
         args.stream = True
     device = _resolve_device(args.device)
+    _check_mesh(args, device)
+    if args.distributed and len(args.inputs) > 1:
+        raise _not_ported("--distributed with several inputs")
+    with _process_group(args.distributed) as world:
+        # One input over several processes: each streams a byte range.
+        args.byte_ranged = world > 1
+        if args.byte_ranged:
+            _check_rangeable(args.inputs[0])
+            args.stream = True
+        return _run(args, device)
+
+
+def _run(args, device) -> int:
+    """The run itself, once the flags are settled."""
     from .pipeline.count import _use_sorted_spectrum
 
     if args.stream and (args.mode == "sparse" or (
@@ -634,9 +682,233 @@ def main(argv=None) -> int:
                   else contextlib.nullcontext())
     t0 = time.perf_counter()
     with profile_cm:
+        if args.byte_ranged:
+            return _run_byte_ranged(args, device)
         if len(args.inputs) > 1:
             return _run_workflow(args, device)
         return _run_inputs(args, device, t0)
+
+
+def _check_mesh(args, device) -> None:
+    """``--devices`` / ``--tp`` / ``--seqpar`` / ``--slack``: the
+    decisions of ``cfrk_tpu``'s ``_build_mesh`` over this process's
+    visible devices (the CUDA device count for ``--device cuda``, one
+    for ``--device cpu``).  Where it builds no mesh the run is the
+    one-device run (``--slack`` is read only by a mesh); its errors come
+    out in its words; a mesh is not yet ported.  Unlike ``cfrk_tpu``,
+    whose default is every visible device, the default is one."""
+    import torch
+
+    visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = 1 if args.devices is None else args.devices
+    if n > visible:
+        raise SystemExit(
+            f"--devices {n} but only {visible} addressable (use --list-devices)"
+        )
+    if n <= 1 and args.tp == 1 and not args.seqpar:
+        return
+    if args.seqpar:
+        if args.tp > 1:
+            raise SystemExit("--seqpar and --tp are mutually exclusive")
+        raise _not_ported("--seqpar")
+    if args.mode == "sparse" and args.tp > 1:
+        raise SystemExit("--mode sparse shards keys over one axis; use --tp 1")
+    if args.tp < 1:
+        raise SystemExit(f"--tp {args.tp}: the table-parallel degree must be >= 1")
+    if n % args.tp:
+        raise SystemExit(f"{n} devices not divisible by tp={args.tp}")
+    raise _not_ported("--tp" if args.tp > 1 else "--devices")
+
+
+@contextlib.contextmanager
+def _process_group(distributed: bool):
+    """``--distributed``: the run's ``torch.distributed`` group, started
+    from the coordinator variables (``parallel/distributed``); yields
+    its world size (1 without the flag).  A group this run started is
+    destroyed when the run ends, also when it fails: a failing rank then
+    exits and frees its port, and the others' barriers fail instead of
+    waiting on it."""
+    if not distributed:
+        yield 1
+        return
+    import torch.distributed as dist
+
+    from .parallel.distributed import maybe_initialize_distributed
+
+    owns = maybe_initialize_distributed(force=True)
+    try:
+        yield dist.get_world_size()
+    finally:
+        if owns:
+            dist.destroy_process_group()
+
+
+def _check_rangeable(inp: str) -> None:
+    """A byte-ranged run needs record starts it can find from any
+    offset: plain and BGZF FASTA.  Plain gzip and FASTQ are refused with
+    the way out, never run at 1/N throughput on process 0."""
+    if _sniff_fasta(inp):
+        return
+    try:
+        with open(inp, "rb") as f:
+            is_gz = f.read(2) == b"\x1f\x8b"
+    except OSError as e:
+        raise SystemExit(
+            f"--distributed could not read {inp!r} to plan byte ranges: {e}"
+        )
+    if is_gz:
+        why = (
+            "plain (non-BGZF) gzip permits no random access, so byte-range "
+            "sharding is impossible.  Recompress with bgzip (`python -m "
+            "cfrk_tpu_torch.tools.make_synthetic --help`, "
+            "cfrk_tpu_torch/tools/make_synthetic.py, shows the --bgzf "
+            "writer; any htslib bgzip works) or pre-shard the file"
+        )
+    else:
+        why = (
+            "FASTQ record starts are ambiguous for byte-range sharding ('@' "
+            "also begins quality lines).  Pre-shard the input into one file "
+            "per host, or convert to FASTA/bgzf"
+        )
+    raise SystemExit(
+        f"--distributed with a single input needs a byte-rangeable file, and "
+        f"{inp!r} is not: {why}; or drop --distributed to run on one host"
+    )
+
+
+def _sniff_fasta(path) -> bool:
+    """True when the (decompressed) first non-blank byte is '>' (FASTA:
+    byte-range sharding needs unambiguous record starts; '@' quality
+    lines make FASTQ ranges ambiguous).  BGZF-compressed FASTA sniffs
+    through the block reader; plain gzip returns False (no random
+    access for ranges anyway)."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(256)
+        if head[:2] == b"\x1f\x8b":
+            from .io.bgzf import is_bgzf, open_maybe_bgzf
+
+            if not is_bgzf(path):
+                return False
+            with open_maybe_bgzf(path) as bf:
+                head = bf.read(256)
+    except OSError:
+        return False
+    return head.lstrip(b"\r\n")[:1] == b">"
+
+
+def _run_byte_ranged(args, device) -> int:
+    """One input over the processes of the group: each streams its
+    record-aligned byte range into ``<out>.part<rank>``; after a barrier
+    process 0 merges the parts (splices per-read ``.cfrk`` rows, sums
+    the dense spectrum tables, merges the sparse (keys, counts)) and
+    removes them; a second barrier keeps every process alive until the
+    merge is done.  A rank whose count raised never reaches a barrier:
+    it exits, and the others' barriers fail."""
+    import torch.distributed as dist
+
+    from .parallel.distributed import host_byte_range
+    from .pipeline.batch import auto_batch_size
+    from .runtime.checkpoint import cleanup_checkpoint
+
+    inp = args.inputs[0]
+    out = args.output or _out_path(inp, args.out_dir or ".", args.mode)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    part = f"{out}.part{rank}"
+    common = dict(device=device, canonical=args.canonical,
+                  batch_size=args.batch_size or auto_batch_size(),
+                  resume=args.resume, byte_range=host_byte_range(inp),
+                  min_qual=args.min_qual)
+    if args.mode == "perread":
+        from .pipeline.stream import stream_count_file
+
+        m = stream_count_file(
+            inp, part, args.k, checkpoint_every=args.checkpoint_every or 1,
+            nonzero=args.nonzero, packed=args.packed, impl=args.impl, **common,
+        )
+        # Row-count sidecar: part BYTES cannot tell "zero reads" from
+        # "one read whose --nonzero row is empty" (both are 0 bytes).
+        # total_reads, not reads: a resumed range that was already
+        # complete counts 0 new reads, but its part holds every row.
+        with open(part + ".nreads", "w") as f:
+            f.write(str(m.total_reads))
+    elif args.mode == "spectrum":
+        from .pipeline.stream import stream_spectrum_file
+
+        # cleanup=False: the checkpoint stays until the part exists.
+        table, m = stream_spectrum_file(
+            inp, args.k, out_path=part, cleanup=False, impl=args.impl,
+            checkpoint_every=args.checkpoint_every or 16, **common,
+        )
+        with open(part, "wb") as f:
+            np.save(f, table)
+        cleanup_checkpoint(part)
+    else:
+        from .pipeline.stream import stream_sparse_spectrum_file
+
+        keys, counts, m = stream_sparse_spectrum_file(
+            inp, args.k, out_path=part, cleanup=False,
+            checkpoint_every=args.checkpoint_every or 64,
+            mem_budget_mb=args.mem_budget_mb, **common,
+        )
+        with open(part, "wb") as f:
+            np.savez(f, keys=keys, counts=counts)
+        cleanup_checkpoint(part)
+    if args.stats:
+        print(m.json_line(), file=sys.stderr)
+    dist.barrier()  # cfrk-parts-written: every part exists
+    if rank == 0:
+        parts = [f"{out}.part{i}" for i in range(world)]
+        if args.mode == "perread":
+            _splice_perread_parts(parts, out)
+        elif args.mode == "spectrum":
+            total = None
+            for p in parts:
+                t = np.load(p)
+                total = t if total is None else total + t
+            _write_spectrum(out, total, args.spectrum_format, args.min_count)
+        else:
+            from .ops.sparse import merge_sorted_key_counts
+
+            # Sparse keys repeat across ranges: a sorted merge that sums
+            # them (each part is sorted and unique).
+            pairs = []
+            for p in parts:
+                with np.load(p) as z:
+                    pairs.append((z["keys"], z["counts"]))
+            keys, counts = merge_sorted_key_counts(pairs)
+            _write_sparse(out, keys, counts, args.k, args.spectrum_format,
+                          args.min_count)
+        for p in parts:
+            os.remove(p)
+            if args.mode == "perread":
+                os.remove(p + ".nreads")
+    dist.barrier()  # cfrk-parts-merged: nobody exits before the merge
+    return 0
+
+
+def _splice_perread_parts(parts, out: str) -> None:
+    """Concatenate per-range ``.cfrk`` parts with the reference row
+    framing ('\\n' BEFORE each later row, no trailing newline).
+
+    Parts are skipped by their ``.nreads`` sidecar READ COUNT, never by
+    size: a 0-byte part can be one read whose ``--nonzero`` row is
+    empty, which must still contribute a row or every later row
+    misaligns.  Chunked copy: parts are gigabytes at scale.
+    """
+    import shutil
+
+    with _open_out(out, "wb") as f:
+        wrote_any = False
+        for p in parts:
+            with open(p + ".nreads") as nf:
+                if int(nf.read()) == 0:
+                    continue
+            with open(p, "rb") as pf:
+                if wrote_any:
+                    f.write(b"\n")
+                shutil.copyfileobj(pf, f, 1 << 20)
+                wrote_any = True
 
 
 if __name__ == "__main__":

@@ -40,6 +40,8 @@ from .io import native
 __all__ = [
     "CfrkWriter",
     "parse_cfrk",
+    "format_rows",
+    "format_rows_nonzero",
     "format_file_bytes",
     "format_rows_pairs",
     "format_pairs_bytes",
@@ -187,6 +189,20 @@ def format_rows_pairs(idx: np.ndarray, counts: np.ndarray) -> list[bytes]:
     if np.asarray(idx).shape[0] == 0:
         return []
     return format_pairs_bytes(idx, counts).split(b"\n")
+
+
+def format_rows(counts: np.ndarray) -> list[bytes]:
+    """Per-read row bytes of a dense ``[n_reads, 4**k]`` count matrix
+    (every cell), one list entry per row."""
+    body = format_rows_bytes(counts)
+    return body.split(b"\n") if np.asarray(counts).shape[0] else []
+
+
+def format_rows_nonzero(counts: np.ndarray) -> list[bytes]:
+    """Per-read row bytes listing only the NONZERO ``idx:count`` cells
+    of a dense count matrix (the ``--nonzero`` rows); a row with no
+    k-mers is an empty byte string."""
+    return format_rows_pairs(*_dense_to_pairs(counts))
 
 
 def format_file_bytes(counts: np.ndarray) -> bytes:

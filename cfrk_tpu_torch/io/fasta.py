@@ -17,6 +17,7 @@ are read transparently, BGZF ones through the block reader of
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import io
 import os
@@ -108,67 +109,81 @@ def _open_maybe_gzip(path: str | os.PathLike) -> IO[bytes]:
     return f
 
 
-def iter_fasta(f: IO[bytes]) -> Iterator[tuple[bytes, bytes]]:
-    """Yield ``(header, sequence)`` pairs from an open FASTA stream;
-    header excludes ``>``, sequence joins all its lines."""
-    header: bytes | None = None
-    parts: list[bytes] = []
-    for line in f:
-        line = line.rstrip(b"\r\n")
-        if line.startswith(b">"):
-            if header is not None:
-                yield header, b"".join(parts)
-            header = line[1:]
-            parts = []
-        elif line:
-            parts.append(line)
-    if header is not None:
-        yield header, b"".join(parts)
+@contextlib.contextmanager
+def _reading(path_or_file):
+    """A path opened for reading (gzip and bgzf transparent) and closed
+    on exit, or the caller's open binary stream, left open."""
+    if isinstance(path_or_file, (str, os.PathLike)):
+        with _open_maybe_gzip(path_or_file) as f:
+            yield f
+    else:
+        yield path_or_file
+
+
+def iter_fasta(path_or_file) -> Iterator[tuple[bytes, bytes]]:
+    """Yield ``(header, sequence)`` pairs from a FASTA path or open
+    binary stream; header excludes ``>``, sequence joins all its lines."""
+    with _reading(path_or_file) as f:
+        header: bytes | None = None
+        parts: list[bytes] = []
+        for line in f:
+            line = line.rstrip(b"\r\n")
+            if line.startswith(b">"):
+                if header is not None:
+                    yield header, b"".join(parts)
+                header = line[1:]
+                parts = []
+            elif line:
+                parts.append(line)
+        if header is not None:
+            yield header, b"".join(parts)
 
 
 def read_fasta(path) -> tuple[list[bytes], list[bytes]]:
     """Read all FASTA records of a path (gzip and bgzf transparent) or
     an open binary stream; returns (headers, sequences)."""
-    if hasattr(path, "read"):
-        pairs = list(iter_fasta(path))
-    else:
-        with _open_maybe_gzip(path) as f:
-            pairs = list(iter_fasta(f))
+    pairs = list(iter_fasta(path))
     return [h for h, _ in pairs], [s for _, s in pairs]
 
 
-def iter_fastq(f: IO[bytes], min_qual: int = 0) -> Iterator[tuple[bytes, bytes]]:
-    """Yield ``(header, sequence)`` from an open 4-line-record FASTQ
-    stream; ``min_qual`` > 0 masks bases below that Phred quality to N."""
-    while True:
-        hdr = f.readline()
-        if not hdr:
-            return
-        hdr = hdr.rstrip(b"\r\n")
-        if not hdr:
-            continue
-        if not hdr.startswith(b"@"):
-            raise ValueError(f"malformed FASTQ header: {hdr[:40]!r}")
-        seq = f.readline().rstrip(b"\r\n")
-        plus = f.readline()
-        if not plus.startswith(b"+"):
-            raise ValueError("malformed FASTQ record: missing '+' line")
-        qual = f.readline().rstrip(b"\r\n")
-        if len(qual) != len(seq):
-            raise ValueError("malformed FASTQ record: quality length mismatch")
-        if min_qual:
-            seq = _mask_low_qual(seq, qual, min_qual)
-        yield hdr[1:], seq
+def iter_fastq(path_or_file, min_qual: int = 0) -> Iterator[tuple[bytes, bytes]]:
+    """Yield ``(header, sequence)`` from a 4-line-record FASTQ path or
+    open binary stream; ``min_qual`` > 0 masks bases below that Phred
+    quality to N."""
+    with _reading(path_or_file) as f:
+        while True:
+            hdr = f.readline()
+            if not hdr:
+                return
+            hdr = hdr.rstrip(b"\r\n")
+            if not hdr:
+                continue
+            if not hdr.startswith(b"@"):
+                raise ValueError(f"malformed FASTQ header: {hdr[:40]!r}")
+            seq = f.readline().rstrip(b"\r\n")
+            plus = f.readline()
+            if not plus.startswith(b"+"):
+                raise ValueError("malformed FASTQ record: missing '+' line")
+            qual = f.readline().rstrip(b"\r\n")
+            if len(qual) != len(seq):
+                raise ValueError("malformed FASTQ record: quality length mismatch")
+            if min_qual:
+                seq = _mask_low_qual(seq, qual, min_qual)
+            yield hdr[1:], seq
 
 
-def iter_reads(
-    path: str | os.PathLike, min_qual: int = 0
-) -> Iterator[tuple[bytes, bytes]]:
-    """Yield ``(header, sequence)`` from a FASTA or FASTQ file, sniffed by
-    the first non-blank byte (``>`` vs ``@``); gzip is transparent."""
-    with _open_maybe_gzip(path) as f:
-        first = f.peek(64).lstrip(b"\r\n")[:1]
-        if first == b"@":
+def iter_reads(path_or_file, min_qual: int = 0) -> Iterator[tuple[bytes, bytes]]:
+    """Yield ``(header, sequence)`` from a FASTA or FASTQ path or open
+    binary stream, sniffed by the first non-blank byte (``>`` vs ``@``);
+    gzip is transparent for paths."""
+    with _reading(path_or_file) as f:
+        if hasattr(f, "peek"):
+            head = f.peek(64)
+        else:
+            pos = f.tell()
+            head = f.read(64)
+            f.seek(pos)
+        if head.lstrip(b"\r\n")[:1] == b"@":
             yield from iter_fastq(f, min_qual)
         else:
             yield from iter_fasta(f)

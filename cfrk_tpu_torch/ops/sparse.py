@@ -40,6 +40,7 @@ __all__ = [
     "LO_BASES",
     "INVALID_SENTINEL",
     "kmer_keys",
+    "sparse_spectrum",
     "fetched_to_triples",
     "merge_sorted_key_counts",
     "merge_sorted_spectra",
@@ -78,6 +79,43 @@ def kmer_keys(codes: torch.Tensor, k: int, canonical: bool = False):
     hi = torch.where(valid, hi, INVALID_SENTINEL)
     lo = torch.where(valid, lo, INVALID_SENTINEL)
     return hi, lo
+
+
+def sparse_spectrum(codes: torch.Tensor, k: int, canonical: bool = False):
+    """Distinct-k-mer counts of one batch, sort-based, on the batch's
+    device (``torch.sort``, as the JAX package's is XLA's sort).
+
+    codes: [B, L] int8 → (hi, lo, counts), each [B*(L-k+1)]: the keys
+    sorted, position i holding a distinct key and its int32 count iff it
+    starts a run, else ``INVALID_SENTINEL`` in both words and count 0.
+    hi and lo are int64 tensors of uint32 values, as from
+    :func:`kmer_keys`.
+    """
+    from .cuda.rowsort import rle_rows
+
+    hi, lo = kmer_keys(codes, k, canonical)
+    lo = lo.reshape(-1)
+    if k <= LO_BASES:
+        # hi is 0 for every valid key and the sentinel exactly when lo
+        # is: lo alone sorts in the (hi, lo) order.
+        lo = torch.sort(lo).values
+        ulo, counts = rle_rows(lo[None, :], (lo != INVALID_SENTINEL)[None, :],
+                               INVALID_SENTINEL)
+        ulo, counts = ulo[0], counts[0]
+        return torch.where(counts > 0, 0, INVALID_SENTINEL), ulo, counts
+    # One int64 key hi * 4**15 + lo orders valid keys as (hi, lo) does
+    # (lo < 4**15); invalid windows sort last under the largest key.
+    # Validity is judged on lo: at k = 31 a hi of 16 T bases equals the
+    # sentinel.
+    last = torch.iinfo(torch.int64).max
+    key = torch.where(lo != INVALID_SENTINEL, (hi.reshape(-1) << (2 * LO_BASES)) | lo,
+                      last)
+    key = torch.sort(key).values
+    ukey, counts = rle_rows(key[None, :], (key != last)[None, :], last)
+    ukey, counts = ukey[0], counts[0]
+    run = counts > 0
+    return (torch.where(run, ukey >> (2 * LO_BASES), INVALID_SENTINEL),
+            torch.where(run, ukey & (4**LO_BASES - 1), INVALID_SENTINEL), counts)
 
 
 def fetched_to_triples(arrs, k: int):

@@ -30,11 +30,13 @@ __all__ = [
 PAD = -1
 
 
-def auto_batch_size() -> int:
+def auto_batch_size(read_len_hint: int | None = None,
+                    backend: str | None = None) -> int:
     """Reads per device batch.  The historical 8192 for every read
     length: the JAX package's length-scaled rule was tuned to a TPU's
     dispatch cost and is not carried over until it is measured on the
-    GPU."""
+    GPU, so the JAX signature's read-length hint and backend are taken
+    and not read."""
     return 8192
 
 

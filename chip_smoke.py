@@ -136,7 +136,20 @@ Phases, each of which exits non-zero on failure:
    on phase 6's ``spectrum_k8`` row (its total equal to the valid
    windows); ``scale_demo --reads 100000 --skip sparse
    --scale-check-reads 0`` on that file (two CLI children, each leg with
-   its sha256, ``--stats`` line and bases/s).
+   its sha256, ``--stats`` line and bases/s);
+11. byte-ranged runs (``--distributed``, one input): 2 ranks of the CLI
+   as child processes sharing the card, started with the JAX package's
+   coordinator variables on 127.0.0.1 (gloo), each reporting its
+   launches: ``8 --nonzero`` over a BGZF copy of the 100k x 150 bp file
+   with rank 1 killed at ``CFRK_FAULT_INJECT=checkpoint:2`` (both ranks
+   exit non-zero, rank 0 at the barrier, and no output is written),
+   then both resumed with ``--resume`` to the sha256 of ``k8_nonzero``;
+   ``-k 8 --mode spectrum`` over the plain 1M-read file to the sha256
+   of ``spectrum_k8``; ``-k 31 --canonical --mode sparse`` over the
+   plain 100k x 152 bp file to the sha256 of ``sparse_k31_canonical``.
+   Each rank of each finished run must launch the leg's kernel
+   (``rowsort_rle``, ``spectrum_hist``, ``rowsort_rle_large``), and no
+   part file may remain; each rank's wall and reads are logged.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON record of the kernels, and the one before that the card's
@@ -1728,6 +1741,147 @@ def tool_legs(seed: int, spectrum_k8: dict) -> tuple:
     return records, main_path
 
 
+# ---------------------------------------------------------------- byte ranges
+
+RANKS = 2  # processes of a --distributed run, sharing the one card
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(label: str, argv: list, fault_of_rank=lambda rank: None) -> list:
+    """One ``--distributed`` CLI run: ``RANKS`` children of ``_CLI_CHILD``
+    started together with the JAX package's coordinator variables on
+    127.0.0.1, each on ``--device cuda`` (the one card), rank i armed
+    with ``CFRK_FAULT_INJECT=fault_of_rank(i)`` where that is not None.
+    Returns each rank's exit code, stderr, launches and the seconds from
+    the launch to its exit.  Made again once, on another port, only when
+    a rank says that the address was in use."""
+    for attempt in (0, 1):
+        port = free_port()
+        procs, files = [], []
+        t0 = time.perf_counter()
+        for rank in range(RANKS):
+            out, err = (WORK / f"{label}.rank{rank}.{n}" for n in ("out", "err"))
+            files.append((out, err))
+            env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                   "JAX_NUM_PROCESSES": str(RANKS), "JAX_PROCESS_ID": str(rank)}
+            if fault_of_rank(rank):
+                env["CFRK_FAULT_INJECT"] = fault_of_rank(rank)
+            with open(out, "wb") as o, open(err, "wb") as e:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _CLI_CHILD, *argv, "--distributed"],
+                    cwd=ROOT, stdout=o, stderr=e, env=env))
+        walls = [None] * RANKS
+        while any(w is None for w in walls):
+            for rank, proc in enumerate(procs):
+                if walls[rank] is None and proc.poll() is not None:
+                    walls[rank] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 600:
+                for proc in procs:
+                    proc.kill()
+                    proc.wait()
+                fail(f"{label}: a rank ran past 600 s")
+            time.sleep(0.02)
+        ranks = []
+        for proc, wall, (out, err) in zip(procs, walls, files):
+            text, report = err.read_text(), out.read_text().strip().splitlines()
+            out.unlink()
+            err.unlink()
+            ranks.append({"rc": proc.returncode, "err": text, "process_wall_s": wall,
+                          "launches": ({n: c for n, c in json.loads(report[-1])["launches"].items()
+                                        if c} if proc.returncode == 0 and report else {})})
+        if attempt == 0 and any("address already in use" in r["err"].lower() for r in ranks):
+            continue
+        return ranks
+
+
+def byte_ranged_legs(fa150: Path, fa152: Path, fa1m: Path, sha: dict) -> tuple:
+    """Phase 11: ``--distributed`` with one input on 2 ranks sharing the
+    card, each leg's output held to the sha256 of its single-process leg:
+    per-read k=8 ``--nonzero`` over a BGZF copy of the 100k x 150 bp file
+    (rank 1 killed at its second checkpoint, rank 0 then failing at the
+    barrier with no output written, both resumed with ``--resume``),
+    the dense spectrum at k=8 over the plain 1M-read file and the sparse
+    k=31 canonical spectrum over the plain 100k x 152 bp file.  Each rank
+    of each finished run must launch the leg's kernel; no part file may
+    remain.  Returns (legs, launches by kernel over every finished rank)."""
+    from cfrk_tpu_torch.io.bgzf import is_bgzf, write_bgzf
+
+    bgzf150 = WORK / "r150.fa.gz"
+    write_bgzf(bgzf150, fa150.read_bytes())
+    if not is_bgzf(bgzf150):
+        fail("write_bgzf wrote a file that is_bgzf does not take")
+    total = {"rowsort_rle": 0, "spectrum_hist": 0, "rowsort_rle_large": 0}
+    legs = []
+
+    def finished(label, ranks, kernel, out, want_sha, bases, extra=None):
+        for rank, r in enumerate(ranks):
+            if r["rc"] != 0:
+                fail(f"{label}: rank {rank} exited {r['rc']}: {r['err'][-600:]}")
+            if r["launches"].get(kernel, 0) <= 0:
+                fail(f"{label}: rank {rank} never launched {kernel}: {r['launches']}")
+            for name, n in r["launches"].items():
+                total[name] = total.get(name, 0) + n
+        if sha256_of(out) != want_sha:
+            fail(f"{label}: the merged output differs from the single-process leg's")
+        left = sorted(p.name for p in WORK.iterdir() if ".part" in p.name)
+        if left:
+            fail(f"{label}: parts left behind: {left}")
+        out.unlink()
+        stats = [json.loads(line) for r in ranks for line in r["err"].splitlines()
+                 if line.startswith("{") and '"stages_s"' in line]
+        wall = max(r["process_wall_s"] for r in ranks)
+        leg = {"leg": label, "ranks": RANKS, "bases": bases, "process_wall_s": wall,
+               "bases_per_s": bases / wall,
+               "rank_process_wall_s": [r["process_wall_s"] for r in ranks],
+               "rank_launches": [r["launches"] for r in ranks],
+               "rank_reads": [m["reads"] for m in stats],
+               "rank_wall_s": [m["wall_s"] for m in stats], **(extra or {})}
+        log(f"byte-ranged leg {label}: " + json.dumps(leg))
+        legs.append(leg)
+
+    label = "distributed_k8_nonzero_bgzf"
+    out = WORK / f"{label}.cfrk"
+    out.unlink(missing_ok=True)
+    argv = [str(bgzf150), str(out), "8", "--nonzero", "--stats"]
+    killed = run_ranks(label + "_killed", argv,
+                       lambda rank: "checkpoint:2" if rank == 1 else None)
+    if killed[1]["rc"] == 0 or "InjectedFault" not in killed[1]["err"]:
+        fail(f"{label}: rank 1 armed at checkpoint:2 exited {killed[1]['rc']}: "
+             f"{killed[1]['err'][-600:]}")
+    if killed[0]["rc"] == 0 or out.exists():
+        fail(f"{label}: rank 0 went on without rank 1 (exit {killed[0]['rc']})")
+    ckpt = WORK / f"{label}.cfrk.part1.ckpt.json"
+    if not ckpt.exists():
+        fail(f"{label}: the killed rank 1 left no checkpoint")
+    at_kill = json.loads(ckpt.read_text())["reads_done"]
+    resumed = run_ranks(label, [*argv, "--resume"])
+    finished(label, resumed, "rowsort_rle", out, sha["k8_nonzero"], READS * 150,
+             {"killed_rank_rcs": [r["rc"] for r in killed],
+              "killed_process_wall_s": [r["process_wall_s"] for r in killed],
+              "rank1_reads_done_at_kill": at_kill})
+    bgzf150.unlink()
+
+    label = "distributed_spectrum_k8"
+    out = WORK / f"{label}.spectrum"
+    finished(label, run_ranks(label, [str(fa1m), "-o", str(out), "-k", "8", "--mode",
+                                      "spectrum", "--stats"]),
+             "spectrum_hist", out, sha["spectrum_k8"], SPECTRUM_READS * 150)
+
+    label = "distributed_sparse_k31_canonical"
+    out = WORK / f"{label}.kmers.tsv"
+    finished(label, run_ranks(label, [str(fa152), "-o", str(out), "-k", "31",
+                                      "--canonical", "--mode", "sparse", "--stats"]),
+             "rowsort_rle_large", out, sha["sparse_k31_canonical"], READS * 152)
+    return legs, total
+
+
 def time_spectrum_routes(seed: int, card: str) -> dict:
     """Phase 8, spectrum: ms per 8192-read batch (150 bp padded to 256)
     of the histogram kernel at k = 7, 8, 9, 10 on the random and the
@@ -2130,10 +2284,17 @@ def main() -> int:
         "onchip_validate": tool_records["onchip_validate"]["launches"],
         "onchip_fuzz": tool_records["onchip_fuzz"]["launches"]}))
     clock.lap("10 tools")
+
+    # 11. --distributed with one input: 2 ranks on the card, byte-ranged
+    dist_legs, dist_launches = byte_ranged_legs(fa150, fa152, fa1m, sha)
+    for name, n in dist_launches.items():
+        launches[name] += n
+    log("byte_ranged_launches: " + json.dumps(dist_launches))
+    clock.lap("11 byte-ranged runs")
     log("end_to_end: " + json.dumps({
         "card": card,
         "legs": {leg["leg"]: leg["bases_per_s"]
-                 for leg in legs + spec_legs + stream_legs + entry_legs
+                 for leg in legs + spec_legs + stream_legs + entry_legs + dist_legs
                  if "bases_per_s" in leg},
     }))
 

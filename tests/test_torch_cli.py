@@ -122,17 +122,99 @@ def test_stats_line(tmp_path, capsys):
 @pytest.mark.parametrize(
     "argv,message",
     [
-        (["--tp", "2"], "--tp is not yet ported"),
-        (["--slack", "3"], "--slack is not yet ported"),
-        (["--devices=2"], "--devices is not yet ported"),
-        (["--distributed"], "--distributed is not yet ported"),
+        (["--tp", "2"], "^1 devices not divisible by tp=2$"),
+        (["--devices=2"], r"^--devices 2 but only 1 addressable \(use --list-devices\)$"),
+        (["--distributed"],
+         "^--distributed with several inputs is not yet ported to cfrk_tpu_torch$"),
         (["--impl", "scatter", "--seqpar"], "--seqpar is not yet ported"),
     ],
 )
 def test_unported_flags_fail_clearly(tmp_path, argv, message):
+    """On ``--device cpu`` (one device) a mesh value fails with the JAX
+    CLI's words, ``--seqpar`` as not ported; ``--distributed`` with
+    several inputs is not ported."""
     fa = str(DATA / "seq2.fasta.gz")
+    head = [fa, str(tmp_path / "o.cfrk"), "2"]
+    if "--distributed" in argv:
+        head = [fa, str(DATA / "seq1.fasta.gz"), "-k", "2", "--out-dir",
+                str(tmp_path / "parts")]
     with pytest.raises(SystemExit, match=message):
-        main([fa, str(tmp_path / "o.cfrk"), "2", "--device", "cpu", *argv])
+        main([*head, "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [("--devices", "1"), ("--devices", "0"), ("--tp", "1"), ("--slack", "3"),
+     ("--devices", "1", "--tp", "1", "--slack", "2.0")],
+    ids=["devices1", "devices0", "tp1", "slack3", "all"],
+)
+@pytest.mark.parametrize("mode", ["perread", "sparse"])
+def test_one_device_scale_out_values_match_jax_cli(tmp_path, flags, mode):
+    """The values that mean one device run as without the flag, to
+    cfrk_tpu's bytes (``--slack`` is read only by a sparse mesh).  The
+    JAX CLI sees 8 devices here, so it is given ``--devices 1`` where the
+    flags leave its device count at its default of all of them."""
+    inp = _prefix_fasta(tmp_path, "seq2.fasta.gz", 30)
+    argv = ["8", "--nonzero"] if mode == "perread" else ["12", "--mode", "sparse"]
+    got, want = _both(tmp_path, inp, *argv, *flags,
+                      jax_flags=() if "--devices" in flags else ("--devices", "1"))
+    assert got == want and got
+
+
+def test_one_device_scale_out_config_matches_jax_cli(tmp_path):
+    """A ``cfrk.json`` with the one-device values runs too."""
+    inp = _prefix_fasta(tmp_path, "seq1.fasta.gz", 30)
+    (tmp_path / "cfrk.json").write_text(json.dumps(
+        {"devices": 1, "tp": 1, "slack": 3.0, "seqpar": False, "distributed": False}))
+    got, want = _both(tmp_path, inp, "8", "--nonzero")
+    assert got == want and got
+
+
+@pytest.mark.parametrize(
+    "flags,message",
+    [
+        (["--devices", "9"], r"^--devices 9 but only 8 addressable \(use --list-devices\)$"),
+        (["--devices", "6", "--tp", "4"], "^6 devices not divisible by tp=4$"),
+        (["--seqpar", "--tp", "2"], "^--seqpar and --tp are mutually exclusive$"),
+        (["--mode", "sparse", "--devices", "2", "--tp", "2"],
+         "^--mode sparse shards keys over one axis; use --tp 1$"),
+    ],
+    ids=["devices_above_visible", "tp_not_dividing", "seqpar_and_tp", "sparse_tp"],
+)
+def test_mesh_errors_match_jax_cli_on_eight_devices(tmp_path, monkeypatch, flags, message):
+    """Where cfrk_tpu's ``_build_mesh`` refuses, the port refuses in its
+    words, over the port's visible count: 8 CUDA devices here (faked),
+    as the JAX CLI sees 8 virtual devices under tests/conftest.py."""
+    import torch
+
+    from cfrk_tpu_torch import cli as tcli
+
+    monkeypatch.setattr(tcli, "_resolve_device", lambda name: torch.device(name))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    fa = str(DATA / "seq2.fasta.gz")
+    for cli_main in (main, jax_main):
+        with pytest.raises(SystemExit, match=message):
+            cli_main([fa, str(tmp_path / "o.cfrk"), "2", *flags])
+
+
+@pytest.mark.parametrize(
+    "flags,flag",
+    [(["--devices", "2"], "--devices"), (["--devices", "8"], "--devices"),
+     (["--devices", "4", "--tp", "2"], "--tp"), (["--seqpar"], "--seqpar"),
+     (["--devices", "1", "--seqpar"], "--seqpar")],
+    ids=["devices2", "devices8", "tp2_of_4", "seqpar", "seqpar_one_device"],
+)
+def test_mesh_values_are_not_yet_ported(tmp_path, monkeypatch, flags, flag):
+    """Every value that would build a mesh (#7c) is refused as not
+    ported, on a host with 8 CUDA devices (faked) as on one."""
+    import torch
+
+    from cfrk_tpu_torch import cli as tcli
+
+    monkeypatch.setattr(tcli, "_resolve_device", lambda name: torch.device(name))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    with pytest.raises(SystemExit, match=f"^{flag} is not yet ported to cfrk_tpu_torch$"):
+        main([str(DATA / "seq2.fasta.gz"), str(tmp_path / "o.cfrk"), "2", *flags])
 
 
 @pytest.mark.parametrize(
@@ -817,8 +899,8 @@ def test_abbreviated_long_options_match_jax_cli(tmp_path):
     fa = _prefix_fasta(tmp_path, "seq1.fasta.gz", 20)
     got, want = _both(tmp_path, fa, "4", "--batch", "64", "--nonz")
     assert got == want and got.count(b"\n") == 19
-    with pytest.raises(SystemExit, match="--distributed is not yet ported"):
-        main([fa, str(tmp_path / "o"), "4", "--device", "cpu", "--distrib"])
+    with pytest.raises(SystemExit, match="--seqpar is not yet ported"):
+        main([fa, str(tmp_path / "o"), "4", "--device", "cpu", "--seqp"])
 
 
 class _FakeStdin:

@@ -118,12 +118,34 @@ def test_config_refusals_match_jax(tmp_path, cfg, message):
             cli_main([fa, "-k", "2", "--config", "c.json"])
 
 
-@pytest.mark.parametrize("key", ["devices", "tp", "seqpar", "slack", "distributed"])
-def test_config_scale_out_keys_are_not_ported(tmp_path, key):
+@pytest.mark.parametrize(
+    "key,cfg,message",
+    [("devices", {"devices": 2}, "--devices is not yet ported"),
+     ("tp", {"devices": 4, "tp": 2}, "--tp is not yet ported"),
+     ("seqpar", {"seqpar": True}, "--seqpar is not yet ported"),
+     ("slack", {"slack": 3.0, "devices": 2, "mode": "sparse"}, "--devices is not yet ported"),
+     ("distributed", {"distributed": True},
+      "--distributed with several inputs is not yet ported")],
+    ids=["devices", "tp", "seqpar", "slack", "distributed"],
+)
+def test_config_scale_out_keys_are_not_ported(tmp_path, monkeypatch, key, cfg, message):
     """A ``cfrk.json`` written for cfrk_tpu may carry its scale-out keys:
-    the port refuses them as it refuses the flags, never as unknown."""
+    the port refuses the values that build a mesh as it refuses the
+    flags (on a host with 8 CUDA devices, faked; ``--slack`` is read only
+    by a mesh, which is what is refused), and ``distributed`` with
+    several inputs -- never as unknown keys."""
+    import torch
+
+    from cfrk_tpu_torch import cli as tcli
+
+    monkeypatch.setattr(tcli, "_resolve_device", lambda name: torch.device(name))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
     fa = _fasta(tmp_path)
-    Path("cfrk.json").write_text(json.dumps({key.replace("-", "_"): 1, "k": 2}))
-    flag = "--" + key
-    with pytest.raises(SystemExit, match=f"{flag} is not yet ported to cfrk_tpu_torch"):
-        main([fa, "-o", "o.cfrk", "--device", "cpu"])
+    Path("cfrk.json").write_text(json.dumps({**cfg, "k": 2}))
+    argv = [fa, "-o", "o.cfrk"]
+    if key == "distributed":
+        second = tmp_path / "s.fasta"
+        second.write_bytes(Path(fa).read_bytes())
+        argv = [fa, str(second), "--out-dir", "parts"]
+    with pytest.raises(SystemExit, match=f"^{message} to cfrk_tpu_torch$"):
+        main(argv)

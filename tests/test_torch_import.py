@@ -1,20 +1,32 @@
-"""cfrk_tpu_torch imports without JAX, cfrk_tpu, nvcc or a GPU.
+"""cfrk_tpu_torch imports without JAX, cfrk_tpu, nvcc or a GPU, and
+carries the JAX package's library names.
 
 The GPU machine the port runs on has no JAX, so no module of the port
-may import it (or cfrk_tpu, whose ``__init__`` imports jax).  Each check
-runs in a fresh interpreter, since this test process has jax loaded.
+may import it (or cfrk_tpu, whose ``__init__`` imports jax).  Each
+import check runs in a fresh interpreter, since this test process has
+jax loaded.  The library checks hold every public name of a ported
+``cfrk_tpu`` module to the port (or to a named exception with its
+reason), and the functions the port added for them to the JAX ones on
+seeded batches, with exact equality.
 """
 
+import importlib
+import importlib.util
+import io
 import json
 import os
+import pkgutil
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import cfrk_tpu
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -55,6 +67,8 @@ _MODULES = [
     "cfrk_tpu_torch.tools.onchip_fuzz",
     "cfrk_tpu_torch.tools.fuzz_cli",
     "cfrk_tpu_torch.tools.scale_demo",
+    "cfrk_tpu_torch.parallel",
+    "cfrk_tpu_torch.parallel.distributed",
 ]
 
 
@@ -248,3 +262,189 @@ def test_kernel_ceilings_fit_shared_memory():
     assert rowsort_max_windows(15) * 4 <= smem < rowsort_max_windows(15) * 8
     assert rowsort_max_windows(16) * 8 <= smem < rowsort_max_windows(16) * 16
     assert np.log2(rowsort_max_windows(8)).is_integer()
+
+
+# ---------------------------------------------------------------- library names
+
+# Public names of ported cfrk_tpu modules that the port does not carry,
+# each with the reason.
+_NAME_EXCEPTIONS = {
+    "cfrk_tpu.io.fasta.peek_first_read_len":
+        "its one caller is the TPU batch rule; it comes with #9",
+    **{f"cfrk_tpu.io.native.{flag}": "the fallback flags: the port has no fallback"
+       for flag in ("HAVE_NATIVE", "HAVE_STREAM_NATIVE", "HAVE_PACK_NATIVE",
+                    "HAVE_QUAL_NATIVE", "HAVE_FOLD_NATIVE", "HAVE_KMER_TSV_NATIVE")},
+    "cfrk_tpu.ops.perread_sparse.rowsort_eligible":
+        "the Mosaic VMEM cap; the port's ceiling is ops/cuda/rowsort.rowsort_max_windows",
+    "cfrk_tpu.ops.perread_sparse.ROWSORT_MAX_WINDOWS":
+        "the Mosaic VMEM cap; the port's ceiling is ops/cuda/rowsort.rowsort_max_windows",
+    "cfrk_tpu.ops.sparse.batch_spectrum_triples":
+        "in the port's ops/perread_sparse, beside the drain it runs",
+    "cfrk_tpu.ops.sparse.rows_to_triples":
+        "in the port's ops/perread_sparse, beside the drain it runs",
+    "cfrk_tpu.ops.sparse.fetch_triples": "a JAX device fetch",
+    **{f"cfrk_tpu.parallel.{name}": "the device mesh, not ported yet (#7c)"
+       for name in ("sparse_spectrum_sharded", "count_perread_sparse_sharded",
+                    "DP_AXIS", "TP_AXIS", "SP_AXIS", "make_mesh", "make_seq_mesh",
+                    "batch_sharding", "table_sharding", "shard_batch",
+                    "count_perread_sharded", "spectrum_sharded",
+                    "count_perread_seqpar", "spectrum_seqpar")},
+}
+
+# cfrk_tpu modules with no module of the same path in the port.
+_MODULE_EXCEPTIONS = {
+    "cfrk_tpu.io.native._fastaio": "the JAX package's C extension; the port's "
+                                   "host library is csrc/fastaio.cpp over ctypes",
+    "cfrk_tpu.ops.pallas": "the Pallas kernels, ported as CUDA C++ under ops/cuda",
+    "cfrk_tpu.ops.pallas.common": "Mosaic layout helpers, not to port",
+    "cfrk_tpu.ops.pallas.perread": "ported as ops/cuda/perread.py (perread_hist)",
+    "cfrk_tpu.ops.pallas.rowsort": "ported as ops/cuda/rowsort.py (rowsort_rle, "
+                                   "rowsort_rle_large)",
+    "cfrk_tpu.ops.pallas.spectrum": "ported as ops/cuda/spectrum.py (spectrum_hist)",
+    "cfrk_tpu.ops.roofline": "v5e constants; an H100 bound module comes with #3",
+    "cfrk_tpu.parallel.bucket": "the device mesh, not ported yet (#7c)",
+    "cfrk_tpu.parallel.mesh": "the device mesh, not ported yet (#7c)",
+    "cfrk_tpu.parallel.seqpar": "the device mesh, not ported yet (#7c)",
+    "cfrk_tpu.parallel.sharded": "the device mesh, not ported yet (#7c)",
+}
+
+
+def _jax_modules() -> list:
+    names = [m.name for m in pkgutil.walk_packages(cfrk_tpu.__path__, "cfrk_tpu.")]
+    return ["cfrk_tpu"] + sorted(n for n in names if not n.endswith("__main__"))
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_every_public_name_is_ported_or_excepted(module):
+    """Each cfrk_tpu module has a port of the same path, or a named
+    exception; each name of a ported module's ``__all__`` exists in the
+    port, or is a named exception."""
+    port_name = "cfrk_tpu_torch" + module[len("cfrk_tpu"):]
+    try:
+        ported = importlib.util.find_spec(port_name) is not None
+    except ModuleNotFoundError:  # its parent package is not ported either
+        ported = False
+    if not ported:
+        assert module in _MODULE_EXCEPTIONS
+        return
+    assert module not in _MODULE_EXCEPTIONS
+    port = importlib.import_module(port_name)
+    for name in getattr(importlib.import_module(module), "__all__", []):
+        excepted = f"{module}.{name}" in _NAME_EXCEPTIONS
+        assert hasattr(port, name) != excepted, f"{module}.{name}"
+
+
+def test_package_names_are_cfrk_tpus():
+    import cfrk_tpu_torch
+
+    assert sorted(cfrk_tpu_torch.__all__) == sorted(cfrk_tpu.__all__)
+
+
+def _codes(seed, b=7, length=45):
+    """Seeded codes with N (-1) cells, a padded tail, a poly-T row (a 16-T
+    hi word equals the sentinel at k = 31) and a row shorter than k."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(b, length)).astype(np.int8)
+    codes[rng.random(codes.shape) < 0.04] = -1
+    codes[:, length - 6:] = -1
+    codes[0] = 3
+    codes[1, 4:] = -1
+    return codes
+
+
+@pytest.mark.parametrize("k", [1, 8, 15])
+def test_window_components_match_jax(k):
+    from cfrk_tpu.ops import encode as jencode
+    from cfrk_tpu_torch.ops import encode as tencode
+
+    codes = _codes(k)
+    want = jencode.window_components(jnp.asarray(codes), k)
+    got = tencode.window_components(torch.from_numpy(codes), k)
+    assert isinstance(got, tencode.WindowComponents)
+    for field in ("hi", "lo", "rc_hi", "rc_lo", "valid"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)))
+    for g, w in zip(tencode.canonical_components(torch.from_numpy(codes), k),
+                    jencode.canonical_components(jnp.asarray(codes), k)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_window_components_refusals_match_jax():
+    from cfrk_tpu.ops import encode as jencode
+    from cfrk_tpu_torch.ops import encode as tencode
+
+    codes = _codes(0, length=12)
+    for k, message in ((16, "supports k <= 15"), (13, "read length 12 < k=13"),
+                       (0, "k must be >= 1")):
+        for fn, arr in ((jencode.window_components, jnp.asarray(codes)),
+                        (tencode.window_components, torch.from_numpy(codes))):
+            with pytest.raises(ValueError, match=message):
+                fn(arr, k)
+
+
+@pytest.mark.parametrize("k", [1, 8, 15, 16, 31])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_sparse_spectrum_matches_jax(k, canonical):
+    from cfrk_tpu.ops import sparse as jsparse
+    from cfrk_tpu_torch.ops import sparse as tsparse
+
+    codes = _codes(100 + k)
+    want = jsparse.sparse_spectrum(jnp.asarray(codes), k, canonical)
+    got = tsparse.sparse_spectrum(torch.from_numpy(codes), k, canonical)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w).astype(np.int64))
+    assert got[2].dtype == torch.int32 and int(got[2].sum()) > 0
+
+
+@pytest.mark.parametrize("shape", [(70, 16), (5, 256), (0, 4)], ids=["fast", "py", "empty"])
+def test_format_rows_match_jax(shape):
+    from cfrk_tpu import format as jfmt
+    from cfrk_tpu_torch import format as tfmt
+
+    counts = np.random.default_rng(shape[0]).integers(0, 400, size=shape)
+    counts[counts < 300] = 0
+    if shape[0]:
+        counts[1] = 0  # a row with no k-mers
+    assert tfmt.format_rows(counts) == jfmt.format_rows(counts)
+    assert tfmt.format_rows_nonzero(counts) == jfmt.format_rows_nonzero(counts)
+
+
+@pytest.mark.parametrize("fn", ["iter_fasta", "iter_reads"])
+@pytest.mark.parametrize("source", ["path", "stream"])
+def test_fasta_iterators_take_a_path_or_a_stream(tmp_path, fn, source):
+    """As in cfrk_tpu: a path (gzip transparent) or an open stream,
+    which is left open."""
+    from cfrk_tpu.io import fasta as jfasta
+    from cfrk_tpu_torch.io import fasta as tfasta
+
+    data = b">a x\nACGT\nNNac\n\n>b\n>c\nGGT\n"
+    path = tmp_path / "r.fa"
+    path.write_bytes(data)
+    fastq = tmp_path / "r.fq"
+    fastq.write_bytes(b"@q\nACGTA\n+\nII#II\n")
+
+    def run(mod, p):
+        if source == "path":
+            return list(getattr(mod, fn)(str(p)))
+        stream = io.BufferedReader(io.BytesIO(p.read_bytes()))
+        got = list(getattr(mod, fn)(stream))
+        assert not stream.closed
+        return got
+
+    assert run(tfasta, path) == run(jfasta, path) == [
+        (b"a x", b"ACGTNNac"), (b"b", b""), (b"c", b"GGT")]
+    if fn == "iter_reads":
+        assert run(tfasta, fastq) == run(jfasta, fastq) == [(b"q", b"ACGTA")]
+
+
+def test_auto_batch_size_takes_the_jax_arguments():
+    """The JAX signature; the read-length hint is not read until it is
+    measured on the card (#9), so every length gets 8192, as cfrk_tpu
+    gives off a TPU."""
+    from cfrk_tpu.pipeline import batch as jbatch
+    from cfrk_tpu_torch.pipeline import batch as tbatch
+
+    for hint in (None, 150, 1 << 20):
+        assert tbatch.auto_batch_size(hint) == 8192
+        assert tbatch.auto_batch_size(hint, backend="gpu") == jbatch.auto_batch_size(
+            hint, backend="gpu")
