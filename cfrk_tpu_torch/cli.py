@@ -24,6 +24,8 @@ files per run, reference ``swift/cfrk.swf:14-20``)::
     python -m cfrk_tpu_torch reads.fa out.cfrk 8 --config site.json \
         [--profile trace_dir]
     python -m cfrk_tpu_torch --list-devices
+    python -m cfrk_tpu_torch reads.fa -k 8 --mode spectrum --devices 4 --tp 2
+    python -m cfrk_tpu_torch contigs.fa out.cfrk 5 --impl scatter --seqpar
     JAX_COORDINATOR_ADDRESS=host:port JAX_NUM_PROCESSES=N JAX_PROCESS_ID=i \
         python -m cfrk_tpu_torch reads.fa out.cfrk 8 --nonzero --distributed
 
@@ -31,14 +33,15 @@ Each writes the same bytes as ``cfrk_tpu``'s CLI.  ``--device cuda``
 (the default) runs the CUDA kernels and refuses to run without a
 visible GPU; ``--device cpu`` runs the plain PyTorch route.  A
 ``cfrk.json`` in the working directory supplies flag defaults, as in
-``cfrk_tpu``.  ``--distributed`` with one input splits it by
-record-aligned byte ranges across the processes of a gloo group (one
-process a rank, started with the JAX package's coordinator variables);
-process 0 merges the parts.  The device mesh is not ported yet:
-``--devices 1``, ``--tp 1`` and ``--slack`` run as on one device, and
-every value that would build a mesh (``--seqpar`` among them) exits
-with an error that says so, as does ``--distributed`` with several
-inputs.
+``cfrk_tpu``.  As there, the run is one mesh over every visible device
+of this process (``--devices N`` the first N, ``--devices 1`` one
+device; ``--tp`` splits the spectrum's bins, ``--seqpar`` the positions,
+``--slack`` sizes the sparse spectrum's bucket exchange; ``parallel/``).
+``--distributed`` with one input splits it by record-aligned byte
+ranges across the processes of a gloo group (one process a rank,
+started with the JAX package's coordinator variables), and process 0
+merges the parts; with several inputs each process runs the inputs dealt
+to it round-robin.
 """
 
 from __future__ import annotations
@@ -55,10 +58,6 @@ import numpy as np
 __all__ = ["main", "build_parser", "count_one_file"]
 
 _FASTA_EXTS = (".fasta", ".fa", ".fna", ".fastq", ".fq")
-
-
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"{what} is not yet ported to cfrk_tpu_torch")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -226,8 +225,9 @@ def build_parser() -> argparse.ArgumentParser:
         metavar="N",
         help=(
             "shard work over the first N visible devices as one mesh "
-            "(--devices 1 forces single-device; a mesh is not ported "
-            "yet, so the default is one device)"
+            "(default: all devices when more than one is visible; "
+            "--devices 1 forces single-device).  Replaces the "
+            "reference's per-process GPU fan-out, src/main.cu:281-289"
         ),
     )
     p.add_argument(
@@ -236,14 +236,20 @@ def build_parser() -> argparse.ArgumentParser:
         default=1,
         metavar="N",
         help=(
-            "table-parallel degree for --mode spectrum over a mesh "
-            "(not ported yet; 1 = no table split)"
+            "table-parallel degree for --mode spectrum: the 4**k table "
+            "is reduce-scattered so each device sums 4**k/N bins "
+            "(dp = devices/N)"
         ),
     )
     p.add_argument(
         "--seqpar",
         action="store_true",
-        help="shard the position axis over a device mesh (not ported yet)",
+        help=(
+            "shard the POSITION axis over the devices (sequence "
+            "parallelism for few very long contigs; halo exchange with "
+            "the right neighbour).  The reference silently dropped bases "
+            "past 1024 per read, src/kmer_kernel.cu:83-85"
+        ),
     )
     p.add_argument(
         "--slack",
@@ -251,8 +257,8 @@ def build_parser() -> argparse.ArgumentParser:
         default=2.0,
         metavar="X",
         help=(
-            "sparse mode over a mesh: initial bucket capacity factor of "
-            "the key exchange (read only by a mesh)"
+            "sparse sharded mode: initial bucket-box capacity factor for "
+            "the all_to_all exchange (auto-doubles on overflow)"
         ),
     )
     p.add_argument(
@@ -260,9 +266,9 @@ def build_parser() -> argparse.ArgumentParser:
         action="store_true",
         help=(
             "start a torch.distributed (gloo) group from "
-            "JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID "
-            "and split the one input by record-aligned byte ranges across "
-            "its processes"
+            "JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID; "
+            "split one input by record-aligned byte ranges across its "
+            "processes, or deal several inputs across them round-robin"
         ),
     )
     p.add_argument(
@@ -414,7 +420,8 @@ def count_one_file(inp: str, out: str, opts, device, resume: bool = False) -> tu
     ``opts`` carries the CLI's per-file destinations (``k``, ``mode``,
     ``canonical``, ``impl``, ``batch_size``, ``max_len``, ``min_qual``,
     ``nonzero``, ``packed``, ``stream``, ``checkpoint_every``,
-    ``mem_budget_mb``, ``spectrum_format``, ``min_count``).  Returns the
+    ``mem_budget_mb``, ``spectrum_format``, ``min_count``, ``mesh``,
+    ``seqpar``, ``slack``).  Returns the
     reads counted and the streamed run's ``RunMetrics`` (None in
     memory); as in ``cfrk_tpu``, an in-memory spectrum or sparse run
     reports 0 reads.  A streamed spectrum's or sparse run's checkpoint
@@ -427,21 +434,30 @@ def count_one_file(inp: str, out: str, opts, device, resume: bool = False) -> tu
     k = opts.k
     common = dict(device=device, canonical=opts.canonical,
                   batch_size=opts.batch_size, max_len=opts.max_len,
-                  min_qual=opts.min_qual)
-    if opts.mode == "perread" and ((opts.nonzero and k > 8) or opts.impl == "auto"):
+                  min_qual=opts.min_qual, mesh=opts.mesh)
+    if opts.mode == "perread" and (
+            (opts.nonzero and k > 8) or (opts.impl == "auto" and not opts.seqpar)):
         # Rows through the per-read sort + RLE whenever the kernel choice
         # is ours: pairs cross to the host instead of dense rows (the
         # same bytes either way).
+        if opts.seqpar:
+            raise ValueError(
+                "seqpar does not compose with per-read k > 8 "
+                "(per-row sort needs the whole row on one device)"
+            )
         return count.count_file_sparse_rows(inp, out, k, nonzero=opts.nonzero,
                                             **common), None
     if opts.mode == "perread":
         return count.count_file_dense_rows(inp, out, k, impl=opts.impl,
-                                           nonzero=opts.nonzero, **common), None
+                                           nonzero=opts.nonzero, seqpar=opts.seqpar,
+                                           **common), None
     if opts.mode == "spectrum":
-        table = count.spectrum_file(inp, k, impl=opts.impl, **common)
+        table = count.spectrum_file(inp, k, impl=opts.impl, seqpar=opts.seqpar,
+                                    **common)
         _write_spectrum(out, table, opts.spectrum_format, opts.min_count)
     else:
-        keys, counts = count.sparse_spectrum_arrays(inp, k, **common)
+        keys, counts = count.sparse_spectrum_arrays(
+            inp, k, slack=opts.slack, seqpar=opts.seqpar, **common)
         _write_sparse(out, keys, counts, k, opts.spectrum_format, opts.min_count)
     return 0, None
 
@@ -459,7 +475,8 @@ def _count_streamed(inp: str, out: str, opts, device, resume: bool) -> tuple:
     k = opts.k
     common = dict(device=device, canonical=opts.canonical,
                   batch_size=opts.batch_size or auto_batch_size(),
-                  resume=resume, min_qual=opts.min_qual)
+                  resume=resume, min_qual=opts.min_qual, mesh=opts.mesh,
+                  seqpar=opts.seqpar)
     if opts.mode == "perread":
         m = stream_count_file(
             inp, out, k, checkpoint_every=opts.checkpoint_every or 1,
@@ -469,7 +486,7 @@ def _count_streamed(inp: str, out: str, opts, device, resume: bool) -> tuple:
     if opts.mode == "sparse":
         acc, _, m = stream_sparse_spectrum_file(
             inp, k, out_path=out, cleanup=False,
-            checkpoint_every=opts.checkpoint_every or 64,
+            checkpoint_every=opts.checkpoint_every or 64, slack=opts.slack,
             mem_budget_mb=opts.mem_budget_mb, finalize="accumulator", **common,
         )
         # The merged chunks go straight into the writer: under a budget
@@ -536,9 +553,23 @@ def _stats_line(args, reads: int, wall_s: float, **extra) -> None:
 
 def _run_inputs(args, device, t0: float) -> int:
     """One input: to ``-o``, else to its default name in ``--out-dir``
-    (or the cwd)."""
+    (or the cwd).  A process of a ``--distributed`` run that was dealt
+    one of several inputs writes it into ``--out-dir``; one dealt none
+    writes nothing."""
+    if not args.inputs:
+        if args.stats:
+            _stats_line(args, 0, time.perf_counter() - t0)
+        return 0
     inp = args.inputs[0]
     out = args.output or _out_path(inp, args.out_dir or ".", args.mode)
+    if args.dealt:
+        out = _out_path(inp, args.out_dir, args.mode)
+    if (args.seqpar and not args.stream and args.mode == "perread"
+            and args.nonzero and args.k > 8):
+        raise SystemExit(
+            "--seqpar does not compose with per-read k > 8 "
+            "(per-row sort needs the whole row on one device)"
+        )
     if not args.stream and inp != "-":
         big = os.path.getsize(inp)
         if big > 4 << 30:
@@ -567,6 +598,15 @@ def _run_workflow(args, device) -> int:
     retries and provenance."""
     from .runtime.workflow import count_one_factory, run_workflow
 
+    if args.mesh is not None and args.max_parallel_tasks > 1:
+        # A mesh run already uses every device; two tasks interleaving
+        # their launches and copies on the same devices buy nothing.
+        print(
+            "# mesh run: --max-parallel-tasks forced to 1 (concurrent "
+            "collective programs on shared devices can deadlock)",
+            file=sys.stderr,
+        )
+        args.max_parallel_tasks = 1
     pairs = [(inp, _out_path(inp, args.out_dir, args.mode)) for inp in args.inputs]
     result = run_workflow(
         pairs,
@@ -577,6 +617,7 @@ def _run_workflow(args, device) -> int:
             nonzero=args.nonzero, packed=args.packed, resume=args.resume,
             checkpoint_every=args.checkpoint_every, min_count=args.min_count,
             mem_budget_mb=args.mem_budget_mb, min_qual=args.min_qual,
+            mesh=args.mesh, seqpar=args.seqpar, slack=args.slack,
         ),
         max_parallel_tasks=args.max_parallel_tasks,
         retries=args.retries,
@@ -653,15 +694,33 @@ def main(argv=None) -> int:
     if args.resume:
         args.stream = True
     device = _resolve_device(args.device)
-    _check_mesh(args, device)
-    if args.distributed and len(args.inputs) > 1:
-        raise _not_ported("--distributed with several inputs")
+    from .pipeline.batch import auto_batch_size
+
     with _process_group(args.distributed) as world:
-        # One input over several processes: each streams a byte range.
-        args.byte_ranged = world > 1
-        if args.byte_ranged:
+        args.byte_ranged = args.dealt = False
+        if args.distributed and len(args.inputs) > 1:
+            # Several inputs: each process runs those dealt to it, with
+            # no barrier; its mesh is its own devices.
+            from .parallel.distributed import host_shard
+
+            args.inputs = host_shard(args.inputs)
+            args.dealt = True
+        elif world > 1:
+            # One input over several processes: each streams a byte range.
             _check_rangeable(args.inputs[0])
-            args.stream = True
+            args.stream = args.byte_ranged = True
+        args.mesh = _build_mesh(args, device)
+        if args.mesh is not None and not args.seqpar:
+            # Row-sharded batches must divide across the devices; the
+            # batches are padded to the full size anyway, so rounding up
+            # changes the padding, not the output.
+            bs = args.batch_size or auto_batch_size()
+            if bs % args.mesh.size:
+                new = -(-bs // args.mesh.size) * args.mesh.size
+                print(f"# batch size {bs} -> {new} "
+                      f"(multiple of the {args.mesh.size}-device mesh)",
+                      file=sys.stderr)
+                args.batch_size = new
         return _run(args, device)
 
 
@@ -689,35 +748,37 @@ def _run(args, device) -> int:
         return _run_inputs(args, device, t0)
 
 
-def _check_mesh(args, device) -> None:
-    """``--devices`` / ``--tp`` / ``--seqpar`` / ``--slack``: the
-    decisions of ``cfrk_tpu``'s ``_build_mesh`` over this process's
-    visible devices (the CUDA device count for ``--device cuda``, one
-    for ``--device cpu``).  Where it builds no mesh the run is the
-    one-device run (``--slack`` is read only by a mesh); its errors come
-    out in its words; a mesh is not yet ported.  Unlike ``cfrk_tpu``,
-    whose default is every visible device, the default is one."""
-    import torch
+def _build_mesh(args, device):
+    """``--devices`` / ``--tp`` / ``--seqpar`` → a mesh, or None for one
+    device: ``cfrk_tpu``'s decisions and words over this process's
+    devices of ``device``'s type (every CUDA device for ``--device
+    cuda``, the one CPU for ``--device cpu``; ``parallel.mesh.
+    local_devices``).  The default is every such device, so a host with
+    several cards runs a mesh unless ``--devices 1`` is given.  Under
+    ``--distributed`` the mesh is this process's devices only."""
+    from .parallel import mesh as pmesh
+    from .parallel.seqpar import make_seq_mesh
 
-    visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    n = 1 if args.devices is None else args.devices
-    if n > visible:
+    devs = pmesh.local_devices(device)
+    n = args.devices if args.devices is not None else len(devs)
+    if n > len(devs):
         raise SystemExit(
-            f"--devices {n} but only {visible} addressable (use --list-devices)"
+            f"--devices {n} but only {len(devs)} addressable (use --list-devices)"
         )
     if n <= 1 and args.tp == 1 and not args.seqpar:
-        return
+        return None
     if args.seqpar:
         if args.tp > 1:
             raise SystemExit("--seqpar and --tp are mutually exclusive")
-        raise _not_ported("--seqpar")
+        return make_seq_mesh(devs[:n])
     if args.mode == "sparse" and args.tp > 1:
         raise SystemExit("--mode sparse shards keys over one axis; use --tp 1")
     if args.tp < 1:
         raise SystemExit(f"--tp {args.tp}: the table-parallel degree must be >= 1")
-    if n % args.tp:
-        raise SystemExit(f"{n} devices not divisible by tp={args.tp}")
-    raise _not_ported("--tp" if args.tp > 1 else "--devices")
+    try:
+        return pmesh.make_mesh(devs[:n], tp=args.tp)
+    except ValueError as e:
+        raise SystemExit(str(e))
 
 
 @contextlib.contextmanager
@@ -818,7 +879,7 @@ def _run_byte_ranged(args, device) -> int:
     common = dict(device=device, canonical=args.canonical,
                   batch_size=args.batch_size or auto_batch_size(),
                   resume=args.resume, byte_range=host_byte_range(inp),
-                  min_qual=args.min_qual)
+                  min_qual=args.min_qual, mesh=args.mesh, seqpar=args.seqpar)
     if args.mode == "perread":
         from .pipeline.stream import stream_count_file
 
@@ -848,7 +909,7 @@ def _run_byte_ranged(args, device) -> int:
 
         keys, counts, m = stream_sparse_spectrum_file(
             inp, args.k, out_path=part, cleanup=False,
-            checkpoint_every=args.checkpoint_every or 64,
+            checkpoint_every=args.checkpoint_every or 64, slack=args.slack,
             mem_budget_mb=args.mem_budget_mb, **common,
         )
         with open(part, "wb") as f:

@@ -12,7 +12,7 @@ tensors holding the uint32 values.
 
 The rest is host code, as in the JAX package: :func:`fetched_to_triples`
 turns a drained batch of per-read rows into flat (hi, lo, counts)
-triples, and the accumulators fold them across batches --
+triples (:func:`fetch_triples` a mesh's bucket-routed spectrum), and the accumulators fold them across batches --
 :class:`SparseAccumulator` (sorted (keys uint64, counts int64) arrays,
 numpy) for any k; :class:`SpillingSparseAccumulator`, the same under a
 host-memory budget, which spills sorted runs to disk (``.npy`` pairs,
@@ -41,6 +41,7 @@ __all__ = [
     "INVALID_SENTINEL",
     "kmer_keys",
     "sparse_spectrum",
+    "fetch_triples",
     "fetched_to_triples",
     "merge_sorted_key_counts",
     "merge_sorted_spectra",
@@ -116,6 +117,20 @@ def sparse_spectrum(codes: torch.Tensor, k: int, canonical: bool = False):
     run = counts > 0
     return (torch.where(run, ukey >> (2 * LO_BASES), INVALID_SENTINEL),
             torch.where(run, ukey & (4**LO_BASES - 1), INVALID_SENTINEL), counts)
+
+
+def fetch_triples(hi, lo, counts, k: int):
+    """Device (hi, lo, counts) tensors of a sparse spectrum → host
+    (hi uint32, lo uint32, counts int32) for the accumulators.  For
+    k <= LO_BASES hi is 0 for every valid key, so it is not copied:
+    host zeros stand for it (sentinel cells carry count 0, which every
+    consumer masks)."""
+    nplo = lo.cpu().numpy().astype(np.uint32)
+    if k <= LO_BASES:
+        nphi = np.zeros(nplo.shape, dtype=np.uint32)
+    else:
+        nphi = hi.cpu().numpy().astype(np.uint32)
+    return nphi, nplo, counts.cpu().numpy()
 
 
 def fetched_to_triples(arrs, k: int):

@@ -74,16 +74,17 @@ def pad_reads(
     reads: Sequence[np.ndarray],
     batch_size: int | None = None,
     max_len: int | None = None,
+    len_multiple: int = 128,
 ) -> ReadBatch:
     """Pack a ragged list of code arrays into one padded batch (width
-    ``max_len``, default the longest read rounded up to 128); a read
-    longer than ``max_len`` raises (reads are never truncated)."""
+    ``max_len``, default the longest read rounded up to ``len_multiple``);
+    a read longer than ``max_len`` raises (reads are never truncated)."""
     n = len(reads)
     b = batch_size or n
     if n > b:
         raise ValueError(f"{n} reads > batch_size {b}")
     longest = max((len(r) for r in reads), default=0)
-    ml = max_len or round_up(max(longest, 1), 128)
+    ml = max_len or round_up(max(longest, 1), len_multiple)
     if longest > ml:
         raise ValueError(f"read of length {longest} exceeds max_len {ml}")
     codes = np.full((b, ml), PAD, dtype=np.int8)
@@ -99,6 +100,7 @@ def pad_reads_flat(
     lengths: np.ndarray,
     batch_size: int | None = None,
     max_len: int | None = None,
+    len_multiple: int = 128,
 ) -> ReadBatch:
     """:func:`pad_reads` for a FLAT code buffer + lengths: ``flat`` is
     the reads' codes laid end to end (the chunked parser's output,
@@ -113,7 +115,7 @@ def pad_reads_flat(
     if n > b:
         raise ValueError(f"{n} reads > batch_size {b}")
     longest = int(lengths.max(initial=0))
-    ml = max_len or round_up(max(longest, 1), 128)
+    ml = max_len or round_up(max(longest, 1), len_multiple)
     if longest > ml:
         raise ValueError(f"read of length {longest} exceeds max_len {ml}")
     if int(lengths.sum()) != len(flat):

@@ -1,9 +1,10 @@
 """End-to-end file counting: FASTA in → `.cfrk` rows or spectra out.
 
-The counterpart of the single-device, in-memory drivers of
-``cfrk_tpu/pipeline/count.py``; each takes the ``device`` its batches
-run on (a CUDA device goes through the CUDA kernels, the CPU through
-the plain route):
+The counterpart of the in-memory drivers of ``cfrk_tpu/pipeline/count.py``;
+each takes the ``device`` its batches run on (a CUDA device goes through
+the CUDA kernels, the CPU through the plain route) or a ``mesh`` of
+devices (``parallel/``: rows over the devices, or with ``seqpar`` the
+positions of long reads):
 
 * :func:`count_file_sparse_rows`: parse → fixed-shape padded batches →
   the per-read sort + RLE → narrowed device→host copy → `.cfrk` writer;
@@ -41,10 +42,23 @@ from ..ops.perread_sparse import (
     count_perread_rows,
     narrow_for_fetch,
     pairs_to_host,
+    rows_to_triples,
 )
-from ..ops.sparse import DenseFoldAccumulator, SparseAccumulator
+from ..ops.sparse import DenseFoldAccumulator, SparseAccumulator, fetch_triples
 from ..ops.cuda.spectrum import SPECTRUM_MAX_K
 from ..ops.spectrum import spectrum as spectrum_op
+from ..parallel.bucket import sparse_spectrum_sharded_retry
+from ..parallel.seqpar import (
+    count_perread_seqpar,
+    spectrum_seqpar,
+    spectrum_seqpar_triples,
+)
+from ..parallel.sharded import (
+    count_perread_sharded,
+    count_perread_sharded_packed,
+    count_perread_sparse_sharded,
+    spectrum_sharded,
+)
 from .batch import auto_batch_size, iter_batches, round_up
 
 __all__ = [
@@ -68,15 +82,20 @@ __all__ = [
 SPILL_LIMIT = 2**31 - 2**27
 
 
-def iter_spill_chunks(codes: np.ndarray, k: int, limit: int = SPILL_LIMIT):
+def iter_spill_chunks(codes: np.ndarray, k: int, row_multiple: int = 1,
+                      len_multiple: int = 1, limit: int = SPILL_LIMIT):
     """Split one numpy batch so no single dispatch sees >= ``limit``
     windows.
 
     A lone batch of long repeat-dominated contigs could otherwise wrap
     an int32 bin inside one dispatch, before the accumulator's spill
-    guard runs.  Splits rows first; if even one row reaches the limit,
-    slices the position axis with k-1 overlap, which is exact for a
-    global spectrum because every window lands in exactly one slice.
+    guard runs.  Splits rows first (chunks stay divisible by
+    ``row_multiple`` for a dp mesh); if even the smallest row chunk
+    reaches the limit, slices the position axis with k-1 overlap, which
+    is exact for a global spectrum because every window lands in exactly
+    one slice.  Position slices are padded with -1 columns to
+    ``len_multiple`` (an sp mesh's divisibility); padding windows are
+    invalid and count nothing.
     """
     b, length = codes.shape
     w = length - k + 1
@@ -84,6 +103,7 @@ def iter_spill_chunks(codes: np.ndarray, k: int, limit: int = SPILL_LIMIT):
         yield codes
         return
     rows = max(1, (limit - 1) // max(w, 1))
+    rows = max(rows - rows % row_multiple, row_multiple)
     if rows * w < limit:
         for s in range(0, b, rows):
             yield codes[s : s + rows]
@@ -92,7 +112,11 @@ def iter_spill_chunks(codes: np.ndarray, k: int, limit: int = SPILL_LIMIT):
     for r in range(0, b, rows):
         rchunk = codes[r : r + rows]
         for s in range(0, w, step):
-            yield rchunk[:, s : min(s + step + k - 1, length)]
+            sl = rchunk[:, s : min(s + step + k - 1, length)]
+            pad = -sl.shape[1] % len_multiple
+            if pad:
+                sl = np.pad(sl, ((0, 0), (0, pad)), constant_values=-1)
+            yield sl
 
 
 class DenseSpectrumAccumulator:
@@ -105,20 +129,26 @@ class DenseSpectrumAccumulator:
     first batch after a spill, and the dispatch makes a zeroed one), so
     one device table serves every batch; at k = 15 it is 4 GB.  ``base``
     is the flattened int64 host table; a spill adds into it in place.
+    ``row_multiple`` / ``len_multiple`` keep the chunks of a split batch
+    divisible by a mesh (:func:`iter_spill_chunks`).
     """
 
     def __init__(self, k: int, dispatch, base: np.ndarray, *,
-                 device: torch.device | str, limit: int = SPILL_LIMIT):
+                 device: torch.device | str, row_multiple: int = 1,
+                 len_multiple: int = 1, limit: int = SPILL_LIMIT):
         self.k = k
         self.base = base
         self._dispatch = dispatch
         self._device = torch.device(device)
         self._dev = None
         self._windows = 0
+        self._row_multiple = row_multiple
+        self._len_multiple = len_multiple
         self._limit = limit
 
     def add(self, codes: np.ndarray) -> None:
-        for chunk in iter_spill_chunks(codes, self.k, self._limit):
+        for chunk in iter_spill_chunks(codes, self.k, self._row_multiple,
+                                       self._len_multiple, self._limit):
             bw = chunk.shape[0] * (chunk.shape[1] - self.k + 1)
             if self._windows + bw >= self._limit:
                 self.spill()
@@ -144,11 +174,15 @@ class DenseSpectrumAccumulator:
 
 
 def _plan_shapes(reads: Sequence[np.ndarray], k: int, batch_size: int | None,
-                 max_len: int | None) -> tuple[int, int | None]:
+                 max_len: int | None, mesh=None,
+                 seqpar: bool = False) -> tuple[int, int | None]:
     """Batch size + pad length.  ``None`` pad length means per-batch
     geometric buckets (iter_batches): a lone long contig then widens
-    only its own batch."""
+    only its own batch.  On a row-sharded mesh the batch size rounds up
+    to a multiple of the mesh, so that every device takes a row block."""
     bs = min(batch_size or auto_batch_size(), max(len(reads), 1))
+    if mesh is not None and not seqpar:
+        bs = -(-bs // mesh.size) * mesh.size
     if max_len is not None:
         return bs, max_len
     longest = max((len(r) for r in reads), default=1)
@@ -158,8 +192,19 @@ def _plan_shapes(reads: Sequence[np.ndarray], k: int, batch_size: int | None,
     return bs, None
 
 
+def run_device(device, mesh) -> torch.device:
+    """Where a driver puts its batches: the mesh's first device (whose
+    functions copy each block on to its own device), else ``device``."""
+    if mesh is not None:
+        return mesh.home
+    if device is None:
+        raise TypeError("a device or a mesh is required")
+    return torch.device(device)
+
+
 def dense_counts_on_device(codes: torch.Tensor, k: int, canonical: bool,
-                           impl: str, packed: bool = False):
+                           impl: str, packed: bool = False, mesh=None,
+                           seqpar: bool = False):
     """One padded batch's dense counts on its device: ``(counts, packing)``.
 
     Where :func:`packed_auto` holds (CUDA, 5 <= k <= 8, short rows), or
@@ -168,10 +213,24 @@ def dense_counts_on_device(codes: torch.Tensor, k: int, canonical: bool,
     per bin of device write and device→host copy; ``packing`` names it.
     Otherwise ``count_perread`` runs ``impl`` with int16 counts (exact:
     they are bounded by the windows per read) where the rows allow,
-    and ``packing`` is False.
+    and ``packing`` is False.  On a mesh the rows shard over its devices
+    (packed where a device's rows cover whole read blocks), or with
+    ``seqpar`` the positions over its ``sp`` axis, in int32.
     """
     w = codes.shape[1] - k + 1
-    if (packed and w < 2**15) or packed_auto(impl, k, w, codes.device):
+    if mesh is not None and seqpar:
+        return count_perread_seqpar(codes, k, mesh, canonical=canonical,
+                                    impl=impl), False
+    pk_ok = (packed and w < 2**15) or packed_auto(impl, k, w, codes.device)
+    if mesh is not None:
+        if pk_ok and (codes.shape[0] // mesh.size) % DEFAULT_READ_BLOCK == 0:
+            packing = resolve_packed(True, w)
+            return count_perread_sharded_packed(
+                codes, k, mesh, canonical=canonical, packed=packing,
+                read_block=DEFAULT_READ_BLOCK), packing
+        return count_perread_sharded(codes, k, mesh, canonical=canonical,
+                                     impl=impl), False
+    if pk_ok:
         packing = resolve_packed(True, w)
         return perread_hist(codes, k, canonical, packed=packing,
                             read_block=DEFAULT_READ_BLOCK), packing
@@ -190,9 +249,10 @@ def dense_counts_to_host(counts, n_reads: int, packing) -> np.ndarray:
 
 
 def iter_dense_counts(reads: Sequence[np.ndarray], k: int, *,
-                      device: torch.device | str, canonical: bool = False,
-                      impl: str = "auto", batch_size: int | None = None,
-                      max_len: int | None = None):
+                      device: torch.device | str | None = None,
+                      canonical: bool = False, impl: str = "auto",
+                      batch_size: int | None = None, max_len: int | None = None,
+                      mesh=None, seqpar: bool = False):
     """Each batch's ``[n_reads, 4**k]`` int32 counts, in read order.
 
     A plain loop: the device→host copy of a batch synchronises before
@@ -201,32 +261,40 @@ def iter_dense_counts(reads: Sequence[np.ndarray], k: int, *,
     """
     if not reads:
         return
-    device = torch.device(device)
-    bs, ml = _plan_shapes(reads, k, batch_size, max_len)
+    device = run_device(device, mesh)
+    bs, ml = _plan_shapes(reads, k, batch_size, max_len, mesh, seqpar)
     for batch in iter_batches(reads, bs, ml):
         codes = torch.from_numpy(batch.codes).to(device)
-        counts, packing = dense_counts_on_device(codes, k, canonical, impl)
+        counts, packing = dense_counts_on_device(codes, k, canonical, impl,
+                                                 mesh=mesh, seqpar=seqpar)
         yield dense_counts_to_host(counts, batch.n_reads, packing)
 
 
 def count_reads(reads: Sequence[np.ndarray], k: int, *,
-                device: torch.device | str, canonical: bool = False,
+                device: torch.device | str | None = None, canonical: bool = False,
                 impl: str = "auto", batch_size: int | None = None,
-                max_len: int | None = None) -> np.ndarray:
+                max_len: int | None = None, mesh=None,
+                seqpar: bool = False) -> np.ndarray:
     """Per-read dense histograms of a ragged list of encoded reads:
-    ``[n_reads, 4**k]`` int32, batches run on ``device``."""
+    ``[n_reads, 4**k]`` int32, batches run on ``device``.
+
+    ``mesh``: shard the batch rows over a (dp, tp) mesh
+    (``parallel/sharded.py``, no collective); with ``seqpar``, shard the
+    POSITION axis of a 1-D ``sp`` mesh instead (few very long contigs;
+    ``parallel/seqpar.py``).  A mesh's devices replace ``device``.
+    """
     out = np.zeros((len(reads), 4**k), dtype=np.int32)
     row = 0
     for counts in iter_dense_counts(reads, k, device=device, canonical=canonical,
                                     impl=impl, batch_size=batch_size,
-                                    max_len=max_len):
+                                    max_len=max_len, mesh=mesh, seqpar=seqpar):
         out[row : row + len(counts)] = counts
         row += len(counts)
     return out
 
 
-def count_file(path, k: int, *, device: torch.device | str, min_qual: int = 0,
-               **kw) -> np.ndarray:
+def count_file(path, k: int, *, device: torch.device | str | None = None,
+               min_qual: int = 0, **kw) -> np.ndarray:
     """Count a FASTA/FASTQ file: returns ``[n_reads, 4**k]`` int32.
 
     ``min_qual`` masks FASTQ bases below that Phred quality."""
@@ -238,13 +306,15 @@ def count_file_dense_rows(
     out_path,
     k: int,
     *,
-    device: torch.device | str,
+    device: torch.device | str | None = None,
     canonical: bool = False,
     impl: str = "auto",
     batch_size: int | None = None,
     max_len: int | None = None,
     min_qual: int = 0,
     nonzero: bool = False,
+    mesh=None,
+    seqpar: bool = False,
 ) -> int:
     """:func:`count_file` straight to a `.cfrk` file, batch by batch:
     the bytes of ``CfrkWriter(out_path, nonzero=nonzero).write_batch``
@@ -255,7 +325,8 @@ def count_file_dense_rows(
     with CfrkWriter(out_path, nonzero=nonzero) as w:
         for counts in iter_dense_counts(reads, k, device=device,
                                         canonical=canonical, impl=impl,
-                                        batch_size=batch_size, max_len=max_len):
+                                        batch_size=batch_size, max_len=max_len,
+                                        mesh=mesh, seqpar=seqpar):
             w.write_batch(counts)
             n_written += len(counts)
     return n_written
@@ -272,12 +343,13 @@ def count_file_sparse_rows(
     out_path,
     k: int,
     *,
-    device: torch.device | str,
+    device: torch.device | str | None = None,
     canonical: bool = False,
     batch_size: int | None = None,
     max_len: int | None = None,
     min_qual: int = 0,
     nonzero: bool = True,
+    mesh=None,
 ) -> int:
     """Per-read rows of a FASTA/FASTQ file, streamed straight to disk.
 
@@ -285,21 +357,25 @@ def count_file_sparse_rows(
     k > 15 the idx is the combined code ``hi * 4**15 + lo``);
     ``nonzero=False`` (k <= 8 only) writes dense rows, densified on host
     from the same pairs.  The batches run on ``device``: a CUDA device
-    goes through the CUDA kernels, the CPU through the plain route.
-    Returns the number of reads written.
+    goes through the CUDA kernels, the CPU through the plain route; with
+    ``mesh`` the rows shard over its devices (no collective).  Returns
+    the number of reads written.
     """
     if not nonzero and k > 8:
         raise ValueError("dense rows require k <= 8")
-    device = torch.device(device)
+    device = run_device(device, mesh)
     reads = read_fasta_encoded(path, min_qual)
     n_written = 0
     with CfrkWriter(out_path) as w:
         if not reads:
             return 0
-        bs, ml = _plan_shapes(reads, k, batch_size, max_len)
+        bs, ml = _plan_shapes(reads, k, batch_size, max_len, mesh)
         for batch in iter_batches(reads, bs, ml):
             codes = torch.from_numpy(batch.codes).to(device)
-            out = count_perread_rows(codes, k, canonical)
+            if mesh is not None:
+                out = count_perread_sparse_sharded(codes, k, mesh, canonical=canonical)
+            else:
+                out = count_perread_rows(codes, k, canonical)
             idx, counts = pairs_to_host(narrow_for_fetch(out, k), batch.n_reads)
             if nonzero:
                 w.write_pairs(idx, counts)
@@ -309,35 +385,69 @@ def count_file_sparse_rows(
     return n_written
 
 
+def spectrum_dispatch(k: int, canonical: bool, impl: str, mesh=None,
+                      seqpar: bool = False):
+    """The dense spectrum's ``dispatch(codes, table)`` for
+    :class:`DenseSpectrumAccumulator`: one device's histogram into the
+    running table in place, or on a mesh the batch's global table
+    (``spectrum_sharded`` / ``spectrum_seqpar``) added into it."""
+    if mesh is None:
+        return lambda arr, table: spectrum_op(arr, k, canonical=canonical,
+                                              impl=impl, out=table)
+    fn = spectrum_seqpar if seqpar else spectrum_sharded
+
+    def dispatch(arr, table):
+        part = fn(arr, k, mesh, canonical=canonical, impl=impl)
+        return part if table is None else table.add_(part)
+
+    return dispatch
+
+
+def spectrum_accumulator(k: int, dispatch, base: np.ndarray, device, mesh=None,
+                         seqpar: bool = False) -> "DenseSpectrumAccumulator":
+    """A :class:`DenseSpectrumAccumulator` whose split batches stay
+    divisible by the mesh: rows by its size, or positions by its sp."""
+    return DenseSpectrumAccumulator(
+        k, dispatch, base, device=device,
+        row_multiple=mesh.size if mesh is not None and not seqpar else 1,
+        len_multiple=mesh.shape.get("sp", 1) if mesh is not None and seqpar else 1,
+    )
+
+
 def spectrum_file(
     path,
     k: int,
     *,
-    device: torch.device | str,
+    device: torch.device | str | None = None,
     canonical: bool = False,
     impl: str = "auto",
     batch_size: int | None = None,
     max_len: int | None = None,
     min_qual: int = 0,
+    mesh=None,
+    seqpar: bool = False,
 ) -> np.ndarray:
-    """Global spectrum of a FASTA/FASTQ file: returns [4**k] int64."""
-    device = torch.device(device)
+    """Global spectrum of a FASTA/FASTQ file: returns [4**k] int64.
+
+    With ``mesh``, each batch's table is computed sharded (summed over
+    dp, reduce-scattered over tp; ``parallel/sharded.py``), or with
+    ``seqpar`` over the positions of an ``sp`` mesh; the sorted route
+    routes keys through the bucket exchange (``parallel/bucket.py``) or,
+    under seqpar, sorts each device's position slice."""
+    device = run_device(device, mesh)
     reads = read_fasta_encoded(path, min_qual)
     total = np.zeros(4**k, dtype=np.int64)
     if not reads:
         return total
-    bs, ml = _plan_shapes(reads, k, batch_size, max_len)
+    bs, ml = _plan_shapes(reads, k, batch_size, max_len, mesh, seqpar)
     if _use_sorted_spectrum(k, impl, device):
         keys, counts = _sorted_spectrum_batches(
-            iter_batches(reads, bs, ml), k, canonical, device
+            iter_batches(reads, bs, ml), k, canonical, device, mesh, seqpar
         )
         total[keys] = counts
         return total
-
-    def dispatch(arr, table):
-        return spectrum_op(arr, k, canonical=canonical, impl=impl, out=table)
-
-    acc = DenseSpectrumAccumulator(k, dispatch, total, device=device)
+    acc = spectrum_accumulator(k, spectrum_dispatch(k, canonical, impl, mesh, seqpar),
+                               total, device, mesh, seqpar)
     for batch in iter_batches(reads, bs, ml):
         acc.add(batch.codes)
     return acc.total()
@@ -354,7 +464,7 @@ def _use_sorted_spectrum(k: int, impl: str, device: torch.device) -> bool:
     route per batch by far more than 10x at k = 9 and 10, on random and
     on skewed reads alike (``chip_smoke.py`` times both; PERF.md), and
     it needs no per-batch copy to the host.  k = 11-15 keeps the JAX
-    package's rule.
+    package's rule.  On a mesh ``device`` is its first device.
     """
     if impl == "sort":
         return True
@@ -363,13 +473,34 @@ def _use_sorted_spectrum(k: int, impl: str, device: torch.device) -> bool:
     return impl == "auto" and device.type == "cuda"
 
 
+def mesh_triples(codes: torch.Tensor, k: int, canonical: bool, mesh, seqpar: bool,
+                 slack: float):
+    """One batch's sparse spectrum on a mesh → ((hi, lo, counts) on the
+    host, the slack it ended at): under ``seqpar`` each device sorts its
+    own position slice, else the keys route through the bucket exchange
+    with overflow retry, starting at ``slack``."""
+    if seqpar:
+        return rows_to_triples(spectrum_seqpar_triples(
+            codes, k, mesh, canonical=canonical), k), slack
+    hi, lo, counts, slack = sparse_spectrum_sharded_retry(
+        codes, k, mesh, canonical=canonical, slack=slack)
+    return fetch_triples(hi, lo, counts, k), slack
+
+
 def _sorted_spectrum_batches(batches, k: int, canonical: bool,
-                             device: torch.device):
-    """Accumulate batches through per-read row sorts on ``device``;
-    returns the merged, key-sorted (keys, counts) arrays.  k <= 10 folds
-    into a dense host table (<= 8 MB), larger k merges sparsely."""
+                             device: torch.device, mesh=None, seqpar: bool = False,
+                             slack: float = 2.0):
+    """Accumulate batches through per-read row sorts on ``device`` (or a
+    mesh, :func:`mesh_triples`, carrying the bucket slack from batch to
+    batch); returns the merged, key-sorted (keys, counts) arrays.  k <= 10
+    folds into a dense host table (<= 8 MB), larger k merges sparsely."""
     acc = DenseFoldAccumulator(k) if k <= 10 else SparseAccumulator()
     for batch in batches:
+        if mesh is not None:
+            triples, slack = mesh_triples(torch.from_numpy(batch.codes).to(device),
+                                          k, canonical, mesh, seqpar, slack)
+            acc.add(*triples)
+            continue
         acc.add(*batch_spectrum_triples(
             batch.codes, k, canonical,
             max_len=int(batch.lengths.max(initial=0)), device=device,
@@ -381,27 +512,39 @@ def sparse_spectrum_arrays(
     path,
     k: int,
     *,
-    device: torch.device | str,
+    device: torch.device | str | None = None,
     canonical: bool = False,
     batch_size: int | None = None,
     max_len: int | None = None,
     min_qual: int = 0,
+    mesh=None,
+    slack: float = 2.0,
+    seqpar: bool = False,
 ):
     """Sparse spectrum of a FASTA/FASTQ file for any k <= 31: the
     key-sorted (keys uint64, counts int64) arrays of every distinct
     k-mer, ``key = hi * 4**15 + lo`` (the k-mer's base-4 code).  Each
     batch's per-read rows are sorted and run-length encoded on
-    ``device``; the batches merge on the host."""
-    device = torch.device(device)
+    ``device``; the batches merge on the host.  With ``mesh`` the keys
+    route through the all_to_all bucket exchange (``parallel/bucket.py``)
+    from ``slack`` with overflow retry, or under ``seqpar`` each device
+    sorts its own position slice (``parallel/seqpar.py``)."""
+    device = run_device(device, mesh)
     reads = read_fasta_encoded(path, min_qual)
+    if not reads:
+        return SparseAccumulator().result_arrays()
+    bs, ml = _plan_shapes(reads, k, batch_size, max_len, mesh, seqpar)
     acc = SparseAccumulator()
-    if reads:
-        bs, ml = _plan_shapes(reads, k, batch_size, max_len)
-        for batch in iter_batches(reads, bs, ml):
-            acc.add(*batch_spectrum_triples(
-                batch.codes, k, canonical,
-                max_len=int(batch.lengths.max(initial=0)), device=device,
-            ))
+    for batch in iter_batches(reads, bs, ml):
+        if mesh is not None:
+            triples, slack = mesh_triples(torch.from_numpy(batch.codes).to(device),
+                                          k, canonical, mesh, seqpar, slack)
+            acc.add(*triples)
+            continue
+        acc.add(*batch_spectrum_triples(
+            batch.codes, k, canonical,
+            max_len=int(batch.lengths.max(initial=0)), device=device,
+        ))
     return acc.result_arrays()
 
 

@@ -30,7 +30,11 @@ The counterpart of the single-device half of
   them in bounded chunks.
 
 A path of ``-`` streams stdin (plain or gzip bytes) in one pass: no
-offsets, no resume.  Not here yet: meshes.
+offsets, no resume.  With a ``mesh`` (``parallel/``) each batch goes up
+to the mesh's first device and is sharded from there: rows over the
+devices, the positions of an ``sp`` mesh with ``seqpar``, or the sparse
+spectrum's keys through the bucket exchange; the results come back
+assembled on the first device, where the pipeline takes them.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from ..format import CfrkWriter
 from ..io.bgzf import is_bgzf
 from ..io.fasta import is_stdin, iter_encoded_with_offsets, open_stdin_reads
 from ..io.native import iter_record_blocks_native
+from ..ops.cuda.perread import DEFAULT_READ_BLOCK
 from ..ops.perread_sparse import (
     count_perread_rows,
     narrow_for_fetch,
@@ -58,22 +63,27 @@ from ..ops.perread_sparse import (
     valid_pair_prefix,
 )
 from ..ops.sparse import (
+    LO_BASES,
     DenseFoldAccumulator,
     SparseAccumulator,
     SpillingSparseAccumulator,
     fetched_to_triples,
 )
-from ..ops.spectrum import spectrum as spectrum_op
+from ..parallel.bucket import sparse_spectrum_sharded_retry
+from ..parallel.seqpar import spectrum_seqpar_triples
+from ..parallel.sharded import count_perread_sparse_sharded
 from ..runtime import faults
 from ..runtime.checkpoint import StreamCheckpoint, checkpoint_path, spill_dir_path
 from ..runtime.metrics import RunMetrics, malloc_trim
 from .batch import ReadBatch, len_bucket, pad_reads, pad_reads_flat
 from .count import (
     SPILL_LIMIT,
-    DenseSpectrumAccumulator,
     _use_sorted_spectrum,
     dense_counts_on_device,
     dense_counts_to_host,
+    run_device,
+    spectrum_accumulator,
+    spectrum_dispatch,
 )
 
 __all__ = [
@@ -393,7 +403,8 @@ class _BatchPipeline:
     the device (and the :class:`ReadBatch` they came from) and returns
     ``(outputs, tag)``: a tuple of tensors whose first axis is the
     batch's rows, and whatever the caller needs to read them.  Only the
-    first ``n_reads`` rows of each output travel.
+    first ``n_reads`` rows of each output travel, unless ``cut_rows`` is
+    False (outputs whose first axis is not the rows: they travel whole).
 
     On a CUDA device the codes go up from a pinned staging buffer with a
     non-blocking copy; the kernels run on the current stream; a copy
@@ -407,9 +418,10 @@ class _BatchPipeline:
     exist.  On the CPU every step is a plain call.
     """
 
-    def __init__(self, device: torch.device, compute):
+    def __init__(self, device: torch.device, compute, cut_rows: bool = True):
         self.device = device
         self._compute = compute
+        self._cut_rows = cut_rows
         self._cuda = device.type == "cuda"
         self._copy_stream = torch.cuda.Stream(device) if self._cuda else None
         self._free: dict = {}  # (shape, dtype) -> free pinned tensors
@@ -424,7 +436,8 @@ class _BatchPipeline:
         if not self._cuda:
             outs, tag = self._compute(torch.from_numpy(batch.codes), batch)
             return _InFlight(n, batch.end_offset, tag,
-                             tuple(o[:n] for o in outs), None)
+                             tuple(o[:n] if self._cut_rows else o for o in outs),
+                             None)
         with torch.cuda.device(self.device):
             staging = self._pinned(batch.codes.shape, torch.int8)
             staging.numpy()[...] = batch.codes
@@ -436,13 +449,14 @@ class _BatchPipeline:
             with torch.cuda.stream(self._copy_stream):
                 self._copy_stream.wait_event(computed)
                 for o in outs:
+                    m = n if self._cut_rows else o.shape[0]
                     if not o.is_cuda:  # rows past the kernels' ceiling
-                        host.append(o[:n])
+                        host.append(o[:m])
                         continue
                     buf = self._pinned(o.shape, o.dtype)
-                    buf[:n].copy_(o[:n], non_blocking=True)
+                    buf[:m].copy_(o[:m], non_blocking=True)
                     held += [buf, o]
-                    host.append(buf[:n])
+                    host.append(buf[:m])
                 done = torch.cuda.Event()
                 done.record()
         return _InFlight(n, batch.end_offset, tag, tuple(host), done, tuple(held))
@@ -461,21 +475,33 @@ class _BatchPipeline:
 
 
 def _perread_compute(k: int, canonical: bool, impl: str, packed: bool,
-                     sparse_rows: bool):
+                     sparse_rows: bool, mesh=None, seqpar: bool = False):
     """Batch → device results of the per-read drivers' two routes: the
     narrowed (idx, counts) / (hi, lo, counts) rows of the per-read sort +
-    RLE, or dense counts in the layout ``dense_counts_on_device`` picks
-    (the tag is its packing)."""
+    RLE (rows sharded over ``mesh``), or dense counts in the layout
+    ``dense_counts_on_device`` picks (the tag is its packing)."""
     if sparse_rows:
+        if mesh is not None:
+            return lambda codes, batch: (narrow_for_fetch(
+                count_perread_sparse_sharded(codes, k, mesh, canonical=canonical),
+                k), None)
         return lambda codes, batch: (
             narrow_for_fetch(count_perread_rows(codes, k, canonical), k), None
         )
 
     def dense(codes, batch):
-        counts, packing = dense_counts_on_device(codes, k, canonical, impl, packed)
+        counts, packing = dense_counts_on_device(codes, k, canonical, impl, packed,
+                                                 mesh, seqpar)
         return (counts,), packing
 
     return dense
+
+
+def _check_mesh_batch(mesh, batch_size: int) -> None:
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(
+            f"batch_size {batch_size} not divisible by mesh size {mesh.size}"
+        )
 
 
 def stream_count_file(
@@ -483,13 +509,15 @@ def stream_count_file(
     out_path,
     k: int,
     *,
-    device: torch.device | str,
+    device: torch.device | str | None = None,
     canonical: bool = False,
     impl: str = "auto",
     batch_size: int = 8192,
     resume: bool = False,
     checkpoint_every: int = 1,
     nonzero: bool = False,
+    mesh=None,
+    seqpar: bool = False,
     packed: bool = False,
     byte_range=None,
     metrics: RunMetrics | None = None,
@@ -503,22 +531,34 @@ def stream_count_file(
     stopped.  The checkpoint sidecar is removed on successful completion.
     ``packed=True`` (k <= 8) runs the dense per-read histogram kernel in
     its packed emit (1 or 2 bytes a bin, by the read length): less device
-    write and device→host copy, unpacked on the host.
+    write and device→host copy, unpacked on the host.  With ``mesh`` each
+    batch's rows shard over its devices (batch_size must divide evenly;
+    packed rows a device must cover whole read blocks); with ``seqpar``
+    the positions of an ``sp`` mesh do (dense counts only).
 
-    Whenever the kernel choice is ours (``impl='auto'``, not ``packed``)
-    the rows go through the per-read sort + RLE: the drain ships (idx,
-    count) pairs instead of the dense matrix, mandatory past k = 8 and
-    far less to copy below it; the bytes are the same either way.
+    Whenever the kernel choice is ours (``impl='auto'``, not ``packed``
+    or ``seqpar``) the rows go through the per-read sort + RLE: the drain
+    ships (idx, count) pairs instead of the dense matrix, mandatory past
+    k = 8 and far less to copy below it; the bytes are the same either
+    way.
     """
     if packed:
         if k > 8:
             raise ValueError("packed mode needs k <= 8")
+        if seqpar:
+            raise ValueError("packed mode does not compose with --seqpar")
         if impl not in ("auto", "pallas"):
             # Packed IS the per-read histogram kernel: an explicit
             # --impl scatter/matmul/host contradicts it.
             raise ValueError(
                 f"packed mode uses the pallas kernel; drop --packed or "
                 f"use --impl auto/pallas (got --impl {impl})"
+            )
+        if mesh is not None and (batch_size // mesh.size) % DEFAULT_READ_BLOCK:
+            raise ValueError(
+                "packed mesh runs need batch_size/device divisible by "
+                f"the read block ({DEFAULT_READ_BLOCK}): got "
+                f"{batch_size} over {mesh.size} devices"
             )
     if str(out_path).endswith(".gz"):
         raise ValueError(
@@ -531,13 +571,23 @@ def stream_count_file(
             f"per-read k={k} > 8 requires nonzero=True (dense 4**k "
             "rows would be gigabytes per read)"
         )
-    device = torch.device(device)
+    device = run_device(device, mesh)
     # An explicit impl or packed request keeps the dense kernel the
     # caller asked for; dense OUTPUT does not (the formatter densifies
-    # the pairs).
-    sparse_rows = (nonzero and k > 8) or (impl == "auto" and not packed)
+    # the pairs); seqpar keeps the dense position-sharded path (a row
+    # sort needs the whole row on one device).
+    sparse_rows = (nonzero and k > 8) or (
+        impl == "auto" and not packed and not seqpar)
+    if sparse_rows and seqpar:
+        raise ValueError(
+            "sparse per-read rows do not compose with seqpar "
+            "(per-row sort needs the whole row on one device)"
+        )
+    if not seqpar:  # seqpar shards positions, not batch rows
+        _check_mesh_batch(mesh, batch_size)
     pipe = _BatchPipeline(
-        device, _perread_compute(k, canonical, impl, packed, sparse_rows)
+        device, _perread_compute(k, canonical, impl, packed, sparse_rows, mesh,
+                                 seqpar)
     )
     m = metrics or RunMetrics(k=k, mode="perread")
     fp, cpath = _resume_fingerprint(
@@ -629,13 +679,15 @@ def stream_spectrum_file(
     path,
     k: int,
     *,
-    device: torch.device | str,
+    device: torch.device | str | None = None,
     canonical: bool = False,
     impl: str = "auto",
     batch_size: int = 8192,
     out_path=None,
     resume: bool = False,
     checkpoint_every: int = 16,
+    mesh=None,
+    seqpar: bool = False,
     cleanup: bool = True,
     byte_range=None,
     metrics: RunMetrics | None = None,
@@ -653,9 +705,12 @@ def stream_spectrum_file(
     a crash during that write stays resumable.  Where the sorted route
     holds (``pipeline.count._use_sorted_spectrum``) the batches go
     through :func:`stream_sparse_spectrum_file` instead, whose
-    checkpoints are the sparse driver's.
+    checkpoints are the sparse driver's.  With ``mesh`` each batch's
+    table is computed sharded (summed over dp, reduce-scattered over tp,
+    or over the positions of an ``sp`` mesh with ``seqpar``) before it
+    is added to the running table on the mesh's first device.
     """
-    device = torch.device(device)
+    device = run_device(device, mesh)
     if _use_sorted_spectrum(k, impl, device):
         # The sorted route (``--impl sort``; ``auto`` at k = 11-15 on a
         # CUDA device) streams through the sparse driver (the same
@@ -666,14 +721,14 @@ def stream_spectrum_file(
             batch_size=batch_size, out_path=out_path, resume=resume,
             checkpoint_every=checkpoint_every, cleanup=cleanup,
             byte_range=byte_range, metrics=metrics, min_qual=min_qual,
+            mesh=mesh, seqpar=seqpar,
         )
         total = np.zeros(4**k, dtype=np.int64)
         total[keys] = counts
         return total, m2
 
-    def dispatch(arr, table):
-        return spectrum_op(arr, k, canonical=canonical, impl=impl, out=table)
-
+    if not seqpar:  # seqpar shards positions, not batch rows
+        _check_mesh_batch(mesh, batch_size)
     m = metrics or RunMetrics(k=k, mode="spectrum")
     fp, cpath = _resume_fingerprint(
         path, k, "spectrum", canonical, out_path, byte_range, min_qual, resume
@@ -693,7 +748,8 @@ def stream_spectrum_file(
     # The device table is int32; it spills into the int64 host base
     # before the windows added since the last spill could overflow any
     # single bin (pipeline/count.DenseSpectrumAccumulator).
-    acc = DenseSpectrumAccumulator(k, dispatch, base, device=device)
+    acc = spectrum_accumulator(k, spectrum_dispatch(k, canonical, impl, mesh, seqpar),
+                               base, device, mesh, seqpar)
 
     gen = _resume_batches(path, k, batch_size, ckpt, byte_range, min_qual)
     since_ckpt = 0
@@ -733,11 +789,31 @@ def stream_spectrum_file(
 _MAX_FOLD_QUEUE = 4
 
 
-def _sparse_spectrum_compute(k: int, canonical: bool):
+def _sparse_spectrum_compute(k: int, canonical: bool, mesh=None,
+                             seqpar: bool = False, slack: float = 2.0):
     """Batch → the narrowed per-read sort + RLE rows of the sparse
     spectrum, cut on the device to the batch's true window count
     (:func:`valid_pair_prefix`: the bucket's pad columns hold no run
-    start, e.g. 142 of 248 columns for 150 bp reads in a 256 bucket)."""
+    start, e.g. 142 of 248 columns for 150 bp reads in a 256 bucket).
+
+    On a mesh: under ``seqpar`` the narrowed rows of each device's
+    position slice; else the bucket exchange's (lo, counts) for
+    k <= 15 or (hi, lo, counts) above, the key words as int32 bit views,
+    with the slack that a batch's overflow retry reached carried to the
+    next batch."""
+    if mesh is not None and seqpar:
+        return lambda codes, batch: (tuple(a.contiguous() for a in narrow_for_fetch(
+            spectrum_seqpar_triples(codes, k, mesh, canonical=canonical), k)), None)
+    if mesh is not None:
+        def routed(codes, batch):
+            nonlocal slack
+            hi, lo, counts, slack = sparse_spectrum_sharded_retry(
+                codes, k, mesh, canonical=canonical, slack=slack)
+            words = (lo,) if k <= LO_BASES else (hi, lo)
+            return tuple(w.to(torch.int32) for w in words) + (counts,), None
+
+        return routed
+
     def compute(codes, batch):
         w = max(int(batch.lengths.max(initial=0)), k) - k + 1
         rows = valid_pair_prefix(
@@ -752,7 +828,7 @@ def stream_sparse_spectrum_file(
     path,
     k: int,
     *,
-    device: torch.device | str,
+    device: torch.device | str | None = None,
     canonical: bool = False,
     batch_size: int = 8192,
     out_path=None,
@@ -760,9 +836,12 @@ def stream_sparse_spectrum_file(
     checkpoint_every: int = 64,
     merge_every: int = 32,
     cleanup: bool = True,
+    mesh=None,
+    slack: float = 2.0,
     byte_range=None,
     metrics: RunMetrics | None = None,
     min_qual: int = 0,
+    seqpar: bool = False,
     mem_budget_mb: int | None = None,
     finalize: str = "arrays",
 ):
@@ -799,8 +878,16 @@ def stream_sparse_spectrum_file(
     the caller streams ``iter_merged_chunks()`` into its writer and
     then removes the checkpoint and the spill runs
     (``runtime.checkpoint.cleanup_checkpoint``).
+
+    With ``mesh`` (1-axis or (dp, tp)) each batch's keys route through
+    the all_to_all bucket exchange (``parallel/bucket.py``), whose
+    overflow retries double ``slack``, and later batches start at the
+    slack reached; with ``seqpar`` each device of an ``sp`` mesh sorts
+    its own position slice (``parallel/seqpar.py``).
     """
-    device = torch.device(device)
+    device = run_device(device, mesh)
+    if mesh is not None and not seqpar:
+        _check_mesh_batch(mesh, batch_size)
     m = metrics or RunMetrics(k=k, mode="sparse")
     fp, cpath = _resume_fingerprint(
         path, k, "sparse", canonical, out_path, byte_range, min_qual, resume
@@ -847,7 +934,10 @@ def stream_sparse_spectrum_file(
                 acc.adopt_runs([])
 
     dense_fold = isinstance(acc, DenseFoldAccumulator)
-    pipe = _BatchPipeline(device, _sparse_spectrum_compute(k, canonical))
+    # The bucket exchange's outputs are key streams, not rows.
+    pipe = _BatchPipeline(device, _sparse_spectrum_compute(k, canonical, mesh, seqpar,
+                                                            slack),
+                          cut_rows=mesh is None or seqpar)
 
     def fold(host) -> None:
         t0 = time.perf_counter()

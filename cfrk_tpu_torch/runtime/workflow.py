@@ -174,7 +174,7 @@ def run_workflow(
 def count_one_factory(
     k: int,
     *,
-    device,
+    device=None,
     mode: str = "perread",
     canonical: bool = False,
     impl: str = "auto",
@@ -199,17 +199,16 @@ def count_one_factory(
     (``cli.count_one_file``), so a multi-file run writes, file by file,
     the bytes of a single-input run.  A retry resumes a streamed run from
     its surviving checkpoint (a stale or mismatched one starts afresh).
-    ``mesh``, ``seqpar`` and ``slack`` (the JAX package's scale-out) are
-    refused unless left at their defaults."""
-    for name, value, default in (("mesh", mesh, None), ("seqpar", seqpar, False),
-                                 ("slack", slack, 2.0)):
-        if value != default:
-            raise NotImplementedError(f"{name} is not yet ported to cfrk_tpu_torch")
+    ``mesh`` runs every file on a mesh of devices (``parallel/``; its
+    devices replace ``device``), ``seqpar`` over the positions of an
+    ``sp`` mesh, and ``slack`` is the bucket exchange's first box
+    capacity factor."""
     opts = argparse.Namespace(
         k=k, mode=mode, canonical=canonical, impl=impl, batch_size=batch_size,
         stream=stream, spectrum_format=spectrum_format, max_len=max_len,
         nonzero=nonzero, packed=packed, checkpoint_every=checkpoint_every,
         min_count=min_count, mem_budget_mb=mem_budget_mb, min_qual=min_qual,
+        mesh=mesh, seqpar=seqpar, slack=slack,
     )
 
     def count_one(inp: str, out: str, retrying: bool = False) -> int:

@@ -167,8 +167,8 @@ def run_trial(rng: np.random.Generator, tmp: str, device: str) -> dict:
         and (bool(rng.integers(0, 2)) or (shape == "contig" and k > 6))
     )
     batch = int(rng.integers(1, 24))
-    # The JAX tool draws a mesh here only when given devices; the port's
-    # scale-out is not yet ported, so no draw and no mesh.
+    # The JAX tool draws a mesh here only when given devices; this tool
+    # takes no devices yet, so no draw and no mesh.
     cfg = dict(
         mode=mode, k=k, canonical=canonical, stream=stream, nonzero=nonzero,
         batch=batch, fastq=fastq, crlf=crlf, compress=str(compress),

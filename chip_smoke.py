@@ -54,7 +54,7 @@ Phases, each of which exits non-zero on failure:
 6. spectrum legs at real size (BASELINE.json configs 3 and 4): 1M
    seeded 150 bp reads through ``--mode spectrum`` at k=8 (the
    histogram kernel; its row must equal the numpy oracle) and, on the
-   first 500k of them, at k=15 ``--spectrum-format hist`` (the sorted
+   first 250k of them, at k=15 ``--spectrum-format hist`` (the sorted
    route on the rowsort kernel; sum of count x kmers must equal the
    valid windows), and the 100k x
    152 bp reads through ``-k 31 --canonical --mode sparse`` (tsv equal
@@ -85,7 +85,7 @@ Phases, each of which exits non-zero on failure:
    spilled runs), resumed in this process (fewer launches than a fresh
    run) and held to the sha256 of an unbudgeted ``--stream`` child, both
    children's peak RSS logged; and ``-k 15 --mode spectrum --stream
-   --spectrum-format hist`` on the 500k x 150 bp reads (the sorted route:
+   --spectrum-format hist`` on the 250k x 150 bp reads (the sorted route:
    the k <= 15 rowsort kernel, the sha256 of phase 6's k=15 leg);
 8. times: each kernel's ms per 8192-read batch beside the plain route's
    on the card (CUDA events, after warm-up; the rowsort kernels as a
@@ -149,7 +149,26 @@ Phases, each of which exits non-zero on failure:
    plain 100k x 152 bp file to the sha256 of ``sparse_k31_canonical``.
    Each rank of each finished run must launch the leg's kernel
    (``rowsort_rle``, ``spectrum_hist``, ``rowsort_rle_large``), and no
-   part file may remain; each rank's wall and reads are logged.
+   part file may remain; each rank's wall and reads are logged.  Then
+   ``--distributed`` with several inputs: three of phase 9's shards dealt
+   to the 2 ranks (rank 0 runs two as a workflow, rank 1 one), each
+   output equal to its shard's single-process sha256;
+12. the mesh on one card, in this process: the library drivers over
+   meshes of ``cuda:0`` repeated, with every kernel count set to 0 just
+   before each leg and read just after (the exact launches a leg's
+   devices make are required): the 100k x 150 bp file's k=8 rows over
+   4 devices (``count_file_sparse_rows``; sha256 of ``k8_nonzero``); the
+   packed "b4" emit over 2 devices on the dense-API leg's 24 576 reads
+   (sha256 of ``k8_dense_api_nonzero``); the 1M-read k=8 spectrum over a
+   (2, 2) mesh, psum and the tp scatter (sha256 of ``spectrum_k8``); the
+   k=31 canonical sparse spectrum through the bucket exchange at slack 2
+   (sha256 of ``sparse_k31_canonical``) and a low-complexity batch that
+   overflows at slack 0.5 (its ``slack_used`` logged; bytes equal to the
+   one-device run); 64 contigs of 64 kb over an sp mesh of 4, dense
+   per-read k=5 and the sorted spectrum at k=12 (equal to one device);
+   and the k=8 rows streamed over 2 devices, killed at its third
+   checkpoint and resumed (sha256 of ``k8_nonzero``).  Each leg logs its
+   launches, wall and the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON record of the kernels, and the one before that the card's
@@ -186,11 +205,12 @@ READS = 100_000  # BASELINE.json config 2: 100k reads per leg
 DENSE_API_READS = 3 * BATCH
 SPECTRUM_READS = 1_000_000  # BASELINE.json config 3: a 1M-read metagenome
 # The two k = 15 sorted-route legs (phase 6's in-memory run, phase 7's
-# streamed run pinned to its sha256) take the first half of those reads:
-# at 1M each took 40-47 s of the host's fold and checkpoints, and the
-# tools of phase 10 would have taken a slow host's run past 600 s.
-K15_READS = 500_000
-K15_FASTA = WORK / "r500k.fa"
+# streamed run pinned to its sha256) take the first quarter of those
+# reads: at 1M each took 40-47 s of the host's fold and checkpoints, and
+# at 500k the run with phases 11-12 took 490.4 s (NVIDIA H100 80GB HBM3,
+# 700 W), too near 600 s for a host 1.33x slower.
+K15_READS = 250_000
+K15_FASTA = WORK / "r250k.fa"
 # The budgeted sparse leg: config 4's k = 31 canonical reads of 152 bp,
 # cut from config 3's 1M reads to 600k so that the smoke stays well under
 # 600 s (at 1M the leg took 112 s of a 579 s run); about 17 M distinct
@@ -899,14 +919,14 @@ def spectrum_legs(seed: int, r152, fa152: Path, fa1m: Path) -> list:
             fail("spectrum_k8: the row differs from spectrum_np")
         return f"row of {row.size} cells equals spectrum_np; sum {int(row.sum())}"
 
-    r500k = r1m[:K15_READS]
-    write_fasta(K15_FASTA, r500k)
+    r250k = r1m[:K15_READS]
+    write_fasta(K15_FASTA, r250k)
 
     def check_k15(out: bytes) -> str:
         pairs = np.array([[int(x) for x in line.split(b"\t")]
                           for line in out.splitlines()], np.int64)
         total = int((pairs[:, 0] * pairs[:, 1]).sum())
-        want = valid_windows(r500k, 15)
+        want = valid_windows(r250k, 15)
         if total != want:
             fail(f"spectrum_k15_hist: sum count x kmers {total} != {want} windows")
         return f"sum count x kmers = {total} valid windows; {int(pairs[:, 1].sum())} distinct"
@@ -929,7 +949,7 @@ def spectrum_legs(seed: int, r152, fa152: Path, fa1m: Path) -> list:
     legs = [
         run_spectrum_leg("spectrum_k8", fa1m, r1m, ["-k", "8", "--mode", "spectrum"],
                          kernels, check_k8, keep=True),
-        run_spectrum_leg("spectrum_k15_hist", K15_FASTA, r500k,
+        run_spectrum_leg("spectrum_k15_hist", K15_FASTA, r250k,
                          ["-k", "15", "--mode", "spectrum", "--spectrum-format", "hist"],
                          kernels, check_k15),
         run_spectrum_leg("sparse_k31_canonical", fa152, r152,
@@ -1485,7 +1505,12 @@ def workflow_legs(seed: int, fa150: Path, sha: dict, work: Path, total: dict) ->
     legs.append(leg)
     for p in runs[2]["parts"]:
         p.unlink()
-    for p in shards[1:]:
+    # Shards 1 and 2 and their single-process bytes serve phase 11.
+    for i, p in enumerate(shards[:3]):
+        sha[f"workflow_shard{i}"] = runs[2]["sha"][i]
+        if i:
+            p.rename(WORK / p.name)
+    for p in shards[3:]:
         p.unlink()
     return legs
 
@@ -1879,6 +1904,213 @@ def byte_ranged_legs(fa150: Path, fa152: Path, fa1m: Path, sha: dict) -> tuple:
     finished(label, run_ranks(label, [str(fa152), "-o", str(out), "-k", "31",
                                       "--canonical", "--mode", "sparse", "--stats"]),
              "rowsort_rle_large", out, sha["sparse_k31_canonical"], READS * 152)
+
+    # Several inputs: dealt round-robin, rank 0 runs two as a workflow,
+    # rank 1 one; no barrier.  Each output is its shard's phase 9 bytes.
+    label = "distributed_3_inputs_k8_nonzero"
+    shards = [fa150, WORK / "s1.fa", WORK / "s2.fa"]
+    out_dir = WORK / label
+    ranks = run_ranks(label, [*map(str, shards), "8", "--nonzero", "--out-dir",
+                              str(out_dir), "--stats"])
+    for rank, r in enumerate(ranks):
+        if r["rc"] != 0:
+            fail(f"{label}: rank {rank} exited {r['rc']}: {r['err'][-600:]}")
+        if r["launches"].get("rowsort_rle", 0) <= 0:
+            fail(f"{label}: rank {rank} never launched rowsort_rle: {r['launches']}")
+        for name, n in r["launches"].items():
+            total[name] = total.get(name, 0) + n
+    summaries = [json.loads([line for line in r["err"].splitlines()
+                             if line.startswith('{"files"')][-1]) for r in ranks]
+    if [(m["files"], m["reads"]) for m in summaries] != [(2, 2 * READS), (1, READS)]:
+        fail(f"{label}: the ranks' summary lines {summaries}")
+    for i, shard in enumerate(shards):
+        part = out_dir / (shard.stem + ".cfrk")
+        if sha256_of(part) != sha[f"workflow_shard{i}"]:
+            fail(f"{label}: {part.name} differs from its single-process bytes")
+        part.unlink()
+    out_dir.rmdir()
+    for shard in shards[1:]:
+        shard.unlink()
+    leg = {"leg": label, "ranks": RANKS, "inputs": len(shards),
+           "rank_files": [m["files"] for m in summaries],
+           "rank_process_wall_s": [r["process_wall_s"] for r in ranks],
+           "rank_wall_s": [m["wall_s"] for m in summaries],
+           "rank_launches": [r["launches"] for r in ranks],
+           "bases_per_s": 3 * READS * 150 / max(r["process_wall_s"] for r in ranks)}
+    log(f"byte-ranged leg {label}: " + json.dumps(leg))
+    legs.append(leg)
+    return legs, total
+
+
+# ---------------------------------------------------------------- mesh
+
+MESH_CONTIGS = 64  # the seqpar leg: 64 contigs of 64 kb
+MESH_CONTIG_LEN = 64_000
+
+
+def mesh_legs(seed: int, r150, fa150: Path, fa152: Path, fa1m: Path, sha: dict,
+              card: str, gpu=None) -> tuple:
+    """Phase 12, the mesh on one card: the library drivers over meshes of
+    ``cuda:0`` repeated (the CLI's ``--devices 2`` on one card exits, as
+    the JAX CLI does), each leg held to its one-device leg's bytes or
+    arrays and to the launches its devices make: rows over 4 devices
+    (``count_file_sparse_rows``), the packed emit over 2, the dense
+    spectrum over a (2, 2) mesh (psum and the tp scatter), the k=31
+    canonical sparse spectrum through the bucket exchange (and a
+    low-complexity batch that overflows at slack 0.5), 64 contigs of
+    64 kb over an sp mesh of 4 (dense per-read k=5, the sorted spectrum
+    at k=12), and the streamed per-read rows over 2 devices killed at
+    a checkpoint and resumed.  Returns (legs, launches by kernel)."""
+    import numpy as np
+    import torch
+
+    from cfrk_tpu_torch.cli import _write_sparse, _write_spectrum
+    from cfrk_tpu_torch.ops.cuda import perread as P
+    from cfrk_tpu_torch.ops.cuda import rowsort as R
+    from cfrk_tpu_torch.ops.cuda import spectrum as S
+    from cfrk_tpu_torch.parallel import make_mesh, make_seq_mesh
+    from cfrk_tpu_torch.parallel.bucket import sparse_spectrum_sharded_retry
+    from cfrk_tpu_torch.pipeline import count as C
+    from cfrk_tpu_torch.pipeline import stream as ST
+    from cfrk_tpu_torch.runtime import faults
+
+    gpu = torch.device("cuda", 0) if gpu is None else gpu
+    kernels = {"rowsort_rle": R.rowsort_rle, "rowsort_rle_large": R.rowsort_rle_large,
+               "spectrum_hist": S.spectrum_hist, "perread_hist": P.perread_hist}
+    total = dict.fromkeys(kernels, 0)
+    legs = []
+
+    def batches(n: int) -> int:
+        return -(-n // BATCH)
+
+    def leg(label, mesh, run, check, want_launches, **extra):
+        """``run()`` on the mesh with every count at 0 just before it and
+        read just after; ``check(result)`` holds its output to the one
+        device's; each kernel of ``want_launches`` must have launched
+        exactly that often."""
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items() if fn.launches}
+        if launches != want_launches:
+            fail(f"{label}: launches {launches}, expected {want_launches}")
+        check(result)
+        for name, n in launches.items():
+            total[name] += n
+        rec = {"leg": label, "mesh": mesh.shape, "wall_s": wall, "launches": launches,
+               "card": card, **extra}
+        log(f"mesh leg {label}: " + json.dumps(rec))
+        legs.append(rec)
+
+    def same_sha(path: Path, want: str, label: str):
+        def check(_):
+            if sha256_of(path) != want:
+                fail(f"{label}: the mesh's bytes differ from the one-device leg's")
+            path.unlink()
+        return check
+
+    label = "mesh_k8_nonzero_dp4"
+    out = WORK / f"{label}.cfrk"
+    mesh = make_mesh([gpu] * 4)
+    leg(label, mesh, lambda: C.count_file_sparse_rows(fa150, out, 8, mesh=mesh),
+        same_sha(out, sha["k8_nonzero"], label), {"rowsort_rle": 4 * batches(READS)})
+
+    label = "mesh_dense_api_k8_packed_dp2"
+    fa_half = WORK / "r150_half.fa"
+    write_fasta(fa_half, r150[:DENSE_API_READS])
+    out = WORK / f"{label}.cfrk"
+    mesh = make_mesh([gpu] * 2)
+    leg(label, mesh, lambda: C.count_file_dense_rows(fa_half, out, 8, impl="pallas",
+                                                     nonzero=True, mesh=mesh),
+        same_sha(out, sha["k8_dense_api_nonzero"], label),
+        {"perread_hist": 2 * batches(DENSE_API_READS)})
+    fa_half.unlink()
+
+    label = "mesh_spectrum_k8_tp2"
+    out = WORK / f"{label}.spectrum"
+    mesh = make_mesh([gpu] * 4, tp=2)
+    leg(label, mesh, lambda: _write_spectrum(str(out), C.spectrum_file(fa1m, 8, mesh=mesh),
+                                             "cfrk", 1),
+        same_sha(out, sha["spectrum_k8"], label),
+        {"spectrum_hist": 4 * batches(SPECTRUM_READS)})
+
+    label = "mesh_sparse_k31_canonical_dp4"
+    out = WORK / f"{label}.kmers.tsv"
+    mesh = make_mesh([gpu] * 4)
+
+    def sparse_to(path, **kw):
+        keys, counts = C.sparse_spectrum_arrays(kw.pop("fasta"), 31, canonical=True, **kw)
+        _write_sparse(str(path), keys, counts, 31, "tsv", 1)
+
+    # The bucket exchange is torch.sort, searchsorted and index_put_ on
+    # each device, as the JAX package's is XLA ops: no kernel launches.
+    leg(label, mesh, lambda: sparse_to(out, fasta=fa152, mesh=mesh, slack=2.0),
+        same_sha(out, sha["sparse_k31_canonical"], label), {})
+    label = "mesh_sparse_k31_low_complexity_dp4"
+    rng = np.random.default_rng(seed + 12)
+    low = rng.integers(0, 4, size=(BATCH, 152)).astype(np.int8)
+    low[: BATCH // 2] = 0  # half the reads poly-A
+    low[BATCH // 2 : 3 * BATCH // 4] = np.tile([1, 3], 76)  # a quarter CT repeats
+    fa_low = WORK / "low_complexity.fa"
+    write_fasta(fa_low, low)
+    ref = WORK / f"{label}.one_device.tsv"
+    sparse_to(ref, fasta=fa_low, device=gpu)
+    out = WORK / f"{label}.kmers.tsv"
+    slack_used = sparse_spectrum_sharded_retry(
+        torch.from_numpy(low).to(gpu), 31, mesh, canonical=True, slack=0.5)[3]
+    if not slack_used > 0.5:
+        fail(f"{label}: slack 0.5 did not overflow (slack_used {slack_used})")
+    leg(label, mesh, lambda: sparse_to(out, fasta=fa_low, mesh=mesh, slack=0.5),
+        same_sha(out, sha256_of(ref), label), {}, slack=0.5, slack_used=slack_used)
+    ref.unlink()
+    fa_low.unlink()
+
+    contigs = synthetic_reads(seed + 13, MESH_CONTIGS, MESH_CONTIG_LEN)
+    fa_contigs = WORK / "contigs.fa"
+    write_fasta(fa_contigs, contigs)
+    seq = make_seq_mesh([gpu] * 4)
+    label = "mesh_seqpar_contigs_sp4_perread_k5"
+    ref = WORK / f"{label}.one_device.cfrk"
+    C.count_file_dense_rows(fa_contigs, ref, 5, device=gpu)
+    out = WORK / f"{label}.cfrk"
+    leg(label, seq, lambda: C.count_file_dense_rows(fa_contigs, out, 5, mesh=seq,
+                                                    seqpar=True),
+        same_sha(out, sha256_of(ref), label), {"perread_hist": 4},
+        bases=MESH_CONTIGS * MESH_CONTIG_LEN)
+    ref.unlink()
+    label = "mesh_seqpar_contigs_sp4_spectrum_k12_sort"
+    want = C.spectrum_file(fa_contigs, 12, impl="sort", device=gpu)
+
+    def same_table(table):
+        if not np.array_equal(table, want) or not want.sum():
+            fail(f"{label}: the mesh's table differs from the one-device table")
+
+    leg(label, seq, lambda: C.spectrum_file(fa_contigs, 12, impl="sort", mesh=seq,
+                                            seqpar=True),
+        same_table, {"rowsort_rle": 4}, bases=MESH_CONTIGS * MESH_CONTIG_LEN)
+    fa_contigs.unlink()
+
+    label = "mesh_k8_nonzero_stream_dp2"
+    out = WORK / f"{label}.cfrk"
+    mesh = make_mesh([gpu] * 2)
+    faults.arm("checkpoint", 3)  # the site CFRK_FAULT_INJECT=checkpoint:3 arms
+    try:
+        ST.stream_count_file(fa150, out, 8, nonzero=True, mesh=mesh)
+        fail(f"{label}: the run armed at checkpoint:3 finished")
+    except faults.InjectedFault:
+        pass
+    finally:
+        faults.disarm()
+    if not Path(str(out) + ".ckpt.json").exists():
+        fail(f"{label}: the killed run left no checkpoint")
+    leg(label, mesh, lambda: ST.stream_count_file(fa150, out, 8, nonzero=True, mesh=mesh,
+                                                  resume=True),
+        same_sha(out, sha["k8_nonzero"], label),
+        {"rowsort_rle": 2 * (batches(READS) - 3)})
     return legs, total
 
 
@@ -2291,6 +2523,13 @@ def main() -> int:
         launches[name] += n
     log("byte_ranged_launches: " + json.dumps(dist_launches))
     clock.lap("11 byte-ranged runs")
+
+    # 12. meshes of the one card repeated, through the library drivers
+    mesh_recs, mesh_launches = mesh_legs(args.seed, r150, fa150, fa152, fa1m, sha, card)
+    for name, n in mesh_launches.items():
+        launches[name] += n
+    log("mesh_launches: " + json.dumps(mesh_launches))
+    clock.lap("12 mesh on one card")
     log("end_to_end: " + json.dumps({
         "card": card,
         "legs": {leg["leg"]: leg["bases_per_s"]

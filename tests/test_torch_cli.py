@@ -119,27 +119,52 @@ def test_stats_line(tmp_path, capsys):
     assert (line["files"], line["k"], line["mode"]) == (1, 2, "perread")
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 @pytest.mark.parametrize(
     "argv,message",
     [
         (["--tp", "2"], "^1 devices not divisible by tp=2$"),
         (["--devices=2"], r"^--devices 2 but only 1 addressable \(use --list-devices\)$"),
-        (["--distributed"],
-         "^--distributed with several inputs is not yet ported to cfrk_tpu_torch$"),
-        (["--impl", "scatter", "--seqpar"], "--seqpar is not yet ported"),
+        (["--distributed"], None),
+        (["--impl", "scatter", "--seqpar"], None),
     ],
 )
-def test_unported_flags_fail_clearly(tmp_path, argv, message):
-    """On ``--device cpu`` (one device) a mesh value fails with the JAX
-    CLI's words, ``--seqpar`` as not ported; ``--distributed`` with
-    several inputs is not ported."""
+def test_unported_flags_fail_clearly(tmp_path, monkeypatch, argv, message):
+    """On ``--device cpu`` (one device) a mesh value that needs more
+    devices fails with the JAX CLI's words; ``--seqpar`` over the one
+    device writes cfrk_tpu's bytes (which runs it over its 8); and
+    ``--distributed`` with several inputs in a group of one process runs
+    them all, each to the JAX CLI's bytes of that input."""
     fa = str(DATA / "seq2.fasta.gz")
-    head = [fa, str(tmp_path / "o.cfrk"), "2"]
-    if "--distributed" in argv:
-        head = [fa, str(DATA / "seq1.fasta.gz"), "-k", "2", "--out-dir",
-                str(tmp_path / "parts")]
-    with pytest.raises(SystemExit, match=message):
-        main([*head, "--device", "cpu", *argv])
+    if message is not None:
+        with pytest.raises(SystemExit, match=message):
+            main([fa, str(tmp_path / "o.cfrk"), "2", "--device", "cpu", *argv])
+        return
+    if "--distributed" not in argv:
+        got, want = _both(tmp_path, fa, "3", *argv)
+        assert got == want and got
+        return
+    import torch.distributed as dist
+
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", f"127.0.0.1:{_free_port()}")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "1")
+    monkeypatch.setenv("JAX_PROCESS_ID", "0")
+    inputs = [fa, str(DATA / "seq1.fasta.gz")]
+    assert main([*inputs, "-k", "2", "--out-dir", "parts", "--device", "cpu",
+                 *argv]) == 0
+    assert not dist.is_initialized()
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
+    assert jax_main([*inputs, "-k", "2", "--out-dir", "jparts"]) == 0
+    for name in ("seq2.cfrk", "seq1.cfrk"):
+        got = (tmp_path / "parts" / name).read_bytes()
+        assert got == (tmp_path / "jparts" / name).read_bytes() and got
 
 
 @pytest.mark.parametrize(
@@ -181,20 +206,28 @@ def test_one_device_scale_out_config_matches_jax_cli(tmp_path):
     ],
     ids=["devices_above_visible", "tp_not_dividing", "seqpar_and_tp", "sparse_tp"],
 )
-def test_mesh_errors_match_jax_cli_on_eight_devices(tmp_path, monkeypatch, flags, message):
+def test_mesh_errors_match_jax_cli_on_eight_devices(tmp_path, eight_cpus, flags, message):
     """Where cfrk_tpu's ``_build_mesh`` refuses, the port refuses in its
-    words, over the port's visible count: 8 CUDA devices here (faked),
-    as the JAX CLI sees 8 virtual devices under tests/conftest.py."""
+    words, over the port's local devices: 8 CPU devices here
+    (``local_devices`` patched), as the JAX CLI sees 8 virtual devices
+    under tests/conftest.py."""
+    fa = str(DATA / "seq2.fasta.gz")
+    for cli_main, extra in ((main, ["--device", "cpu"]), (jax_main, [])):
+        with pytest.raises(SystemExit, match=message):
+            cli_main([fa, str(tmp_path / "o.cfrk"), "2", *flags, *extra])
+
+
+@pytest.fixture
+def eight_cpus(monkeypatch):
+    """The port's local devices: 8 CPU devices, as the JAX package has 8
+    virtual host devices under tests/conftest.py (``--device cpu`` then
+    defaults to a mesh over all 8, as the JAX CLI does)."""
     import torch
 
-    from cfrk_tpu_torch import cli as tcli
+    from cfrk_tpu_torch.parallel import mesh as pmesh
 
-    monkeypatch.setattr(tcli, "_resolve_device", lambda name: torch.device(name))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    fa = str(DATA / "seq2.fasta.gz")
-    for cli_main in (main, jax_main):
-        with pytest.raises(SystemExit, match=message):
-            cli_main([fa, str(tmp_path / "o.cfrk"), "2", *flags])
+    monkeypatch.setattr(pmesh, "local_devices",
+                        lambda device: [torch.device("cpu")] * 8)
 
 
 @pytest.mark.parametrize(
@@ -204,17 +237,21 @@ def test_mesh_errors_match_jax_cli_on_eight_devices(tmp_path, monkeypatch, flags
      (["--devices", "1", "--seqpar"], "--seqpar")],
     ids=["devices2", "devices8", "tp2_of_4", "seqpar", "seqpar_one_device"],
 )
-def test_mesh_values_are_not_yet_ported(tmp_path, monkeypatch, flags, flag):
-    """Every value that would build a mesh (#7c) is refused as not
-    ported, on a host with 8 CUDA devices (faked) as on one."""
-    import torch
-
-    from cfrk_tpu_torch import cli as tcli
-
-    monkeypatch.setattr(tcli, "_resolve_device", lambda name: torch.device(name))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    with pytest.raises(SystemExit, match=f"^{flag} is not yet ported to cfrk_tpu_torch$"):
-        main([str(DATA / "seq2.fasta.gz"), str(tmp_path / "o.cfrk"), "2", *flags])
+def test_mesh_values_are_not_yet_ported(tmp_path, eight_cpus, flags, flag):
+    """Every value that builds a mesh writes cfrk_tpu's bytes on 8
+    devices: the per-read rows (``--impl scatter`` under ``--seqpar``,
+    whose dense position-sharded path the default route refuses) and the
+    dense spectrum."""
+    fa = _prefix_fasta(tmp_path, "seq2.fasta.gz", 40)
+    impl = ["--impl", "scatter"] if flag == "--seqpar" else []
+    got, want = _both(tmp_path, fa, "5", *impl, *flags)
+    assert got == want and got
+    for name, cli_main, extra in (("t.spectrum", main, ["--device", "cpu"]),
+                                  ("j.spectrum", jax_main, [])):
+        assert cli_main([fa, "-o", str(tmp_path / name), "-k", "4", "--mode",
+                         "spectrum", *flags, *extra]) == 0
+    spec = (tmp_path / "t.spectrum").read_bytes()
+    assert spec == (tmp_path / "j.spectrum").read_bytes() and spec
 
 
 @pytest.mark.parametrize(
@@ -894,13 +931,12 @@ def test_stats_line_matches_jax_cli(tmp_path, capsys, mode, flags, stream):
 
 def test_abbreviated_long_options_match_jax_cli(tmp_path):
     """Both packages take an unambiguous prefix of a long option
-    (``--batch 64``); a prefix of a flag still to port is refused as
-    such, never as an unknown argument."""
+    (``--batch 64``, ``--seqp`` for ``--seqpar``) to the same bytes."""
     fa = _prefix_fasta(tmp_path, "seq1.fasta.gz", 20)
     got, want = _both(tmp_path, fa, "4", "--batch", "64", "--nonz")
     assert got == want and got.count(b"\n") == 19
-    with pytest.raises(SystemExit, match="--seqpar is not yet ported"):
-        main([fa, str(tmp_path / "o"), "4", "--device", "cpu", "--seqp"])
+    got, want = _both(tmp_path, fa, "4", "--impl", "scatter", "--seqp")
+    assert got == want and got.count(b"\n") == 19
 
 
 class _FakeStdin:

@@ -26,12 +26,16 @@ def _empty_cwd(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
 
 
-def _fasta(tmp_path, n=5, length=30, seed=0) -> str:
+def _fasta_bytes(n=5, length=30, seed=0) -> bytes:
     rng = np.random.default_rng(seed)
-    path = tmp_path / "r.fasta"
-    path.write_bytes(b"".join(
+    return b"".join(
         b">r%d\n" % i + decode_codes(rng.integers(0, 4, length).astype(np.int8)) + b"\n"
-        for i in range(n)))
+        for i in range(n))
+
+
+def _fasta(tmp_path, n=5, length=30, seed=0) -> str:
+    path = tmp_path / "r.fasta"
+    path.write_bytes(_fasta_bytes(n, length, seed))
     return str(path)
 
 
@@ -119,33 +123,49 @@ def test_config_refusals_match_jax(tmp_path, cfg, message):
 
 
 @pytest.mark.parametrize(
-    "key,cfg,message",
-    [("devices", {"devices": 2}, "--devices is not yet ported"),
-     ("tp", {"devices": 4, "tp": 2}, "--tp is not yet ported"),
-     ("seqpar", {"seqpar": True}, "--seqpar is not yet ported"),
-     ("slack", {"slack": 3.0, "devices": 2, "mode": "sparse"}, "--devices is not yet ported"),
-     ("distributed", {"distributed": True},
-      "--distributed with several inputs is not yet ported")],
+    "key,cfg",
+    [("devices", {"devices": 2}),
+     ("tp", {"devices": 4, "tp": 2, "mode": "spectrum"}),
+     ("seqpar", {"seqpar": True, "impl": "scatter"}),
+     ("slack", {"slack": 0.5, "devices": 8, "mode": "sparse"}),
+     ("distributed", {"distributed": True})],
     ids=["devices", "tp", "seqpar", "slack", "distributed"],
 )
-def test_config_scale_out_keys_are_not_ported(tmp_path, monkeypatch, key, cfg, message):
+def test_config_scale_out_keys_are_not_ported(tmp_path, monkeypatch, key, cfg):
     """A ``cfrk.json`` written for cfrk_tpu may carry its scale-out keys:
-    the port refuses the values that build a mesh as it refuses the
-    flags (on a host with 8 CUDA devices, faked; ``--slack`` is read only
-    by a mesh, which is what is refused), and ``distributed`` with
-    several inputs -- never as unknown keys."""
+    the port runs them to cfrk_tpu's bytes, on 8 devices (the port's
+    ``local_devices`` patched to 8 CPU devices, as the JAX package has 8
+    virtual host devices); ``distributed`` with several inputs in a
+    group of one process runs every input (the JAX CLI, which cannot
+    start ``jax.distributed`` in this process, runs them without it)."""
     import torch
 
-    from cfrk_tpu_torch import cli as tcli
+    from cfrk_tpu_torch.parallel import mesh as pmesh
 
-    monkeypatch.setattr(tcli, "_resolve_device", lambda name: torch.device(name))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    fa = _fasta(tmp_path)
-    Path("cfrk.json").write_text(json.dumps({**cfg, "k": 2}))
-    argv = [fa, "-o", "o.cfrk"]
+    monkeypatch.setattr(pmesh, "local_devices", lambda device: [torch.device("cpu")] * 8)
+    fa = _fasta(tmp_path, n=24, length=40)
     if key == "distributed":
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", f"127.0.0.1:{port}")
+        monkeypatch.setenv("JAX_NUM_PROCESSES", "1")
+        monkeypatch.setenv("JAX_PROCESS_ID", "0")
         second = tmp_path / "s.fasta"
-        second.write_bytes(Path(fa).read_bytes())
-        argv = [fa, str(second), "--out-dir", "parts"]
-    with pytest.raises(SystemExit, match=f"^{message} to cfrk_tpu_torch$"):
-        main(argv)
+        second.write_bytes(_fasta_bytes(n=9, length=50, seed=5))
+        Path("cfrk.json").write_text(json.dumps({**cfg, "k": 3}))
+        assert main([fa, str(second), "--out-dir", "parts", "--device", "cpu"]) == 0
+        monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
+        Path("cfrk.json").write_text(json.dumps({"k": 3}))
+        assert jax_main([fa, str(second), "--out-dir", "jparts"]) == 0
+        for name in ("r.cfrk", "s.cfrk"):
+            got = Path("parts", name).read_bytes()
+            assert got == Path("jparts", name).read_bytes() and got
+        return
+    Path("cfrk.json").write_text(json.dumps({**cfg, "k": 4}))
+    assert main([fa, "-o", "t.out", "--device", "cpu"]) == 0
+    assert jax_main([fa, "-o", "j.out"]) == 0
+    got = Path("t.out").read_bytes()
+    assert got == Path("j.out").read_bytes() and got

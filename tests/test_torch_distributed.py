@@ -248,11 +248,6 @@ def test_stdin_is_refused_like_jax():
             cli_main(["-", "-k", "2", "-o", "o.cfrk", "--distributed", *extra])
 
 
-def test_several_inputs_are_not_yet_ported(inputs):
-    with pytest.raises(SystemExit, match="^--distributed with several inputs is not yet "
-                                         "ported to cfrk_tpu_torch$"):
-        main([inputs["plain"], inputs["bgzf"], "-k", "2", "--out-dir", "d",
-              "--distributed", "--device", "cpu"])
 
 
 def test_splice_keeps_an_empty_row_and_skips_an_empty_part(tmp_path):
@@ -501,3 +496,42 @@ def test_killed_ranks_resume_to_jax_bytes(tmp_path, inputs, jax_bytes, killed):
     assert [rc for rc, _, _ in runs] == [0, 0], [r[2][-2000:] for r in runs]
     assert out.read_bytes() == jax_bytes["perread_bgzf"]
     assert sorted(p.name for p in tmp_path.iterdir() if p.name.startswith("o.")) == ["o.cfrk"]
+
+
+def _dealt_run(tmp_path, inputs, world: int, names: list, flags: list) -> list:
+    """``--distributed`` with several inputs on ``world`` ranks into one
+    ``--out-dir``: every rank exits 0, the directory holds one output an
+    input, each the JAX CLI's bytes of that input alone.  Returns each
+    rank's ``--stats`` line."""
+    paths = [inputs[n] for n in names]
+    out = tmp_path / "out"
+    runs = _cli_ranks(world, [*paths, *flags, "--out-dir", str(out), "--distributed",
+                              "--device", "cpu", "--stats"], tmp_path, lambda r: None)
+    assert [rc for rc, _, _ in runs] == [0] * world, [r[2][-2000:] for r in runs]
+    for path in paths:
+        assert jax_main([path, *flags, "--out-dir", str(tmp_path / "jax"),
+                         "--devices", "1"]) == 0
+    want = {p.name: p.read_bytes() for p in (tmp_path / "jax").iterdir()}
+    assert len(want) == len(paths)
+    assert sorted(p.name for p in out.iterdir()) == sorted(want)
+    for name, data in want.items():
+        assert (out / name).read_bytes() == data, name
+    return [json.loads(err.strip().splitlines()[-1]) for _, _, err in runs]
+
+
+def test_several_inputs_are_not_yet_ported(tmp_path, inputs):
+    """Three inputs on 2 ranks: dealt round-robin, rank 0 runs its two
+    as a workflow and rank 1 its one, with no barrier; each output is the
+    JAX CLI's bytes of its input."""
+    stats = _dealt_run(tmp_path, inputs, 2, ["plain", "empty_row", "two_records"],
+                       ["-k", "8", "--nonzero"])
+    assert [(s["files"], s["reads"]) for s in stats] == [(2, 152), (1, 2)]
+    assert stats[0]["failed"] == 0
+
+
+def test_several_inputs_on_more_ranks_than_inputs(tmp_path, inputs):
+    """Two inputs on 3 ranks: the rank dealt none writes nothing and
+    exits 0, as in cfrk_tpu."""
+    stats = _dealt_run(tmp_path, inputs, 3, ["plain", "two_records"],
+                       ["-k", "5", "--mode", "spectrum"])
+    assert [s["files"] for s in stats] == [1, 1, 0]

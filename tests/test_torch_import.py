@@ -69,6 +69,10 @@ _MODULES = [
     "cfrk_tpu_torch.tools.scale_demo",
     "cfrk_tpu_torch.parallel",
     "cfrk_tpu_torch.parallel.distributed",
+    "cfrk_tpu_torch.parallel.mesh",
+    "cfrk_tpu_torch.parallel.sharded",
+    "cfrk_tpu_torch.parallel.bucket",
+    "cfrk_tpu_torch.parallel.seqpar",
 ]
 
 
@@ -282,13 +286,6 @@ _NAME_EXCEPTIONS = {
         "in the port's ops/perread_sparse, beside the drain it runs",
     "cfrk_tpu.ops.sparse.rows_to_triples":
         "in the port's ops/perread_sparse, beside the drain it runs",
-    "cfrk_tpu.ops.sparse.fetch_triples": "a JAX device fetch",
-    **{f"cfrk_tpu.parallel.{name}": "the device mesh, not ported yet (#7c)"
-       for name in ("sparse_spectrum_sharded", "count_perread_sparse_sharded",
-                    "DP_AXIS", "TP_AXIS", "SP_AXIS", "make_mesh", "make_seq_mesh",
-                    "batch_sharding", "table_sharding", "shard_batch",
-                    "count_perread_sharded", "spectrum_sharded",
-                    "count_perread_seqpar", "spectrum_seqpar")},
 }
 
 # cfrk_tpu modules with no module of the same path in the port.
@@ -302,10 +299,6 @@ _MODULE_EXCEPTIONS = {
                                    "rowsort_rle_large)",
     "cfrk_tpu.ops.pallas.spectrum": "ported as ops/cuda/spectrum.py (spectrum_hist)",
     "cfrk_tpu.ops.roofline": "v5e constants; an H100 bound module comes with #3",
-    "cfrk_tpu.parallel.bucket": "the device mesh, not ported yet (#7c)",
-    "cfrk_tpu.parallel.mesh": "the device mesh, not ported yet (#7c)",
-    "cfrk_tpu.parallel.seqpar": "the device mesh, not ported yet (#7c)",
-    "cfrk_tpu.parallel.sharded": "the device mesh, not ported yet (#7c)",
 }
 
 

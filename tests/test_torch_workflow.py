@@ -163,13 +163,45 @@ def test_retry_resumes_from_checkpoint(tmp_path):
 
 
 def test_factory_refuses_scale_out_options(tmp_path):
-    """mesh, seqpar and slack are the JAX package's scale-out: refused
-    unless left at their defaults."""
-    for kw in (dict(mesh=object()), dict(seqpar=True), dict(slack=3.0)):
-        with pytest.raises(NotImplementedError, match="not yet ported to cfrk_tpu_torch"):
-            twf.count_one_factory(12, device="cpu", nonzero=True, **kw)
-    twf.count_one_factory(12, device="cpu", nonzero=True, mesh=None, seqpar=False,
-                          slack=2.0)
+    """mesh, seqpar and slack, the JAX package's scale-out, run: each
+    factory over a mesh (4 CPU devices for the port, 4 of the JAX
+    package's 8 virtual ones) writes cfrk_tpu's bytes and reads per
+    shard, streamed and in memory; per-read k > 8 rows under seqpar are
+    refused in the JAX package's words."""
+    import jax
+    import torch
+
+    from cfrk_tpu.parallel import make_mesh as jax_mesh
+    from cfrk_tpu.parallel import make_seq_mesh as jax_seq_mesh
+    from cfrk_tpu_torch.parallel import make_mesh, make_seq_mesh
+
+    cpus = [torch.device("cpu")] * 4
+    shards = _shards(tmp_path, n=2, reads=40)
+    for label, k, kw, jkw in (
+        ("rows", 9, dict(mode="perread", nonzero=True, mesh=make_mesh(cpus)),
+         dict(mode="perread", nonzero=True, mesh=jax_mesh(jax.devices()[:4]))),
+        ("tp", 4, dict(mode="spectrum", mesh=make_mesh(cpus, tp=2)),
+         dict(mode="spectrum", mesh=jax_mesh(jax.devices()[:4], tp=2))),
+        ("seqpar", 3, dict(mode="perread", impl="scatter", seqpar=True,
+                           mesh=make_seq_mesh(cpus)),
+         dict(mode="perread", impl="scatter", seqpar=True,
+              mesh=jax_seq_mesh(jax.devices()[:4]))),
+        ("slack", 16, dict(mode="sparse", slack=0.25, mesh=make_mesh(cpus)),
+         dict(mode="sparse", slack=0.25, mesh=jax_mesh(jax.devices()[:4]))),
+    ):
+        for stream in (False, True):
+            outs = {}
+            for name, wf, opts in (("torch", twf, kw), ("jax", jwf, jkw)):
+                fn = wf.count_one_factory(k, stream=stream, batch_size=8, **opts)
+                outs[name] = [(fn(s, str(tmp_path / f"{name}_{label}_{i}")),
+                               (tmp_path / f"{name}_{label}_{i}").read_bytes())
+                              for i, s in enumerate(shards)]
+            assert outs["torch"] == outs["jax"], (label, stream)
+            assert all(b for _, b in outs["torch"]), (label, stream)
+    fn = twf.count_one_factory(12, device="cpu", nonzero=True, seqpar=True,
+                               mesh=make_seq_mesh(cpus))
+    with pytest.raises(ValueError, match="^seqpar does not compose with per-read k > 8"):
+        fn(shards[0], str(tmp_path / "refused"))
 
 
 def test_many_tasks_on_many_threads(tmp_path):
