@@ -697,6 +697,9 @@ def main(argv=None) -> int:
     from .pipeline.batch import auto_batch_size
 
     with _process_group(args.distributed) as world:
+        args.rank_card = _rank_card(device) if args.distributed else None
+        if args.rank_card is not None:
+            device = args.rank_card
         args.byte_ranged = args.dealt = False
         if args.distributed and len(args.inputs) > 1:
             # Several inputs: each process runs those dealt to it, with
@@ -755,11 +758,13 @@ def _build_mesh(args, device):
     cuda``, the one CPU for ``--device cpu``; ``parallel.mesh.
     local_devices``).  The default is every such device, so a host with
     several cards runs a mesh unless ``--devices 1`` is given.  Under
-    ``--distributed`` the mesh is this process's devices only."""
+    ``--distributed`` the mesh is this process's devices only: the card
+    of its local process id where SLURM or Open MPI gives one
+    (``args.rank_card``)."""
     from .parallel import mesh as pmesh
     from .parallel.seqpar import make_seq_mesh
 
-    devs = pmesh.local_devices(device)
+    devs = [args.rank_card] if args.rank_card is not None else pmesh.local_devices(device)
     n = args.devices if args.devices is not None else len(devs)
     if n > len(devs):
         raise SystemExit(
@@ -781,10 +786,33 @@ def _build_mesh(args, device):
         raise SystemExit(str(e))
 
 
+def _rank_card(device):
+    """``--distributed`` under SLURM or Open MPI on ``--device cuda``: the
+    card of this process's local id (``cuda:<local id>``, JAX's
+    ``local_device_ids = [local_process_id]``); None elsewhere (no
+    detected cluster, or the CPU)."""
+    from .parallel.distributed import local_process_id
+
+    local = local_process_id()
+    if local is None or device.type != "cuda":
+        return None
+    import torch
+
+    n = torch.cuda.device_count()
+    if not 0 <= local < n:
+        raise SystemExit(
+            f"--distributed: this process's local id is {local}, but only {n} "
+            "CUDA device(s) are visible; one process a card takes ids 0.."
+            f"{n - 1} on each host"
+        )
+    return torch.device("cuda", local)
+
+
 @contextlib.contextmanager
 def _process_group(distributed: bool):
     """``--distributed``: the run's ``torch.distributed`` group, started
-    from the coordinator variables (``parallel/distributed``); yields
+    from the coordinator variables or a SLURM / Open MPI job's
+    (``parallel/distributed``); yields
     its world size (1 without the flag).  A group this run started is
     destroyed when the run ends, also when it fails: a failing rank then
     exits and frees its port, and the others' barriers fail instead of

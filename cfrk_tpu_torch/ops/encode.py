@@ -6,15 +6,23 @@ route and the kernels' oracle.  :func:`window_components` and
 :func:`canonical_components` give the library the JAX package's
 ``(hi, lo)`` split of each window index (``hi`` = the first
 ``ceil(k/2)`` bases), which its matmul routes contract.
+
+The library runs on the card unless the caller asks for the CPU:
+:func:`default_device` is that rule, and :func:`as_codes` applies it to
+the public array functions (a tensor keeps its device; a numpy array
+or other array-like goes to the card).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 __all__ = [
+    "default_device",
+    "as_codes",
     "split_k",
     "shifted_views",
     "horner",
@@ -23,6 +31,30 @@ __all__ = [
     "window_indices",
     "canonical_components",
 ]
+
+
+def default_device() -> torch.device:
+    """Where the library runs when the caller names no device: the card.
+    With no CUDA device visible it raises; it never runs on the CPU
+    unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible (torch.cuda.is_available() is False): "
+            "cfrk_tpu_torch runs on the card unless asked otherwise; pass "
+            "device=\"cpu\" (or a CPU tensor to an array function) for the "
+            "plain PyTorch route"
+        )
+    return torch.device("cuda")
+
+
+def as_codes(codes) -> torch.Tensor:
+    """A code batch as a tensor: a ``torch.Tensor`` as it is, on its own
+    device; anything else (a numpy array, nested lists) as an int8
+    tensor on :func:`default_device`."""
+    if isinstance(codes, torch.Tensor):
+        return codes
+    return torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int8)).to(
+        default_device())
 
 
 def split_k(k: int) -> tuple[int, int]:
@@ -90,7 +122,7 @@ def window_components(codes: torch.Tensor, k: int) -> WindowComponents:
         raise ValueError("window_components supports k <= 15; use "
                          "ops.sparse.kmer_keys for k up to 31")
     kh, kl = split_k(k)
-    views, valid = shifted_views(codes, k, torch.int32)
+    views, valid = shifted_views(as_codes(codes), k, torch.int32)
     rviews = [3 - v for v in reversed(views)]  # base i of rc: 3 - base[k-1-i]
     return WindowComponents(
         hi=horner(views[:kh], views[0]), lo=horner(views[kh:], views[0]),
@@ -118,7 +150,7 @@ def window_indices(codes: torch.Tensor, k: int, canonical: bool = False) -> torc
     if not 1 <= k <= 15:
         raise ValueError("full int32 indices need 1 <= k <= 15; use "
                          "ops.sparse.kmer_keys for k up to 31")
-    views, valid = shifted_views(codes, k, torch.int32)
+    views, valid = shifted_views(as_codes(codes), k, torch.int32)
     idx = horner(views, views[0])
     if canonical:
         rc = horner([3 - v for v in reversed(views)], views[0])

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .cuda.perread import MAX_PERREAD_K, perread_hist, perread_hist_plain
-from .encode import split_k, window_indices
+from .encode import as_codes, split_k, window_indices
 
 __all__ = ["count_perread", "MAX_PERREAD_K"]
 
@@ -92,7 +92,9 @@ def count_perread(
     out_dtype: torch.int32 (default) or torch.int16, which halves the
         device→host copy and is exact below 2**15 windows per read
         (counts are bounded by the window count).
+    A tensor runs on its device; a numpy array runs on the card.
     """
+    codes = as_codes(codes)
     out_dtype = torch.int32 if out_dtype is None else out_dtype
     w = codes.shape[-1] - k + 1
     if out_dtype == torch.int16 and w >= 2**15:

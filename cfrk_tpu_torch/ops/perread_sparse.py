@@ -47,6 +47,7 @@ from .cuda.rowsort import (
     rowsort_rle_large_plain,
     rowsort_rle_plain,
 )
+from .encode import as_codes
 from .sparse import INVALID_SENTINEL, LO_BASES, fetched_to_triples
 
 __all__ = [
@@ -65,9 +66,20 @@ __all__ = [
 ]
 
 # The plain route lives beside the kernels it checks; these are its
-# names in the JAX package's module.
-count_perread_sparse = rowsort_rle_plain
-count_perread_sparse_large = rowsort_rle_large_plain
+# names in the JAX package's module, which also take a numpy array (run
+# on the card, ``ops.encode.as_codes``).
+
+
+def count_perread_sparse(codes, k: int, canonical: bool = False):
+    """:func:`rowsort_rle_plain` (k <= 15) on ``codes``' device, or on
+    the card for a numpy array."""
+    return rowsort_rle_plain(as_codes(codes), k, canonical)
+
+
+def count_perread_sparse_large(codes, k: int, canonical: bool = False):
+    """:func:`rowsort_rle_large_plain` (16 <= k <= 31) on ``codes``'
+    device, or on the card for a numpy array."""
+    return rowsort_rle_large_plain(as_codes(codes), k, canonical)
 
 
 def count_perread_rows(codes: torch.Tensor, k: int, canonical: bool = False):

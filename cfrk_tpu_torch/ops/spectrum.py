@@ -31,7 +31,7 @@ import math
 import torch
 
 from .cuda.spectrum import SPECTRUM_MAX_K, spectrum_hist, spectrum_hist_plain
-from .encode import split_k, window_indices
+from .encode import as_codes, split_k, window_indices
 
 __all__ = ["spectrum", "MAX_DENSE_SPECTRUM_K"]
 
@@ -65,7 +65,9 @@ def spectrum(
 
     ``out``: a running ``[4**k]`` int32 table on the codes' device; the
     batch's counts are added into it in place and it is returned.
+    A tensor runs on its device; a numpy array runs on the card.
     """
+    codes = as_codes(codes)
     if impl == "sort":
         raise ValueError(
             "impl='sort' is a driver-level route (spectrum_file "

@@ -41,6 +41,7 @@ __all__ = [
     "TP_AXIS",
     "make_mesh",
     "local_devices",
+    "repeat_devices",
     "Sharding",
     "batch_sharding",
     "table_sharding",
@@ -90,11 +91,34 @@ class Mesh:
         return self.devices.flat[0]
 
 
+# The counterpart of XLA's --xla_force_host_platform_device_count: when
+# set, ``local_devices(device)`` is ``device`` this many times.  Only the
+# tools and the tests set it, each for its own process; the CLI never does.
+_REPEAT: int | None = None
+
+
+def repeat_devices(n: int | None) -> int | None:
+    """Make :func:`local_devices` return its device ``n`` times, so that
+    one card (or the CPU) stands for ``n`` devices, for the rest of this
+    process (``None``: every distinct device again).  Returns the
+    setting it replaced."""
+    global _REPEAT
+    if n is not None and n < 1:
+        raise ValueError(f"a device repeated {n} times")
+    prev, _REPEAT = _REPEAT, n
+    return prev
+
+
 def local_devices(device) -> list:
     """Every device of this process of ``device``'s type: the CUDA
     devices for a CUDA device (``jax.local_devices()``), the one CPU for
-    the CPU."""
+    the CPU; or, under :func:`repeat_devices`, ``device`` itself
+    repeated (a bare ``cuda`` names the current card)."""
     device = torch.device(device)
+    if _REPEAT is not None:
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return [device] * _REPEAT
     if device.type == "cuda":
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return [torch.device(device.type)]

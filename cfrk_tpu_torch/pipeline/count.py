@@ -46,6 +46,7 @@ from ..ops.perread_sparse import (
 )
 from ..ops.sparse import DenseFoldAccumulator, SparseAccumulator, fetch_triples
 from ..ops.cuda.spectrum import SPECTRUM_MAX_K
+from ..ops.encode import default_device
 from ..ops.spectrum import spectrum as spectrum_op
 from ..parallel.bucket import sparse_spectrum_sharded_retry
 from ..parallel.seqpar import (
@@ -194,11 +195,13 @@ def _plan_shapes(reads: Sequence[np.ndarray], k: int, batch_size: int | None,
 
 def run_device(device, mesh) -> torch.device:
     """Where a driver puts its batches: the mesh's first device (whose
-    functions copy each block on to its own device), else ``device``."""
+    functions copy each block on to its own device), else ``device``,
+    else the card (``ops.encode.default_device``: with no card visible
+    it raises, and the caller passes ``device="cpu"``)."""
     if mesh is not None:
         return mesh.home
     if device is None:
-        raise TypeError("a device or a mesh is required")
+        return default_device()
     return torch.device(device)
 
 
@@ -259,9 +262,9 @@ def iter_dense_counts(reads: Sequence[np.ndarray], k: int, *,
     the next batch is dispatched (the JAX package keeps two batches in
     flight behind XLA's asynchronous dispatch).
     """
+    device = run_device(device, mesh)
     if not reads:
         return
-    device = run_device(device, mesh)
     bs, ml = _plan_shapes(reads, k, batch_size, max_len, mesh, seqpar)
     for batch in iter_batches(reads, bs, ml):
         codes = torch.from_numpy(batch.codes).to(device)
@@ -293,8 +296,8 @@ def count_reads(reads: Sequence[np.ndarray], k: int, *,
     return out
 
 
-def count_file(path, k: int, *, device: torch.device | str | None = None,
-               min_qual: int = 0, **kw) -> np.ndarray:
+def count_file(path, k: int, min_qual: int = 0, *,
+               device: torch.device | str | None = None, **kw) -> np.ndarray:
     """Count a FASTA/FASTQ file: returns ``[n_reads, 4**k]`` int32.
 
     ``min_qual`` masks FASTQ bases below that Phred quality."""
@@ -320,6 +323,7 @@ def count_file_dense_rows(
     the bytes of ``CfrkWriter(out_path, nonzero=nonzero).write_batch``
     over the whole matrix, with one batch on the host at a time.
     Returns the number of reads written."""
+    device = run_device(device, mesh)
     reads = read_fasta_encoded(path, min_qual)
     n_written = 0
     with CfrkWriter(out_path, nonzero=nonzero) as w:

@@ -3,21 +3,25 @@
 The port's counterpart of ``tools/fuzz_cli.py``.  Each trial synthesises
 a random FASTA/FASTQ (random lengths, N rate, optional CRLF, optional
 gzip/bgzf, zero-length and multiline records), draws a random
-configuration (mode x k x canonical x stream x nonzero x batch size),
-runs the real CLI (``cfrk_tpu_torch.cli.main``) on ``--device`` and
+configuration (mode x k x canonical x stream x nonzero x batch size x
+mesh), runs the real CLI (``cfrk_tpu_torch.cli.main``) on ``--device`` and
 checks the OUTPUT FILE against the numpy specification
 (``ops/reference.py``), parsing the bytes back, so the format layer is
 covered too.  Some trials run as a two-file workflow, through stdin, or
 crash after a random checkpoint and resume.
 
-It keeps the JAX tool's draw sequence with its mesh draws off (those
-wait for the scale-out port): the same seed gives the same
-configurations, with ``mesh=0`` and ``seqpar=False``.  On the card each
-new shape costs a launch, not a compile, so a campaign runs there: batches
+It keeps the JAX tool's draw sequence: the same seed gives the same
+configurations.  With ``--devices N`` (N >= 8, as the JAX tool draws
+meshes of 2, 4 and 8 devices) half the trials run on a mesh of
+``--device`` repeated N times (``parallel.mesh.repeat_devices``, the
+counterpart of XLA's forced host device count), through ``--devices``,
+and some of those shard positions (``--seqpar``).  On the card each new
+shape costs a launch, not a compile, so a campaign runs there: batches
 of 1-23 reads, the spectrum kernel at k = 1-7 and the row-sort kernels up
 to k = 31.
 
-    python -m cfrk_tpu_torch.tools.fuzz_cli --trials 500 [--seed 0] [--device cuda|cpu]
+    python -m cfrk_tpu_torch.tools.fuzz_cli --trials 500 [--seed 0] [--devices 8]
+        [--device cuda|cpu]
 
 It stops at the first mismatch (an AssertionError naming the config).
 """
@@ -48,6 +52,7 @@ from ..ops.reference import (
     window_indices_np,
 )
 from ..ops.sparse import decode_key
+from ..parallel.mesh import repeat_devices
 from ..runtime import faults
 from . import card
 
@@ -69,9 +74,12 @@ def _cells(out_path: str, want: np.ndarray, n_reads: int, cfg: dict,
     return got
 
 
-def run_trial(rng: np.random.Generator, tmp: str, device: str) -> dict:
+def run_trial(rng: np.random.Generator, tmp: str, device: str,
+              use_mesh: bool = False) -> dict:
     """One random configuration end to end on ``device``; returns the
-    config dict (raises AssertionError on a mismatch)."""
+    config dict (raises AssertionError on a mismatch).  ``use_mesh``
+    draws mesh trials, which need ``device`` repeated 8 times
+    (``parallel.mesh.repeat_devices(8)``)."""
     # Adversarial shape drawers:
     #   lowcomplex   — poly-A / 2-letter reads: every window is the same
     #                  few keys (single-run RLE rows).
@@ -167,14 +175,13 @@ def run_trial(rng: np.random.Generator, tmp: str, device: str) -> dict:
         and (bool(rng.integers(0, 2)) or (shape == "contig" and k > 6))
     )
     batch = int(rng.integers(1, 24))
-    # The JAX tool draws a mesh here only when given devices; this tool
-    # takes no devices yet, so no draw and no mesh.
+    mesh_n = int(rng.choice([2, 4, 8])) if use_mesh and bool(rng.integers(0, 2)) else 0
     cfg = dict(
         mode=mode, k=k, canonical=canonical, stream=stream, nonzero=nonzero,
         batch=batch, fastq=fastq, crlf=crlf, compress=str(compress),
-        n_reads=n_reads, mesh=0, min_qual=min_qual, shape=shape,
+        n_reads=n_reads, mesh=mesh_n, min_qual=min_qual, shape=shape,
     )
-    dev = ["--device", device]
+    dev = ["--device", device, "--devices", str(mesh_n) if mesh_n else "1"]
 
     # Sometimes run as a MULTI-FILE workflow (--out-dir, the Swift/K
     # analog): duplicate the input under two names; both outputs must
@@ -219,12 +226,23 @@ def run_trial(rng: np.random.Generator, tmp: str, device: str) -> dict:
         argv += ["--spectrum-format", "tsv"]
     if min_qual:
         argv += ["--min-qual", str(min_qual)]
-    # The JAX tool's sequence-parallel draw needs a mesh: never drawn here.
-    cfg["seqpar"] = False
+    # Sequence-parallel draw: shard the POSITION axis (halo exchange)
+    # instead of rows; small k keeps every per-device slice wider than
+    # the k-1 halo for the short reads drawn here.
+    seqpar = (mesh_n in (2, 4) and mode != "sparse" and k <= 6
+              and bool(rng.integers(0, 3) == 0))
+    cfg["seqpar"] = seqpar
+    if seqpar:
+        argv.append("--seqpar")
+        if mode == "spectrum" and bool(rng.integers(0, 2)):
+            # each device row-sorts its own position slice; the host fold
+            # merges the duplicates
+            argv += ["--impl", "sort"]
+            cfg["impl"] = "sort"
 
     # Stdin draw: feed the same bytes through '-' (pipe ingest).  It
-    # excludes the crash/resume draw below.
-    stdin = bool(rng.integers(0, 6) == 0)
+    # excludes the crash/resume draw below and the seqpar draw.
+    stdin = (not seqpar) and bool(rng.integers(0, 6) == 0)
     cfg["stdin"] = stdin
     if stdin:
         raw = open(inp, "rb").read()
@@ -299,35 +317,53 @@ def run_trial(rng: np.random.Generator, tmp: str, device: str) -> dict:
     return cfg
 
 
-def run_campaign(trials: int, seed: int, device: str, log=None) -> dict:
+def run_campaign(trials: int, seed: int, device: str, log=None,
+                 use_mesh: bool = False) -> dict:
     """``trials`` trials from ``seed`` on ``device``, each in a fresh
     temporary directory; returns the campaign's record (trials, wall,
-    kernel launches, configurations drawn by mode)."""
+    kernel launches, configurations drawn by mode, mesh trials by size,
+    seqpar trials)."""
     rng = np.random.default_rng(seed)
     before = card.launches()
     modes: Counter = Counter()
+    meshes: Counter = Counter()
+    seqpar = 0
     t0 = time.perf_counter()
     for t in range(trials):
         with tempfile.TemporaryDirectory() as tmp:
-            cfg = run_trial(rng, tmp, device)
+            cfg = run_trial(rng, tmp, device, use_mesh)
         modes[cfg["mode"]] += 1
+        if cfg["mesh"]:
+            meshes[str(cfg["mesh"])] += 1
+        seqpar += cfg.get("seqpar", False)
         if log is not None and (t + 1) % 10 == 0:
             log(f"# {t + 1}/{trials} ok, last: {json.dumps(cfg)}")
     wall = time.perf_counter() - t0
     return {"trials": trials, "seed": seed, "wall_s": wall,
             "trials_per_s": trials / wall if wall > 0 else None,
-            "modes": dict(modes), "launches": card.launches_since(before)}
+            "modes": dict(modes), "mesh_trials": dict(meshes), "seqpar_trials": seqpar,
+            "launches": card.launches_since(before)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trials", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument(
+        "--devices", type=int, default=0,
+        help="also draw mesh trials over --device repeated this many times "
+             "(at least 8: meshes of 2, 4 and 8 devices are drawn)",
+    )
     card.add_device_argument(ap)
     args = ap.parse_args(argv)
+    if 1 < args.devices < 8:
+        ap.error(f"--devices {args.devices}: mesh trials draw meshes of up to 8 "
+                 "devices, so a mesh campaign needs --devices 8 or more")
     device = card.resolve_device(args.device)
+    if args.devices > 1:
+        repeat_devices(args.devices)
     rec = run_campaign(args.trials, args.seed, args.device,
-                       log=lambda msg: print(msg, flush=True))
+                       log=lambda msg: print(msg, flush=True), use_mesh=args.devices > 1)
     dev = card.device_record(device)
     print(f"all {args.trials} trials passed")
     print(json.dumps({"platform": dev["platform"], "device_kind": dev["device_kind"],

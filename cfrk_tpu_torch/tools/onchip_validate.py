@@ -30,6 +30,12 @@ The checks, each named for what it holds on the card:
   (past the ceiling) through the tiled route against the twin; the
   rowsort checksum from the probe kernel's ``full`` variant against
   ``rowsort_probe_plain``;
+* ``mesh_kernel_probes``: the mesh paths on a one-device mesh of this
+  run's device (JAX's ``mesh_compiled_probes``): the ``b4`` packed
+  per-read emit over the mesh unpacked against ``host``, the sharded
+  row sort on 150 and 70 bp rows against the plain rows, and the seqpar
+  sorted spectrum at k=12 through ``SparseAccumulator`` against
+  ``spectrum_np``;
 * ``auto_batch_capacity``: ``perread_hist`` ``b4`` with its checksum and
   ``rowsort_rle`` at the production batch, ``auto_batch_size()``, k=8,
   against their twins, checksums nonzero.
@@ -62,9 +68,13 @@ from ..ops.cuda.rowsort import (
 )
 from ..ops.cuda.spectrum import spectrum_hist
 from ..ops.perread import count_perread
-from ..ops.perread_sparse import count_perread_rows, rows_to_triples
+from ..ops.perread_sparse import count_perread_rows, count_perread_sparse, rows_to_triples
+from ..ops.reference import spectrum_np
 from ..ops.sparse import SparseAccumulator
 from ..ops.spectrum import spectrum
+from ..parallel.mesh import local_devices, make_mesh
+from ..parallel.seqpar import make_seq_mesh, spectrum_seqpar_triples
+from ..parallel.sharded import count_perread_sharded_packed, count_perread_sparse_sharded
 from ..pipeline.batch import auto_batch_size
 from ..pipeline.count import count_reads
 from . import card
@@ -209,6 +219,38 @@ def rowsort_kernel_parity(device: torch.device) -> dict:
     return out
 
 
+def mesh_kernel_probes(device: torch.device) -> dict:
+    """The mesh functions on a one-device mesh of this device: the
+    packed per-read emit (``perread_hist`` ``b4``), the sharded row sort
+    (``rowsort_rle``) on 150 bp and on short 70 bp rows, and the seqpar
+    sorted spectrum (``rowsort_rle`` on each position slice), each
+    against a route with no mesh."""
+    rng = np.random.default_rng(5)
+    codes = rng.integers(-1, 4, size=(64, 150)).astype(np.int8)
+    x = torch.from_numpy(codes).to(device)
+    devs = local_devices(device)[:1]
+    mesh = make_mesh(devs)
+
+    want = count_perread(x, 8, impl="host")
+    packed = count_perread_sharded_packed(x, 8, mesh, packed="b4")
+    assert_equal(unpack_counts(packed.cpu().numpy(), 64, mode="b4"), want, "packed_mesh")
+
+    assert_equal(count_perread_sparse_sharded(x, 8, mesh), count_perread_sparse(x, 8),
+                 "rowsort_mesh")
+    short = torch.from_numpy(rng.integers(-1, 4, size=(64, 70)).astype(np.int8)).to(device)
+    assert_equal(count_perread_sparse_sharded(short, 8, mesh),
+                 count_perread_sparse(short, 8), "rowsort_mesh_span")
+
+    rows = spectrum_seqpar_triples(x[:, :128], 12, make_seq_mesh(devs))
+    acc = SparseAccumulator()
+    acc.add(*rows_to_triples(rows, 12))
+    keys, counts = acc.result_arrays()
+    table = np.zeros(4**12, dtype=np.int64)
+    table[keys.astype(np.int64)] = counts
+    assert_equal(table, spectrum_np(list(codes[:, :128]), 12), "seqpar_sorted")
+    return {"probes": ["packed_mesh", "rowsort_mesh", "rowsort_mesh_span", "seqpar_sorted"]}
+
+
 def auto_batch_capacity(device: torch.device) -> dict:
     """The kernels at the production batch size, checksums consumed:
     a capacity or launch-shape fault that only a full batch shows."""
@@ -236,6 +278,7 @@ CHECKS = {fn.__name__: fn for fn in (
     spectrum_kernel_parity,
     sorted_spectrum_parity,
     rowsort_kernel_parity,
+    mesh_kernel_probes,
     auto_batch_capacity,
 )}
 

@@ -43,7 +43,7 @@ Phases, each of which exits non-zero on failure:
    through the CLI on the GPU — k=8 ``--nonzero``, k=31 ``--canonical
    --nonzero``, dense k=8 rows of the first 256 reads; then the dense
    per-read API on the 150 bp reads, ``8 --nonzero --impl pallas`` (the
-   "b4" packed kernel; the first 3 batches of reads) and ``4 --impl
+   "b4" packed kernel; the first batch of reads) and ``4 --impl
    pallas`` (dense rows, the unpacked kernel; all 100k), each also
    byte-equal to the auto route (per-read sort + RLE) on the same
    reads.  Each must launch its kernel, call the host library (its
@@ -71,8 +71,8 @@ Phases, each of which exits non-zero on failure:
    the fresh run, the same sha256); ``31 --canonical --nonzero --stream``
    on a BGZF copy of the 152 bp file, killed at ``checkpoint:5`` and
    resumed by a seek to the checkpoint's decompressed offset (no
-   re-parse warning); ``8 --nonzero --stream --packed`` on the first 3
-   batches of reads (the per-read histogram kernel, sha256 of phase 5's
+   re-parse warning); ``8 --nonzero --stream --packed`` on the first
+   batch of reads (the per-read histogram kernel, sha256 of phase 5's
    dense-API leg); and ``--mode spectrum --stream`` at k=8 on the 1M
    reads as a subprocess beside a non-streamed subprocess (each reports its
    launches; bytes equal to phase 6's leg; both peak RSS logged); then
@@ -125,16 +125,20 @@ Phases, each of which exits non-zero on failure:
 10. the user and validation tools of ``cfrk_tpu_torch/tools``, each in
    this process with every kernel count set to 0 before it and read
    after it: ``onchip_validate`` (its ``GPU_VALID.json`` under
-   ``build/chip_smoke``, every check ok, all five kernels launched);
+   ``build/chip_smoke``, every check ok, all five kernels launched; its
+   ``mesh_kernel_probes`` check run once more alone, launching
+   ``perread_hist`` and ``rowsort_rle`` on one-device meshes);
    ``onchip_fuzz`` (40 trials, at least one past the kernel ceiling
-   through the tiled route); ``fuzz_cli`` (24 trials of the CLI on the
-   card against the numpy spec, the two row-sort kernels and the
-   spectrum kernel launched; its launches join the main path's counts);
+   through the tiled route); ``fuzz_cli --devices 8`` (24 trials of the
+   CLI on the card against the numpy spec, with ``cuda:0`` repeated 8
+   times, so that the seed draws mesh and seqpar trials, at least one of
+   each; the two row-sort kernels and the spectrum kernel launched; its
+   launches join the main path's counts);
    the golden round trip (phase 4's k=2 ``.cfrk`` of seq2 rebuilt by
    ``reconstruct_fasta`` and counted again to the golden sha256);
-   ``make_synthetic`` (100k reads, BGZF) and ``query_spectrum --stats``
+   ``make_synthetic`` (50k reads, BGZF) and ``query_spectrum --stats``
    on phase 6's ``spectrum_k8`` row (its total equal to the valid
-   windows); ``scale_demo --reads 100000 --skip sparse
+   windows); ``scale_demo --reads 50000 --skip sparse
    --scale-check-reads 0`` on that file (two CLI children, each leg with
    its sha256, ``--stats`` line and bases/s);
 11. byte-ranged runs (``--distributed``, one input): 2 ranks of the CLI
@@ -146,7 +150,12 @@ Phases, each of which exits non-zero on failure:
    then both resumed with ``--resume`` to the sha256 of ``k8_nonzero``;
    ``-k 8 --mode spectrum`` over the plain 1M-read file to the sha256
    of ``spectrum_k8``; ``-k 31 --canonical --mode sparse`` over the
-   plain 100k x 152 bp file to the sha256 of ``sparse_k31_canonical``.
+   plain 100k x 152 bp file to the sha256 of ``sparse_k31_canonical``;
+   ``8 --nonzero`` over the plain 100k x 150 bp file with the ranks
+   started from SLURM's variables alone (``SLURM_JOB_ID``,
+   ``SLURM_STEP_NODELIST=localhost``, ``SLURM_NTASKS=2``,
+   ``SLURM_PROCID``, ``SLURM_LOCALID=0`` and ``JAX_COORDINATOR_PORT``)
+   to the sha256 of ``k8_nonzero``.
    Each rank of each finished run must launch the leg's kernel
    (``rowsort_rle``, ``spectrum_hist``, ``rowsort_rle_large``), and no
    part file may remain; each rank's wall and reads are logged.  Then
@@ -158,7 +167,7 @@ Phases, each of which exits non-zero on failure:
    before each leg and read just after (the exact launches a leg's
    devices make are required): the 100k x 150 bp file's k=8 rows over
    4 devices (``count_file_sparse_rows``; sha256 of ``k8_nonzero``); the
-   packed "b4" emit over 2 devices on the dense-API leg's 24 576 reads
+   packed "b4" emit over 2 devices on the dense-API leg's 8192 reads
    (sha256 of ``k8_dense_api_nonzero``); the 1M-read k=8 spectrum over a
    (2, 2) mesh, psum and the tp scatter (sha256 of ``spectrum_k8``); the
    k=31 canonical sparse spectrum through the bucket exchange at slack 2
@@ -168,7 +177,17 @@ Phases, each of which exits non-zero on failure:
    per-read k=5 and the sorted spectrum at k=12 (equal to one device);
    and the k=8 rows streamed over 2 devices, killed at its third
    checkpoint and resumed (sha256 of ``k8_nonzero``).  Each leg logs its
-   launches, wall and the card's name and power limit.
+   launches, wall and the card's name and power limit;
+13. the scaling ladder and the library defaults, in this process:
+   ``cfrk_tpu_torch.tools.scaling_bench``'s ``main`` with ``cuda:0``
+   repeated 4 times, in each mode (``perread``, ``rows``, ``spectrum``)
+   at the tool's default sizes and ``--steps 4``, each launching its
+   kernel (``perread_hist``, ``rowsort_rle``, ``spectrum_hist``), each
+   rung's checksum equal to the same ladder's through the CPU route and
+   logged with the card's name and power limit; then ``count_file``,
+   ``spectrum_file`` and ``count_perread`` (on a numpy array) with no
+   device, each launching its kernel on the card and equal to its
+   ``device="cpu"`` result.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON record of the kernels, and the one before that the card's
@@ -198,11 +217,12 @@ BATCH = 8192
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 33.5e12
 READS = 100_000  # BASELINE.json config 2: 100k reads per leg
-# The k=8 dense-API leg takes the first three batches of them: its host
-# side unpacks 2.1 GB a batch, on both routes (and again in the packed
-# stream of phase 7), so at 50k reads it and its streamed twin held a
-# fifth of a 634 s run of this script (NVIDIA H100 80GB HBM3, 700 W).
-DENSE_API_READS = 3 * BATCH
+# The k=8 dense-API leg takes the first batch of them: its host side
+# unpacks 2.1 GB a batch, on both routes (and again in the packed stream
+# of phase 7 and the packed mesh leg of phase 12), so at three batches
+# those legs held about 55 s of a 567.1 s run of this script (NVIDIA H100
+# 80GB HBM3, 700.00 W), and at 50k reads a fifth of a 634 s run.
+DENSE_API_READS = BATCH
 SPECTRUM_READS = 1_000_000  # BASELINE.json config 3: a 1M-read metagenome
 # The two k = 15 sorted-route legs (phase 6's in-memory run, phase 7's
 # streamed run pinned to its sha256) take the first quarter of those
@@ -1638,9 +1658,10 @@ def entry_layer_legs(seed: int, fa150: Path, fa1m: Path, sha: dict) -> tuple:
     return legs, total
 
 
-# Phase 10: make_synthetic's and scale_demo's reads, cut from 200k so
-# that a slow host's run stays under 600 s.
-TOOL_READS = 100_000
+# Phase 10: make_synthetic's and scale_demo's reads, cut from 200k (and
+# from 100k once the tools' mesh legs were added) so that a slow host's
+# run stays under 540 s.
+TOOL_READS = 50_000
 
 
 def _tool_main(label: str, fn, argv: list) -> list:
@@ -1664,8 +1685,11 @@ def tool_legs(seed: int, spectrum_k8: dict) -> tuple:
     path, ``fuzz_cli``: the others compare kernels with their twins)."""
     import shutil
 
+    import torch
+
     from cfrk_tpu_torch.cli import main as cli_main
     from cfrk_tpu_torch.io.bgzf import is_bgzf
+    from cfrk_tpu_torch.parallel.mesh import repeat_devices
     from cfrk_tpu_torch.tools import (
         card,
         fuzz_cli,
@@ -1681,6 +1705,7 @@ def tool_legs(seed: int, spectrum_k8: dict) -> tuple:
         for fn in card.KERNELS.values():
             fn.launches = 0
 
+    gpu = torch.device("cuda", 0)
     records = {}
     zero()
     artifact = WORK / "GPU_VALID.json"
@@ -1691,9 +1716,21 @@ def tool_legs(seed: int, spectrum_k8: dict) -> tuple:
     for name, n in card.launches().items():
         if n <= 0:
             fail(f"onchip_validate never launched {name}")
+    probes = valid["checks"]["mesh_kernel_probes"]
+    if probes.get("probes") != ["packed_mesh", "rowsort_mesh", "rowsort_mesh_span",
+                                "seqpar_sorted"]:
+        fail(f"onchip_validate mesh_kernel_probes: {probes}")
     records["onchip_validate"] = {
         "launches": card.launches(), "wall_s": valid["wall_s"],
         "checks_wall_s": {name: c["wall_s"] for name, c in valid["checks"].items()}}
+    # The mesh check alone, for the launches its one-device meshes make.
+    zero()
+    onchip_validate.mesh_kernel_probes(gpu)
+    torch.cuda.synchronize()
+    mesh_probe = {name: n for name, n in card.launches().items() if n}
+    if mesh_probe.get("perread_hist", 0) <= 0 or mesh_probe.get("rowsort_rle", 0) <= 0:
+        fail(f"mesh_kernel_probes never launched perread_hist and rowsort_rle: {mesh_probe}")
+    records["onchip_validate"]["mesh_kernel_probes_launches"] = mesh_probe
 
     zero()
     fuzz = json.loads(_tool_main("onchip_fuzz", onchip_fuzz.main,
@@ -1702,14 +1739,25 @@ def tool_legs(seed: int, spectrum_k8: dict) -> tuple:
         fail(f"onchip_fuzz: {fuzz}")
     records["onchip_fuzz"] = fuzz
 
+    # fuzz_cli --devices 8: the card repeated 8 times, so that the seed
+    # also draws mesh and seqpar trials.
     zero()
-    campaign = fuzz_cli.run_campaign(24, seed, "cuda")
+    prev = repeat_devices(8)
+    try:
+        campaign = fuzz_cli.run_campaign(24, seed, "cuda", use_mesh=True)
+    finally:
+        repeat_devices(prev)
     for name in ("rowsort_rle", "rowsort_rle_large", "spectrum_hist"):
         if campaign["launches"][name] <= 0:
             fail(f"fuzz_cli never launched {name}: {campaign}")
+    log(f"fuzz_cli --devices 8: {sum(campaign['mesh_trials'].values())} mesh trials "
+        f"{campaign['mesh_trials']}, {campaign['seqpar_trials']} seqpar trials of 24")
+    if not campaign["mesh_trials"] or campaign["seqpar_trials"] < 1:
+        fail(f"fuzz_cli --devices 8 drew no mesh or no seqpar trial: {campaign}")
     records["fuzz_cli"] = campaign
-    main_path = {name: campaign["launches"][name]
-                 for name in ("rowsort_rle", "rowsort_rle_large", "spectrum_hist")}
+    # Every kernel a trial launched, perread_hist too (the seqpar
+    # trials' dense per-read route).
+    main_path = {name: n for name, n in campaign["launches"].items() if n}
 
     # The golden round trip: phase 4's k=2 .cfrk of seq2 rebuilt into a
     # FASTA, counted again on the card.
@@ -1779,14 +1827,39 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_ranks(label: str, argv: list, fault_of_rank=lambda rank: None) -> list:
+def triplet_env(rank: int, port: int) -> dict:
+    """The JAX package's coordinator variables for rank ``rank``."""
+    return {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+            "JAX_NUM_PROCESSES": str(RANKS), "JAX_PROCESS_ID": str(rank)}
+
+
+def slurm_env(rank: int, port: int) -> dict:
+    """A SLURM job step's variables for task ``rank``, as though each
+    task had a node of its own with one card (``SLURM_LOCALID=0``), and
+    ``JAX_COORDINATOR_PORT`` in place of the port the job id gives."""
+    return {"SLURM_JOB_ID": "4242", "SLURM_STEP_NODELIST": "localhost",
+            "SLURM_NTASKS": str(RANKS), "SLURM_PROCID": str(rank), "SLURM_LOCALID": "0",
+            "JAX_COORDINATOR_PORT": str(port)}
+
+
+# Every variable a launcher sets: a child gets only those of its env_of_rank.
+_LAUNCH_VARS = ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                "JAX_PROCESS_ID", "JAX_COORDINATOR_PORT")
+_LAUNCH_PREFIXES = ("SLURM_", "OMPI_")
+
+
+def run_ranks(label: str, argv: list, fault_of_rank=lambda rank: None,
+              env_of_rank=triplet_env) -> list:
     """One ``--distributed`` CLI run: ``RANKS`` children of ``_CLI_CHILD``
-    started together with the JAX package's coordinator variables on
-    127.0.0.1, each on ``--device cuda`` (the one card), rank i armed
+    started together with the launcher's variables of ``env_of_rank(i,
+    port)`` (default: the JAX package's coordinator variables on
+    127.0.0.1), each on ``--device cuda`` (the one card), rank i armed
     with ``CFRK_FAULT_INJECT=fault_of_rank(i)`` where that is not None.
     Returns each rank's exit code, stderr, launches and the seconds from
     the launch to its exit.  Made again once, on another port, only when
     a rank says that the address was in use."""
+    base = {name: value for name, value in os.environ.items()
+            if name not in _LAUNCH_VARS and not name.startswith(_LAUNCH_PREFIXES)}
     for attempt in (0, 1):
         port = free_port()
         procs, files = [], []
@@ -1794,8 +1867,7 @@ def run_ranks(label: str, argv: list, fault_of_rank=lambda rank: None) -> list:
         for rank in range(RANKS):
             out, err = (WORK / f"{label}.rank{rank}.{n}" for n in ("out", "err"))
             files.append((out, err))
-            env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-                   "JAX_NUM_PROCESSES": str(RANKS), "JAX_PROCESS_ID": str(rank)}
+            env = {**base, **env_of_rank(rank, port)}
             if fault_of_rank(rank):
                 env["CFRK_FAULT_INJECT"] = fault_of_rank(rank)
             with open(out, "wb") as o, open(err, "wb") as e:
@@ -1904,6 +1976,15 @@ def byte_ranged_legs(fa150: Path, fa152: Path, fa1m: Path, sha: dict) -> tuple:
     finished(label, run_ranks(label, [str(fa152), "-o", str(out), "-k", "31",
                                       "--canonical", "--mode", "sparse", "--stats"]),
              "rowsort_rle_large", out, sha["sparse_k31_canonical"], READS * 152)
+
+    # The same per-read run started from SLURM's variables alone: the
+    # group's address, size and ranks come from the detected job.
+    label = "distributed_slurm_k8_nonzero"
+    out = WORK / f"{label}.cfrk"
+    finished(label, run_ranks(label, [str(fa150), str(out), "8", "--nonzero", "--stats"],
+                              env_of_rank=slurm_env),
+             "rowsort_rle", out, sha["k8_nonzero"], READS * 150,
+             {"launcher": "slurm"})
 
     # Several inputs: dealt round-robin, rank 0 runs two as a workflow,
     # rank 1 one; no barrier.  Each output is its shard's phase 9 bytes.
@@ -2114,6 +2195,103 @@ def mesh_legs(seed: int, r150, fa150: Path, fa152: Path, fa1m: Path, sha: dict,
     return legs, total
 
 
+# ---------------------------------------------------------------- phase 13
+
+LADDER_DEVICES = 4  # the scaling ladder's cuda:0 repeated: rungs 1, 2, 4
+
+
+def scaling_and_defaults(r150, fa150: Path, fa256: Path, card: str, gpu=None,
+                         cpu=None) -> tuple:
+    """Phase 13, in this process: ``scaling_bench``'s ``main`` over
+    ``cuda:0`` repeated 4 times in each mode at the tool's default sizes
+    (``--steps 4``), every rung's checksum equal to the same ladder's
+    through the CPU route; then the library's entry points with no
+    device (``count_file``, ``spectrum_file``, ``count_perread`` on a
+    numpy array), each launching its kernel on the card and equal to its
+    ``device="cpu"`` result.  Every kernel count is set to 0 just before
+    each run and read just after.  Returns (records, launches)."""
+    import numpy as np
+    import torch
+
+    import cfrk_tpu_torch as lib
+    from cfrk_tpu_torch.parallel.mesh import repeat_devices
+    from cfrk_tpu_torch.tools import card as tcard
+    from cfrk_tpu_torch.tools import scaling_bench
+
+    gpu = torch.device("cuda", 0) if gpu is None else gpu
+    cpu = torch.device("cpu") if cpu is None else cpu
+    total = dict.fromkeys(tcard.KERNELS, 0)
+    records = {}
+
+    def counted(label, kernel, run):
+        for fn in tcard.KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = run()
+        wall = time.perf_counter() - t0
+        launches = {name: n for name, n in tcard.launches().items() if n}
+        if launches.get(kernel, 0) <= 0:
+            fail(f"{label}: never launched {kernel}: {launches}")
+        for name, n in launches.items():
+            total[name] += n
+        return result, launches, wall
+
+    kernel_of = {"perread": "perread_hist", "rows": "rowsort_rle",
+                 "spectrum": "spectrum_hist"}
+    prev = repeat_devices(LADDER_DEVICES)
+    try:
+        for mode, kernel in kernel_of.items():
+            lines, launches, wall = counted(
+                f"scaling_bench {mode}", kernel,
+                lambda: _tool_main(f"scaling_bench_{mode}", scaling_bench.main,
+                                   ["--mode", mode, "--steps", "4"]))
+            rungs = [json.loads(line) for line in lines if line.startswith("{")]
+            if [r["devices"] for r in rungs] != [1, 2, 4]:
+                fail(f"scaling_bench {mode}: rungs {rungs}")
+            t0 = time.perf_counter()
+            want = scaling_bench.sharded_checksums(
+                [cpu] * LADDER_DEVICES, mode, 8,
+                scaling_bench.default_reads_per_device(mode), 150)
+            cpu_s = time.perf_counter() - t0
+            got = [(r["devices"], r["checksum"]) for r in rungs]
+            if got != want:
+                fail(f"scaling_bench {mode}: checksums {got} != the CPU route's {want}")
+            for rung in rungs:
+                log("scaling rung: " + json.dumps({**rung, "card": card}))
+            records[f"scaling_{mode}"] = {"rungs": rungs, "launches": launches,
+                                          "wall_s": wall, "cpu_checksums_s": cpu_s}
+            log(f"scaling_bench {mode}: " + json.dumps(
+                {"launches": launches, "wall_s": wall, "cpu_checksums_s": cpu_s}))
+    finally:
+        repeat_devices(prev)
+
+    # The library with no device: on the card, equal to device="cpu".
+    codes = np.stack(r150[:512])
+    cases = (
+        ("count_file", "perread_hist", lambda: lib.count_file(fa256, 8),
+         lambda: lib.count_file(fa256, 8, device=cpu)),
+        ("spectrum_file", "spectrum_hist", lambda: lib.spectrum_file(fa150, 8),
+         lambda: lib.spectrum_file(fa150, 8, device=cpu)),
+        ("count_perread", "perread_hist", lambda: lib.count_perread(codes, 8),
+         lambda: lib.count_perread(torch.from_numpy(codes), 8)),
+    )
+    for name, kernel, on_card, on_cpu in cases:
+        got, launches, wall = counted(f"library default {name}", kernel, on_card)
+        if isinstance(got, torch.Tensor):
+            if got.device.type != gpu.type:
+                fail(f"library default {name}: the result is on {got.device}")
+            got = got.cpu().numpy()
+        want = on_cpu()
+        want = want.numpy() if isinstance(want, torch.Tensor) else want
+        if got.shape != want.shape or not np.array_equal(got, want) or not want.any():
+            fail(f"library default {name}: the card's result differs from device='cpu'")
+        rec = {"launches": launches, "wall_s": wall, "shape": list(got.shape),
+               "card": card}
+        log(f"library default {name}: " + json.dumps(rec))
+        records[f"default_{name}"] = rec
+    return records, total
+
+
 def time_spectrum_routes(seed: int, card: str) -> dict:
     """Phase 8, spectrum: ms per 8192-read batch (150 bp padded to 256)
     of the histogram kernel at k = 7, 8, 9, 10 on the random and the
@@ -2178,7 +2356,7 @@ def time_spectrum_routes(seed: int, card: str) -> dict:
 def dense_api_legs(r150, fa150: Path) -> list:
     """Phase 5, the dense per-read API (``--impl pallas``) on the 150 bp
     reads: k=8 ``--nonzero`` (the "b4" packed kernel, unpacked on the
-    host) on the first 3 batches of reads, and dense k=4 rows (the unpacked
+    host) on the first batch of reads, and dense k=4 rows (the unpacked
     kernel) on all 100k.  Each is also held to the bytes of the auto
     route (per-read sort + RLE), run here first on the same reads."""
     from cfrk_tpu_torch.cli import main
@@ -2530,6 +2708,13 @@ def main() -> int:
         launches[name] += n
     log("mesh_launches: " + json.dumps(mesh_launches))
     clock.lap("12 mesh on one card")
+
+    # 13. the scaling ladder on the card repeated, and the library defaults
+    _, phase13_launches = scaling_and_defaults(r150, fa150, fa256, card)
+    for name, n in phase13_launches.items():
+        launches[name] += n
+    log("scaling_and_defaults_launches: " + json.dumps(phase13_launches))
+    clock.lap("13 scaling ladder and library defaults")
     log("end_to_end: " + json.dumps({
         "card": card,
         "legs": {leg["leg"]: leg["bases_per_s"]

@@ -208,8 +208,8 @@ def test_one_device_scale_out_config_matches_jax_cli(tmp_path):
 )
 def test_mesh_errors_match_jax_cli_on_eight_devices(tmp_path, eight_cpus, flags, message):
     """Where cfrk_tpu's ``_build_mesh`` refuses, the port refuses in its
-    words, over the port's local devices: 8 CPU devices here
-    (``local_devices`` patched), as the JAX CLI sees 8 virtual devices
+    words, over the port's local devices: the CPU repeated 8 times here
+    (``repeat_devices``), as the JAX CLI sees 8 virtual devices
     under tests/conftest.py."""
     fa = str(DATA / "seq2.fasta.gz")
     for cli_main, extra in ((main, ["--device", "cpu"]), (jax_main, [])):
@@ -218,16 +218,16 @@ def test_mesh_errors_match_jax_cli_on_eight_devices(tmp_path, eight_cpus, flags,
 
 
 @pytest.fixture
-def eight_cpus(monkeypatch):
-    """The port's local devices: 8 CPU devices, as the JAX package has 8
-    virtual host devices under tests/conftest.py (``--device cpu`` then
-    defaults to a mesh over all 8, as the JAX CLI does)."""
-    import torch
-
+def eight_cpus():
+    """The port's local devices: the CPU repeated 8 times
+    (``repeat_devices``), as the JAX package has 8 virtual host devices
+    under tests/conftest.py (``--device cpu`` then defaults to a mesh
+    over all 8, as the JAX CLI does)."""
     from cfrk_tpu_torch.parallel import mesh as pmesh
 
-    monkeypatch.setattr(pmesh, "local_devices",
-                        lambda device: [torch.device("cpu")] * 8)
+    prev = pmesh.repeat_devices(8)
+    yield
+    pmesh.repeat_devices(prev)
 
 
 @pytest.mark.parametrize(

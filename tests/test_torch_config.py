@@ -131,18 +131,17 @@ def test_config_refusals_match_jax(tmp_path, cfg, message):
      ("distributed", {"distributed": True})],
     ids=["devices", "tp", "seqpar", "slack", "distributed"],
 )
-def test_config_scale_out_keys_are_not_ported(tmp_path, monkeypatch, key, cfg):
+def test_config_scale_out_keys_are_not_ported(tmp_path, monkeypatch, request, key, cfg):
     """A ``cfrk.json`` written for cfrk_tpu may carry its scale-out keys:
-    the port runs them to cfrk_tpu's bytes, on 8 devices (the port's
-    ``local_devices`` patched to 8 CPU devices, as the JAX package has 8
+    the port runs them to cfrk_tpu's bytes, on 8 devices (the CPU
+    repeated 8 times, ``repeat_devices``, as the JAX package has 8
     virtual host devices); ``distributed`` with several inputs in a
     group of one process runs every input (the JAX CLI, which cannot
     start ``jax.distributed`` in this process, runs them without it)."""
-    import torch
-
     from cfrk_tpu_torch.parallel import mesh as pmesh
 
-    monkeypatch.setattr(pmesh, "local_devices", lambda device: [torch.device("cpu")] * 8)
+    prev = pmesh.repeat_devices(8)
+    request.addfinalizer(lambda: pmesh.repeat_devices(prev))
     fa = _fasta(tmp_path, n=24, length=40)
     if key == "distributed":
         import socket

@@ -43,11 +43,15 @@ LAUNCH_TIMEOUT_S = 240
 
 @pytest.fixture(autouse=True)
 def _clean_env(tmp_path, monkeypatch):
-    """An empty working directory (no ``cfrk.json``) and no coordinator
-    variables from around the test run."""
+    """An empty working directory (no ``cfrk.json``), and no coordinator
+    variables and no SLURM or Open MPI job from around the test run (a
+    runner inside a SLURM job stays steady)."""
     monkeypatch.chdir(tmp_path)
-    for name in _TRIPLET:
+    for name in (*_TRIPLET, "JAX_COORDINATOR_PORT"):
         monkeypatch.delenv(name, raising=False)
+    for name in list(os.environ):
+        if name.startswith(("SLURM_", "OMPI_")):
+            monkeypatch.delenv(name)
 
 
 def _fasta_blob(seed: int, n: int) -> bytes:
@@ -164,13 +168,17 @@ def test_partial_triplet_message_matches_jax(monkeypatch, present, coordinator):
 
 def test_force_without_a_coordinator_raises():
     """Where ``jax.distributed.initialize()`` raises for want of a
-    coordinator, the port raises naming the three variables: no silent
-    world of one.  Through the CLI, both packages raise ValueError."""
+    coordinator (no triplet, no SLURM or Open MPI job), the port raises
+    naming the three variables and the two launchers' variables: no
+    silent world of one.  Through the CLI, both packages raise
+    ValueError."""
     import torch.distributed as dist
 
     with pytest.raises(ValueError, match="JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, "
-                                         "JAX_PROCESS_ID"):
+                                         "JAX_PROCESS_ID") as err:
         tdist.maybe_initialize_distributed(force=True)
+    for launcher in ("SLURM", "SLURM_STEP_NODELIST", "Open MPI", "OMPI_MCA_orte_hnp_uri"):
+        assert launcher in str(err.value)
     assert not dist.is_initialized()
     fa = Path("r.fasta")
     fa.write_bytes(_fasta_blob(1, 3))
@@ -194,6 +202,157 @@ def test_rank_outside_the_world_is_refused(monkeypatch):
     monkeypatch.setenv("JAX_PROCESS_ID", "2")
     with pytest.raises(ValueError, match=r"JAX_PROCESS_ID=2 is not in \[0, JAX_NUM_PROCESSES=2\)"):
         tdist.maybe_initialize_distributed()
+
+
+# ------------------------------------------------------- cluster detection
+
+_NODELISTS = ["node001", "node001,host2", "node[001-0015],host2", "node[001,007-015],host2",
+              "localhost"]
+_ORTE_URIS = ["1531576320.0;tcp://10.96.0.1,10.148.0.1,10.108.0.1:34911",
+              "1314521088.0;tcp6://[fe80::b9b:ac5d:9cf0:b858,2620:10d:c083:150e::3000:2]:43370",
+              "4096.0;tcp://127.0.0.1:1024"]
+
+
+def _slurm(monkeypatch, nodelist="node001", procid=1, ntasks=4, localid=1, job="81234"):
+    for name, value in (("SLURM_JOB_ID", job), ("SLURM_STEP_NODELIST", nodelist),
+                        ("SLURM_NTASKS", ntasks), ("SLURM_PROCID", procid),
+                        ("SLURM_LOCALID", localid)):
+        monkeypatch.setenv(name, str(value))
+
+
+def _ompi(monkeypatch, uri=_ORTE_URIS[0], rank=2, size=3, local=0):
+    for name, value in (("OMPI_MCA_orte_hnp_uri", uri), ("OMPI_COMM_WORLD_SIZE", size),
+                        ("OMPI_COMM_WORLD_RANK", rank),
+                        ("OMPI_COMM_WORLD_LOCAL_RANK", local)):
+        monkeypatch.setenv(name, str(value))
+
+
+def _params(cluster, jax_style: bool):
+    """(address, count, id, local id) as a cluster class gives them."""
+    port = os.environ.get("JAX_COORDINATOR_PORT")
+    if jax_style:
+        return (cluster.get_coordinator_address(None, port), cluster.get_process_count(),
+                cluster.get_process_id(), cluster.get_local_process_id())
+    return (cluster.coordinator_address(port), cluster.process_count(),
+            cluster.process_id(), cluster.local_process_id())
+
+
+@pytest.mark.parametrize("port", [None, "12345"], ids=["job_port", "port_override"])
+@pytest.mark.parametrize("nodelist", _NODELISTS)
+def test_slurm_detection_matches_jax(monkeypatch, nodelist, port):
+    from jax._src.clusters import SlurmCluster
+
+    _slurm(monkeypatch, nodelist)
+    if port:
+        monkeypatch.setenv("JAX_COORDINATOR_PORT", port)
+    assert SlurmCluster.is_env_present() and tdist.SlurmCluster.is_env_present()
+    got = _params(tdist.SlurmCluster, False)
+    assert got == _params(SlurmCluster, True)
+    assert got[0].split(":")[0] == ("localhost" if nodelist == "localhost" else "node001")
+    assert tdist.detect_cluster() is tdist.SlurmCluster
+    assert tdist.local_process_id() == 1
+    monkeypatch.delenv("SLURM_LOCALID")
+    assert not SlurmCluster.is_env_present() and tdist.detect_cluster() is None
+
+
+@pytest.mark.parametrize("port", [None, "12345"], ids=["job_port", "port_override"])
+@pytest.mark.parametrize("uri", _ORTE_URIS, ids=["tcp", "tcp6", "tcp_low_job"])
+def test_open_mpi_detection_matches_jax(monkeypatch, uri, port):
+    from jax._src.clusters import OmpiCluster
+
+    _ompi(monkeypatch, uri)
+    if port:
+        monkeypatch.setenv("JAX_COORDINATOR_PORT", port)
+    assert OmpiCluster.is_env_present() and tdist.OmpiCluster.is_env_present()
+    assert _params(tdist.OmpiCluster, False) == _params(OmpiCluster, True)
+    assert tdist.detect_cluster() is tdist.OmpiCluster
+
+
+def test_open_mpi_wins_over_slurm_in_both(monkeypatch):
+    """Both launchers' variables set: JAX's order takes Open MPI, and so
+    does the port."""
+    from jax._src.clusters import ClusterEnv
+
+    _slurm(monkeypatch, "node[001-0015],host2", procid=0, ntasks=2, localid=0)
+    _ompi(monkeypatch, _ORTE_URIS[0], rank=2, size=3, local=1)
+    addr, count, pid, local_ids = ClusterEnv.auto_detect_unset_distributed_params(
+        None, None, None, None, None, None)
+    assert tdist.detect_cluster() is tdist.OmpiCluster
+    assert _params(tdist.OmpiCluster, False) == (addr, count, pid, 1)
+    assert local_ids in ([1], None)  # None only where JAX runs on a Cloud TPU VM
+
+
+def _captured_init(monkeypatch) -> list:
+    import torch.distributed as dist
+
+    seen = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: seen.append((backend, kw)))
+    return seen
+
+
+@pytest.mark.parametrize("launch", ["slurm", "ompi", "address_and_slurm", "triplet_and_slurm"])
+def test_group_starts_from_a_detected_cluster(monkeypatch, launch):
+    """The group's address, size and rank, as ``jax.distributed.
+    initialize()`` fills what the triplet leaves unset: from SLURM, from
+    Open MPI, the address from ``JAX_COORDINATOR_ADDRESS`` and the rest
+    from SLURM, or the whole triplet (the cluster then only gives the
+    local id)."""
+    seen = _captured_init(monkeypatch)
+    _slurm(monkeypatch, "node[001-0015],host2", procid=1, ntasks=4, job="81234")
+    if launch == "ompi":
+        _ompi(monkeypatch, _ORTE_URIS[1], rank=2, size=3)
+    if launch in ("address_and_slurm", "triplet_and_slurm"):
+        monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "10.1.2.3:5555")
+    if launch == "triplet_and_slurm":
+        monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+        monkeypatch.setenv("JAX_PROCESS_ID", "0")
+    assert tdist.maybe_initialize_distributed(force=launch in ("slurm", "ompi")) is True
+    slurm_port = 81234 % 4096 + 61440
+    want = {
+        "slurm": (f"tcp://node001:{slurm_port}", 1, 4),
+        "ompi": (f"tcp://[fe80::b9b:ac5d:9cf0:b858]:{1314521088 // 4096 % 4096 + 61440}",
+                 2, 3),
+        "address_and_slurm": ("tcp://10.1.2.3:5555", 1, 4),
+        "triplet_and_slurm": ("tcp://10.1.2.3:5555", 0, 2),
+    }[launch]
+    assert seen == [("gloo", {"init_method": want[0], "rank": want[1],
+                              "world_size": want[2]})]
+    assert tdist.local_process_id() == (0 if launch == "ompi" else 1)
+
+
+def test_without_force_a_cluster_alone_starts_nothing(monkeypatch):
+    """As in cfrk_tpu: detection runs only for ``--distributed``."""
+    seen = _captured_init(monkeypatch)
+    _slurm(monkeypatch)
+    assert tdist.maybe_initialize_distributed() is False and seen == []
+
+
+def test_slurm_rank_outside_the_world_is_refused(monkeypatch):
+    _slurm(monkeypatch, procid=4, ntasks=4)
+    with pytest.raises(ValueError, match=r"SLURM_PROCID=4 is not in \[0, SLURM_NTASKS=4\)"):
+        tdist.maybe_initialize_distributed(force=True)
+
+
+@pytest.mark.parametrize("local", [0, 1, 2])
+def test_local_id_picks_the_card(monkeypatch, local):
+    """``--distributed`` on ``--device cuda`` under a detected cluster:
+    the card ``cuda:<local id>``; an id at or above the card count
+    exits; on the CPU, or with no cluster, no card is picked."""
+    import torch
+
+    from cfrk_tpu_torch import cli as tcli
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cuda = torch.device("cuda")
+    assert tcli._rank_card(cuda) is None
+    _slurm(monkeypatch, localid=local)
+    assert tcli._rank_card(torch.device("cpu")) is None
+    if local < 2:
+        assert tcli._rank_card(cuda) == torch.device("cuda", local)
+    else:
+        with pytest.raises(SystemExit, match="local id is 2, but only 2 CUDA"):
+            tcli._rank_card(cuda)
 
 
 def _free_ports(n: int) -> list:
@@ -472,6 +631,27 @@ def _cli_ranks(world, argv, cwd, fault_of_rank) -> list:
         if attempt == 0 and any(_taken(err) for _, _, err in runs):
             continue
         return runs
+
+
+def test_ranks_started_by_slurm_write_one_process_bytes(tmp_path, inputs, jax_bytes):
+    """2 gloo ranks started from SLURM's variables alone (each task on a
+    node of its own, ``SLURM_LOCALID=0``; the port from
+    ``JAX_COORDINATOR_PORT``): the byte-ranged run writes the bytes of
+    one process, and no part is left."""
+    out = tmp_path / "o.cfrk"
+    argv = [inputs["plain"], str(out), *_LEGS["perread_plain"][1], "--distributed",
+            "--device", "cpu", "--batch-size", "8"]
+    for attempt in (0, 1):
+        port = _free_ports(1)[0]
+        runs = _launch(2, _CLI, lambda r: argv, tmp_path, lambda r: {
+            "SLURM_JOB_ID": "777", "SLURM_STEP_NODELIST": "localhost", "SLURM_NTASKS": "2",
+            "SLURM_PROCID": str(r), "SLURM_LOCALID": "0",
+            "JAX_COORDINATOR_PORT": str(port)})
+        if not any(_taken(err) for _, _, err in runs):
+            break
+    assert [rc for rc, _, _ in runs] == [0, 0], [r[2][-2000:] for r in runs]
+    assert out.read_bytes() == jax_bytes["perread_plain"]
+    assert sorted(p.name for p in tmp_path.iterdir() if p.name.startswith("o.")) == ["o.cfrk"]
 
 
 @pytest.mark.parametrize("killed", ["both", "rank1"])

@@ -67,6 +67,7 @@ _MODULES = [
     "cfrk_tpu_torch.tools.onchip_fuzz",
     "cfrk_tpu_torch.tools.fuzz_cli",
     "cfrk_tpu_torch.tools.scale_demo",
+    "cfrk_tpu_torch.tools.scaling_bench",
     "cfrk_tpu_torch.parallel",
     "cfrk_tpu_torch.parallel.distributed",
     "cfrk_tpu_torch.parallel.mesh",

@@ -7,8 +7,9 @@ test says so), where every device-local step runs the plain twins of the
 kernels.  Inputs come from ``numpy.random.default_rng`` with a fixed
 seed.  Every output is an integer array or bytes: the tolerance is exact
 equality, bucket overflow flags and ``slack_used`` included.  CLI tests
-patch the port's ``local_devices`` to 8 CPU devices, so that
-``--device cpu`` builds the meshes the JAX CLI builds over its 8.
+repeat the CPU 8 times (``parallel.mesh.repeat_devices``, the
+counterpart of XLA's forced host device count), so that ``--device cpu``
+builds the meshes the JAX CLI builds over its 8.
 """
 
 from pathlib import Path
@@ -84,6 +85,27 @@ def _write_fasta(path: Path, codes) -> str:
 
 
 # ---------------------------------------------------------------- mesh
+
+
+def test_repeat_devices_stands_one_device_for_many():
+    """``repeat_devices(n)``: ``local_devices`` is its device n times
+    (the counterpart of ``--xla_force_host_platform_device_count``);
+    ``None`` gives back every distinct device; the setting it replaced
+    is returned."""
+    from cfrk_tpu_torch.parallel import mesh as tmesh
+
+    prev = tmesh.repeat_devices(None)
+    try:
+        assert tmesh.local_devices("cpu") == [CPU]
+        assert tmesh.repeat_devices(3) is None
+        assert tmesh.local_devices("cpu") == [CPU] * 3
+        assert tmesh.local_devices(torch.device("cuda", 1)) == [torch.device("cuda", 1)] * 3
+        assert tmesh.repeat_devices(None) == 3
+        assert tmesh.local_devices("cpu") == [CPU]
+        with pytest.raises(ValueError, match="repeated 0 times"):
+            tmesh.repeat_devices(0)
+    finally:
+        tmesh.repeat_devices(prev)
 
 
 def test_make_mesh_and_shardings_match_jax():
@@ -563,8 +585,12 @@ def test_sparse_spectrum_arrays_on_mesh_matches_jax(tmp_path):
 
 
 @pytest.fixture
-def eight_cpus(monkeypatch):
-    monkeypatch.setattr(tmesh, "local_devices", lambda device: [CPU] * 8)
+def eight_cpus():
+    """The CPU repeated 8 times (``repeat_devices``), as the JAX package
+    has 8 virtual host devices under tests/conftest.py."""
+    prev = tmesh.repeat_devices(8)
+    yield
+    tmesh.repeat_devices(prev)
 
 
 def _cli_both(tmp_path, inp, flags, capsys=None):
@@ -661,7 +687,10 @@ def test_cli_default_is_every_local_device(tmp_path, monkeypatch):
     monkeypatch.setattr(tcli, "_build_mesh", spy)
     fa = _reads_fasta(tmp_path, 10)
     assert main([fa, "-o", "a.cfrk", "-k", "3", "--device", "cpu"]) == 0
-    monkeypatch.setattr(tmesh, "local_devices", lambda device: [CPU] * 2)
-    assert main([fa, "-o", "b.cfrk", "-k", "3", "--device", "cpu"]) == 0
+    prev = tmesh.repeat_devices(2)
+    try:
+        assert main([fa, "-o", "b.cfrk", "-k", "3", "--device", "cpu"]) == 0
+    finally:
+        tmesh.repeat_devices(prev)
     assert seen == [None, 2]
     assert Path("a.cfrk").read_bytes() == Path("b.cfrk").read_bytes()

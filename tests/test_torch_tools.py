@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from cfrk_tpu_torch.cli import main as cli_main
+from cfrk_tpu_torch.parallel import mesh as pmesh
 from cfrk_tpu_torch.tools import (
     fuzz_cli,
     make_synthetic,
@@ -33,6 +34,7 @@ from cfrk_tpu_torch.tools import (
     query_spectrum,
     reconstruct_fasta,
     scale_demo,
+    scaling_bench,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -43,6 +45,16 @@ MANIFEST = json.loads((DATA / "goldens.json").read_text())
 @pytest.fixture(autouse=True)
 def _empty_cwd(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
+
+
+@pytest.fixture(autouse=True)
+def _device_repeat():
+    """A tool that sets ``parallel.mesh.repeat_devices`` sets it for its
+    process; each test gets the setting back as it found it."""
+    prev = pmesh.repeat_devices(None)
+    pmesh.repeat_devices(prev)
+    yield
+    pmesh.repeat_devices(prev)
 
 
 def _jax_tool(name: str):
@@ -301,6 +313,50 @@ def test_fuzz_cli_draws_jax_configs(tmp_path, monkeypatch):
     assert all(cfg["mesh"] == 0 for cfg in got)
 
 
+def test_fuzz_cli_draws_jax_mesh_configs(tmp_path, monkeypatch):
+    """With mesh trials drawn, three trials of seed 18 side by side: the
+    JAX tool on conftest's 8 virtual devices, the port on the CPU
+    repeated 8 times; the same config dicts, among them meshes of 2 and
+    4 devices and a seqpar trial (``--impl sort`` on the spectrum), each
+    output held to the numpy spec."""
+    jax_fuzz = _jax_tool("fuzz_cli")
+    pmesh.repeat_devices(8)
+    runs = {"jax": lambda r, d: jax_fuzz.run_trial(r, d, use_mesh=True),
+            "port": lambda r, d: fuzz_cli.run_trial(r, d, "cpu", use_mesh=True)}
+    cfgs = {}
+    for name, run in runs.items():
+        rng = np.random.default_rng(18)
+        cfgs[name] = []
+        for t in range(3):
+            d = tmp_path / f"{name}{t}"
+            d.mkdir()
+            monkeypatch.chdir(d)
+            cfgs[name].append(run(rng, str(d)))
+    got, want = cfgs["port"], cfgs["jax"]
+    assert got == want
+    assert [cfg["mesh"] for cfg in got] == [2, 4, 2]
+    assert [cfg.get("seqpar") for cfg in got] == [False, True, True]
+
+
+def test_fuzz_cli_mesh_campaign_on_cpu(capsys):
+    """``--devices 8`` on the CPU: the campaign draws mesh and seqpar
+    trials and counts them."""
+    assert fuzz_cli.main(["--trials", "3", "--seed", "18", "--devices", "8",
+                          "--device", "cpu"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["ok"] and rec["mesh_trials"] == {"2": 2, "4": 1}
+    assert rec["seqpar_trials"] == 2
+    assert pmesh.local_devices("cpu") == [torch.device("cpu")] * 8
+
+
+@pytest.mark.parametrize("devices", [2, 7])
+def test_fuzz_cli_refuses_a_mesh_campaign_below_8_devices(devices, capsys):
+    with pytest.raises(SystemExit):
+        fuzz_cli.main(["--trials", "1", "--devices", str(devices), "--device", "cpu"])
+    assert "needs --devices 8 or more" in capsys.readouterr().err
+    assert pmesh.local_devices("cpu") == [torch.device("cpu")]
+
+
 def test_fuzz_cli_campaign_on_cpu(capsys):
     """A bounded port-only campaign: 12 trials, each output file parsed
     back and held to the numpy spec (exact)."""
@@ -349,6 +405,104 @@ def test_onchip_validate_failed_check_exits_1(tmp_path, monkeypatch):
     assert rec["checks"]["spectrum_kernel_parity"]["error"] == "AssertionError: planted"
     assert all(rec["checks"][name] == {"ok": True, "ran": True, "wall_s": rec["checks"][name]["wall_s"]}
                for name in checks if name != "spectrum_kernel_parity")
+
+
+def test_mesh_probes_match_jax(tmp_path, monkeypatch, capsys):
+    """The port's ``mesh_kernel_probes`` on the CPU returns the probes
+    of the JAX tool's ``mesh_compiled_probes``, run in process on its
+    one-device CPU mesh (``--skip-pallas``; the JAX tool's other
+    row-sort parity check takes the XLA rows in place of the Pallas
+    kernel, whose interpret mode would take minutes here).  The port's
+    check sits where JAX's does: after the row-sort parity, before
+    ``auto_batch_capacity``."""
+    from cfrk_tpu.ops.pallas import rowsort as jax_rowsort
+    from cfrk_tpu.ops.perread_sparse import (
+        count_perread_sparse,
+        count_perread_sparse_large,
+    )
+
+    def rows(x, k, canonical=False, checksum=False):
+        idx, counts = count_perread_sparse(x, k, canonical)
+        if not checksum:
+            return idx, counts
+        return idx, counts, (((counts & 3) + (idx & 3)) * (counts > 0)).sum()
+
+    monkeypatch.setattr(jax_rowsort, "rowsort_rle_pallas", rows)
+    monkeypatch.setattr(jax_rowsort, "rowsort_rle_pallas_large",
+                        lambda x, k, canonical=False, **kw:
+                        count_perread_sparse_large(x, k, canonical))
+    out = tmp_path / "tpu.json"
+    rc, _ = _run_jax_main(_jax_tool("onchip_validate"), ["--skip-pallas", "--out", str(out)],
+                          monkeypatch, capsys)
+    want = json.loads(out.read_text())["checks"]["mesh_compiled_probes"]
+    assert rc == 0 and want["ok"]
+    got = onchip_validate.mesh_kernel_probes(torch.device("cpu"))
+    assert got == {"probes": want["probes"]}
+    names = list(onchip_validate.CHECKS)
+    assert names.index("mesh_kernel_probes") == names.index("rowsort_kernel_parity") + 1
+    assert names[-1] == "auto_batch_capacity"
+
+
+def test_mesh_probe_catches_a_wrong_shard(monkeypatch):
+    """A sharded row sort that differs from the plain rows fails the
+    check."""
+    real = onchip_validate.count_perread_sparse_sharded
+
+    def off_by_one(codes, k, mesh, **kw):
+        out = [a.clone() for a in real(codes, k, mesh, **kw)]
+        out[-1][0, 0] += 1
+        return tuple(out)
+
+    monkeypatch.setattr(onchip_validate, "count_perread_sparse_sharded", off_by_one)
+    with pytest.raises(AssertionError, match="rowsort_mesh"):
+        onchip_validate.mesh_kernel_probes(torch.device("cpu"))
+
+
+# ------------------------------------------------------------ scaling_bench
+
+
+@pytest.mark.parametrize("mode", ["perread", "rows", "spectrum"])
+def test_scaling_bench_ladder_matches_jax(monkeypatch, capsys, mode):
+    """``--cpu --reads-per-device 16 --steps 1``: the port on the CPU
+    repeated 8 times gives the JAX tool's ladder on its 8 virtual
+    devices, rung by rung: devices, reads and checksum."""
+    argv = ["--cpu", "--mode", mode, "--reads-per-device", "16", "--steps", "1"]
+    rc, out = _run_jax_main(_jax_tool("scaling_bench"), argv, monkeypatch, capsys)
+    assert rc == 0
+    want = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    rc, out = _run_port_main(scaling_bench.main, argv, capsys)
+    assert rc == 0
+    got = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    keys = ("devices", "mode", "k", "reads", "checksum")
+    assert [[r[key] for key in keys] for r in got] == [[r[key] for key in keys] for r in want]
+    assert [r["devices"] for r in got] == [1, 2, 4, 8]
+    assert all(set(r) == set(w) for r, w in zip(got, want))
+    assert scaling_bench.sharded_checksums(
+        [torch.device("cpu")] * 8, mode, 8, 16, 150) == [
+            (r["devices"], r["checksum"]) for r in want]
+
+
+def test_scaling_bench_json_out(tmp_path, capsys):
+    """The ``--json-out`` document: one run a mode (a second run of a
+    mode replaces the first), the device record, and the label that a
+    ladder of one device repeated is no performance measurement."""
+    path = tmp_path / "scaling.json"
+    for mode in ("rows", "spectrum", "rows"):
+        assert scaling_bench.main(["--cpu", "--mode", mode, "--reads-per-device", "8",
+                                   "--steps", "1", "--json-out", str(path)]) == 0
+    doc = json.loads(path.read_text())
+    assert [run["ladder"][0]["mode"] for run in doc["runs"]] == ["spectrum", "rows"]
+    run = doc["runs"][1]
+    assert run["spmd_validation_only"] is True and run["platform"] == "cpu"
+    assert run["reads_per_device"] == 8 and run["devices"] == ["cpu"] * 8
+    assert [r["reads"] for r in run["ladder"]] == [8, 16, 32, 64]
+    assert run["ladder"][0]["efficiency_vs_1dev"] == 1.0
+
+
+def test_scaling_bench_needs_the_card_without_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        scaling_bench.main(["--mode", "rows", "--steps", "1"])
 
 
 # ------------------------------------------------------------ scale_demo
