@@ -712,12 +712,20 @@ def main(argv=None) -> int:
             # One input over several processes: each streams a byte range.
             _check_rangeable(args.inputs[0])
             args.stream = args.byte_ranged = True
+        if args.batch_size is None:
+            # Auto batch sizing: the first record's length of the first
+            # regular input (a pipe cannot be peeked).
+            from .io.fasta import is_stdin, peek_first_read_len
+
+            hint = next((peek_first_read_len(inp) for inp in args.inputs
+                         if not is_stdin(inp)), None)
+            args.batch_size = auto_batch_size(hint)
         args.mesh = _build_mesh(args, device)
         if args.mesh is not None and not args.seqpar:
             # Row-sharded batches must divide across the devices; the
             # batches are padded to the full size anyway, so rounding up
             # changes the padding, not the output.
-            bs = args.batch_size or auto_batch_size()
+            bs = args.batch_size
             if bs % args.mesh.size:
                 new = -(-bs // args.mesh.size) * args.mesh.size
                 print(f"# batch size {bs} -> {new} "
@@ -897,15 +905,13 @@ def _run_byte_ranged(args, device) -> int:
     import torch.distributed as dist
 
     from .parallel.distributed import host_byte_range
-    from .pipeline.batch import auto_batch_size
     from .runtime.checkpoint import cleanup_checkpoint
 
     inp = args.inputs[0]
     out = args.output or _out_path(inp, args.out_dir or ".", args.mode)
     rank, world = dist.get_rank(), dist.get_world_size()
     part = f"{out}.part{rank}"
-    common = dict(device=device, canonical=args.canonical,
-                  batch_size=args.batch_size or auto_batch_size(),
+    common = dict(device=device, canonical=args.canonical, batch_size=args.batch_size,
                   resume=args.resume, byte_range=host_byte_range(inp),
                   min_qual=args.min_qual, mesh=args.mesh, seqpar=args.seqpar)
     if args.mode == "perread":

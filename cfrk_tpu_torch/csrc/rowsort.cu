@@ -77,6 +77,16 @@
 // kRleOnly alone searches without the look at the next key, which is
 // exact on sorted rows only.
 //
+// Checksum: kEmit with kChecksum (the JAX kernels' checksum=True) also
+// writes chk[block], the sum over the block's rows of kFull's row
+// checksum, (count & 3) + (key & 3) over the run starts (the key's low
+// word for k > 15, whose low two bits are the key's), rows past B
+// counting zero.  A bench consumes it to keep the row writes alive
+// without reading them back.  The run lengths and keys are those the
+// emit holds in registers: one block reduction and one store a block,
+// no pass over the outputs.  Without kChecksum the kernel is the
+// production kernel unchanged.
+//
 // The C entry points launch on the stream they are given, allocate
 // nothing and return cudaGetLastError() after the launch.
 
@@ -367,9 +377,10 @@ __device__ __forceinline__ int run_end(const Key* s, int i, int n, Key key) {
 
 // Stage 4 for one row: the cells t, t + step, ... of the row's W cells,
 // from its keys s[0..n) in shared memory.  kEmit writes the row at
-// `base` of the outputs and returns 0; a probe variant returns the
-// thread's share of the row's checksum.
-template <bool kLarge, int kVariant>
+// `base` of the outputs and returns the thread's share of the row's
+// checksum with kChecksum, else 0; a probe variant returns that share
+// and writes nothing.
+template <bool kLarge, int kVariant, bool kChecksum = false>
 __device__ __forceinline__ int64_t finish_row(
     const KeyOf<kLarge>* s, int n, int W, int t, int step, int64_t base,
     int32_t* __restrict__ key_out, int32_t* __restrict__ lo_out,
@@ -383,7 +394,11 @@ __device__ __forceinline__ int64_t finish_row(
     } else {
       const bool first = key != sentinel && (i == 0 || s[i - 1] != key);
       if constexpr (kVariant == kEmit) {
-        cnt_out[base + i] = first ? run_end<kVariant>(s, i, n, key) - i : 0;
+        const int count = first ? run_end<kVariant>(s, i, n, key) - i : 0;
+        cnt_out[base + i] = count;
+        if constexpr (kChecksum) {
+          if (first) acc += (count & 3) + int(key & 3);
+        }
         if constexpr (kLarge) {
           const Key lo_mask = (Key(1) << kLoBits) - 1;
           key_out[base + i] =
@@ -404,7 +419,7 @@ __device__ __forceinline__ int64_t finish_row(
 // Rows of up to kMaxRegWidth keys: `width` (a power of two in
 // [kMinWidth, kRegThreads * kKeys], >= n) keys a row, width / kKeys
 // threads a row, kRegThreads * kKeys / width rows a block.
-template <bool kLarge, int kVariant, int kKeys>
+template <bool kLarge, int kVariant, int kKeys, bool kChecksum = false>
 __global__ void __launch_bounds__(kRegThreads)
     rowsort_rle_regs(const int8_t* __restrict__ codes,
                      int32_t* __restrict__ key_out,
@@ -459,11 +474,14 @@ __global__ void __launch_bounds__(kRegThreads)
 
   int64_t acc = 0;
   if (live) {
-    acc = finish_row<kLarge, kVariant>(srow, n, W, t, threads,
-                                       (row0 + r) * W, key_out, lo_out,
-                                       cnt_out, sentinel);
+    acc = finish_row<kLarge, kVariant, kChecksum>(srow, n, W, t, threads,
+                                                  (row0 + r) * W, key_out,
+                                                  lo_out, cnt_out, sentinel);
   }
-  if constexpr (kVariant != kEmit) {
+  if constexpr (kVariant == kEmit && kChecksum) {
+    acc = cfrk::block_sum(acc);
+    if (threadIdx.x == 0) chk[blockIdx.x] = acc;
+  } else if constexpr (kVariant != kEmit) {
     // The row's checksum: its threads' shares, summed inside each warp
     // and then across the row's warps in shared memory.
     const int span = threads < 32 ? threads : 32;
@@ -482,7 +500,7 @@ __global__ void __launch_bounds__(kRegThreads)
 
 // Rows above kMaxRegWidth keys: one block a row, the n keys and the
 // whole network in shared memory.
-template <bool kLarge, int kVariant>
+template <bool kLarge, int kVariant, bool kChecksum = false>
 __global__ void rowsort_rle_wide(const int8_t* __restrict__ codes,
                                  int32_t* __restrict__ key_out,
                                  int32_t* __restrict__ lo_out,
@@ -507,16 +525,16 @@ __global__ void rowsort_rle_wide(const int8_t* __restrict__ codes,
   __syncthreads();
   if constexpr (sorts(kVariant)) bitonic_sort(s, n);
 
-  int64_t acc = finish_row<kLarge, kVariant>(
+  int64_t acc = finish_row<kLarge, kVariant, kChecksum>(
       s, n, W, int(threadIdx.x), int(blockDim.x), int64_t(blockIdx.x) * W,
       key_out, lo_out, cnt_out, sentinel);
-  if constexpr (kVariant != kEmit) {
+  if constexpr (kVariant != kEmit || kChecksum) {
     acc = cfrk::block_sum(acc);
     if (threadIdx.x == 0) chk[blockIdx.x] = acc;
   }
 }
 
-template <bool kLarge, int kVariant>
+template <bool kLarge, int kVariant, bool kChecksum = false>
 int launch(const int8_t* codes, int32_t* key_out, int32_t* lo_out,
            int32_t* cnt_out, int64_t* chk, int B, int L, int W, int k,
            int canonical, cudaStream_t stream) {
@@ -530,9 +548,10 @@ int launch(const int8_t* codes, int32_t* key_out, int32_t* lo_out,
     const int rows = (kRegThreads << (wide_keys ? kLogKeysWide : kLogKeys)) / width;
     const size_t smem = size_t(rows) * width * sizeof(Key) +
                         size_t(rows) * units_of(width) * 6;
-    const auto kernel = wide_keys
-                            ? rowsort_rle_regs<kLarge, kVariant, 1 << kLogKeysWide>
-                            : rowsort_rle_regs<kLarge, kVariant, 1 << kLogKeys>;
+    const auto kernel =
+        wide_keys
+            ? rowsort_rle_regs<kLarge, kVariant, 1 << kLogKeysWide, kChecksum>
+            : rowsort_rle_regs<kLarge, kVariant, 1 << kLogKeys, kChecksum>;
     kernel<<<(B + rows - 1) / rows, kRegThreads, smem, stream>>>(
         codes, key_out, lo_out, cnt_out, chk, B, L, W, n, width, k,
         canonical != 0);
@@ -541,11 +560,12 @@ int launch(const int8_t* codes, int32_t* key_out, int32_t* lo_out,
   const size_t smem = size_t(n) * sizeof(Key) + size_t(units_of(n)) * 6;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rowsort_rle_wide<kLarge, kVariant>,
+        rowsort_rle_wide<kLarge, kVariant, kChecksum>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
   }
-  rowsort_rle_wide<kLarge, kVariant><<<B, kMaxThreads, smem, stream>>>(
+  rowsort_rle_wide<kLarge, kVariant, kChecksum>
+      <<<B, kMaxThreads, smem, stream>>>(
       codes, key_out, lo_out, cnt_out, chk, B, L, W, n, k, canonical != 0);
   return int(cudaGetLastError());
 }
@@ -566,26 +586,37 @@ int launch_probe(const void* codes, void* chk, int B, int L, int W, int k,
 
 extern "C" {
 
-// codes [B, L] int8 → idx, counts [B, W] int32 (W = L-k+1, 1 <= k <= 15).
-int cfrk_rowsort_rle(const void* codes, void* idx_out, void* cnt_out, int B,
-                     int L, int W, int k, int canonical, void* stream) {
-  return launch<false, kEmit>(static_cast<const int8_t*>(codes),
-                              static_cast<int32_t*>(idx_out), nullptr,
-                              static_cast<int32_t*>(cnt_out), nullptr, B, L,
-                              W, k, canonical,
-                              static_cast<cudaStream_t>(stream));
+// codes [B, L] int8 → idx, counts [B, W] int32 (W = L-k+1, 1 <= k <= 15);
+// with chk not null also chk[grid blocks] int64 (see the file header).
+int cfrk_rowsort_rle(const void* codes, void* idx_out, void* cnt_out,
+                     void* chk, int B, int L, int W, int k, int canonical,
+                     void* stream) {
+  const auto c = static_cast<const int8_t*>(codes);
+  const auto idx = static_cast<int32_t*>(idx_out);
+  const auto cnt = static_cast<int32_t*>(cnt_out);
+  const auto out = static_cast<int64_t*>(chk);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return chk ? launch<false, kEmit, true>(c, idx, nullptr, cnt, out, B, L, W,
+                                          k, canonical, s)
+             : launch<false, kEmit>(c, idx, nullptr, cnt, nullptr, B, L, W, k,
+                                    canonical, s);
 }
 
 // codes [B, L] int8 → hi, lo (uint32 bit patterns), counts [B, W] int32
-// (W = L-k+1, 16 <= k <= 31).
+// (W = L-k+1, 16 <= k <= 31); chk as for cfrk_rowsort_rle.
 int cfrk_rowsort_rle_large(const void* codes, void* hi_out, void* lo_out,
-                           void* cnt_out, int B, int L, int W, int k,
-                           int canonical, void* stream) {
-  return launch<true, kEmit>(static_cast<const int8_t*>(codes),
-                             static_cast<int32_t*>(hi_out),
-                             static_cast<int32_t*>(lo_out),
-                             static_cast<int32_t*>(cnt_out), nullptr, B, L, W,
-                             k, canonical, static_cast<cudaStream_t>(stream));
+                           void* cnt_out, void* chk, int B, int L, int W,
+                           int k, int canonical, void* stream) {
+  const auto c = static_cast<const int8_t*>(codes);
+  const auto hi = static_cast<int32_t*>(hi_out);
+  const auto lo = static_cast<int32_t*>(lo_out);
+  const auto cnt = static_cast<int32_t*>(cnt_out);
+  const auto out = static_cast<int64_t*>(chk);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return chk ? launch<true, kEmit, true>(c, hi, lo, cnt, out, B, L, W, k,
+                                         canonical, s)
+             : launch<true, kEmit>(c, hi, lo, cnt, nullptr, B, L, W, k,
+                                   canonical, s);
 }
 
 // Probe variant `variant` (1 full, 2 sortonly, 3 rleonly, 4 noop) of the

@@ -42,6 +42,7 @@ __all__ = [
     "iter_fasta_encoded",
     "iter_encoded_with_offsets",
     "read_fasta_encoded",
+    "peek_first_read_len",
 ]
 
 # 256-entry LUT: byte -> 2-bit code, -1 for anything not in ACGTacgt.
@@ -187,6 +188,22 @@ def iter_reads(path_or_file, min_qual: int = 0) -> Iterator[tuple[bytes, bytes]]
             yield from iter_fastq(f, min_qual)
         else:
             yield from iter_fasta(f)
+
+
+def peek_first_read_len(path) -> int | None:
+    """Length of the first record, or None (empty/unreadable input).
+
+    A cheap read-length hint for :func:`..pipeline.batch.auto_batch_size`
+    — opens the file, parses one record, closes.  Never raises: auto
+    sizing must not turn an input error into a different error than the
+    real run would produce.
+    """
+    try:
+        for _, seq in iter_reads(path):
+            return len(seq)
+    except Exception:
+        return None
+    return None
 
 
 def iter_fasta_encoded(path, min_qual: int = 0) -> Iterator[np.ndarray]:

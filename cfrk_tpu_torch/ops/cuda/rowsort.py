@@ -25,6 +25,14 @@ the plain twins
 with ``torch.sort`` on any device; ``ops/perread_sparse.py`` exports them
 as ``count_perread_sparse`` / ``count_perread_sparse_large``.
 
+``checksum=True`` (the JAX kernels' option) also returns ``chk``, one
+int64 a thread block of the kernel: the sum over the block's reads of
+``count & 3`` plus ``key & 3`` at each run start (the ``lo`` word above
+k = 15), reads past B counting zero.  A benchmark consumes it so that
+the row writes are not dead without reading them back.  The blocks are
+the kernel's (:func:`checksum_rows_per_block`), not the TPU kernel's, so
+only the sum ``chk.sum()`` is the same in both packages.
+
 This module owns the device decision: a wrapper takes its plain twin
 only for a tensor on the CPU.  For a CUDA tensor it launches its kernel
 or raises; a build or launch failure is never replaced by the plain
@@ -56,6 +64,7 @@ __all__ = [
     "rowsort_rle_large",
     "rowsort_rle_plain",
     "rowsort_rle_large_plain",
+    "checksum_rows_per_block",
     "rowsort_probe",
     "rowsort_probe_plain",
     "UNIT_BASES",
@@ -129,11 +138,45 @@ def rle_rows(keys: torch.Tensor, is_real: torch.Tensor, sentinel: int):
     return torch.where(first, keys, sentinel), counts
 
 
-def rowsort_rle_plain(codes: torch.Tensor, k: int, canonical: bool = False):
+# The kernel's launch layout (``launch`` in csrc/rowsort.cu): threads of
+# a register-path block, log2 of the keys a thread holds (and of the
+# wider choice), the uint32 width from which a thread holds the wider
+# count, the narrowest row.
+_REG_THREADS, _LOG_KEYS, _LOG_KEYS_WIDE, _WIDE_FROM_32, _MIN_WIDTH = 256, 3, 4, 256, 32
+
+
+def checksum_rows_per_block(w: int, large: bool) -> int:
+    """Reads in one thread block of the row-sort kernel for rows of
+    ``w`` windows (``large``: the uint64 keys above k = 15), so reads
+    per entry of its checksum: several rows a block up to 4096 keys a
+    row, one above."""
+    n = 1 << max(w - 1, 0).bit_length()
+    if n > _REG_THREADS << _LOG_KEYS_WIDE:
+        return 1
+    width = max(n, _MIN_WIDTH)
+    wide = width > _REG_THREADS << _LOG_KEYS or (not large and width >= _WIDE_FROM_32)
+    return (_REG_THREADS << (_LOG_KEYS_WIDE if wide else _LOG_KEYS)) // width
+
+
+def _block_checksum(low_key: torch.Tensor, counts: torch.Tensor, large: bool) -> torch.Tensor:
+    """The kernel's ``chk`` from finished rows: a run start's count is
+    at least 1 and every other cell's 0."""
+    b, w = counts.shape
+    start = counts > 0
+    row = ((counts & 3) + torch.where(start, low_key & 3, 0)).sum(1, dtype=torch.int64)
+    rows = checksum_rows_per_block(w, large)
+    padded = torch.zeros(-(-b // rows) * rows, dtype=torch.int64, device=counts.device)
+    padded[:b] = row
+    return padded.view(-1, rows).sum(1)
+
+
+def rowsort_rle_plain(codes: torch.Tensor, k: int, canonical: bool = False, *,
+                      checksum: bool = False):
     """Per-read sparse rows for k <= 15, plain route on any device.
 
     codes: [B, L] int8 → (idx, counts), both [B, W] int32 with
-    W = L-k+1; the sentinel is ``4**k``.
+    W = L-k+1; the sentinel is ``4**k``.  ``checksum=True`` also returns
+    the kernel's ``chk``.
     """
     if not 1 <= k <= MAX_SPARSE_PERREAD_K:
         raise ValueError(f"k must be in [1, {MAX_SPARSE_PERREAD_K}]")
@@ -141,18 +184,21 @@ def rowsort_rle_plain(codes: torch.Tensor, k: int, canonical: bool = False):
     idx = window_indices(codes, k, canonical)  # [B, W], -1 invalid
     x = torch.where(idx < 0, sent, idx)
     x = torch.sort(x, dim=-1).values
-    return rle_rows(x, x != sent, sent)
+    idx, counts = rle_rows(x, x != sent, sent)
+    if checksum:
+        return idx, counts, _block_checksum(idx, counts, False)
+    return idx, counts
 
 
 def rowsort_rle_large_plain(codes: torch.Tensor, k: int,
-                            canonical: bool = False):
+                            canonical: bool = False, *, checksum: bool = False):
     """Per-read sparse rows for 16 <= k <= 31, plain route on any device.
 
     codes: [B, L] int8 → (hi, lo, counts), each [B, W] int32; hi and lo
     are bit views of the uint32 (hi, lo) split of ``ops/sparse.py``,
     sorted lexicographically, with sentinel 0xFFFFFFFF at non-run-start
     cells.  Validity is judged on lo: a 16-T prefix makes a real hi equal
-    the sentinel.
+    the sentinel.  ``checksum=True`` also returns the kernel's ``chk``.
     """
     if not 16 <= k <= 31:
         raise ValueError("count_perread_sparse_large needs 16 <= k <= 31")
@@ -163,9 +209,11 @@ def rowsort_rle_large_plain(codes: torch.Tensor, k: int,
     key = torch.sort(key, dim=-1).values
     key, counts = rle_rows(key, key != KEY64_SENTINEL, KEY64_SENTINEL)
     real = key != KEY64_SENTINEL
-    hi = torch.where(real, key >> (2 * LO_BASES), INVALID_SENTINEL)
-    lo = torch.where(real, key & LO_MASK, INVALID_SENTINEL)
-    return hi.to(torch.int32), lo.to(torch.int32), counts
+    hi = torch.where(real, key >> (2 * LO_BASES), INVALID_SENTINEL).to(torch.int32)
+    lo = torch.where(real, key & LO_MASK, INVALID_SENTINEL).to(torch.int32)
+    if checksum:
+        return hi, lo, counts, _block_checksum(lo, counts, True)
+    return hi, lo, counts
 
 
 def _upper_bound(s: torch.Tensor, key: torch.Tensor, lo: torch.Tensor,
@@ -383,11 +431,9 @@ def sort_in_registers_model(keys: np.ndarray, keys_per_thread: int) -> np.ndarra
 @once
 def _library() -> ctypes.CDLL:
     lib = load_library("rowsort")
-    lib.cfrk_rowsort_rle.argtypes = [_PTR, _PTR, _PTR] + [_INT] * 5 + [_PTR]
+    lib.cfrk_rowsort_rle.argtypes = [_PTR] * 4 + [_INT] * 5 + [_PTR]
     lib.cfrk_rowsort_rle.restype = _INT
-    lib.cfrk_rowsort_rle_large.argtypes = (
-        [_PTR, _PTR, _PTR, _PTR] + [_INT] * 5 + [_PTR]
-    )
+    lib.cfrk_rowsort_rle_large.argtypes = [_PTR] * 5 + [_INT] * 5 + [_PTR]
     lib.cfrk_rowsort_rle_large.restype = _INT
     lib.cfrk_rowsort_probe.argtypes = [_PTR, _PTR] + [_INT] * 7 + [_PTR]
     lib.cfrk_rowsort_probe.restype = _INT
@@ -416,59 +462,71 @@ def _check(codes: torch.Tensor, k: int, lo: int, hi: int) -> int:
     return w
 
 
-def _launch(fn, codes: torch.Tensor, outs, k: int, w: int,
+def _launch(fn, codes: torch.Tensor, outs, chk, k: int, w: int,
             canonical: bool) -> None:
     b, length = codes.shape
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = fn(
             codes.data_ptr(), *(o.data_ptr() for o in outs),
+            None if chk is None else chk.data_ptr(),
             b, length, w, k, int(canonical), stream,
         )
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
-def rowsort_rle(codes: torch.Tensor, k: int, canonical: bool = False):
+def _checksum_out(codes: torch.Tensor, w: int, large: bool, checksum: bool):
+    if not checksum:
+        return None
+    blocks = -(-codes.shape[0] // checksum_rows_per_block(w, large))
+    return torch.empty(blocks, dtype=torch.int64, device=codes.device)
+
+
+def rowsort_rle(codes: torch.Tensor, k: int, canonical: bool = False, *,
+                checksum: bool = False):
     """Per-read sparse rows for 1 <= k <= 15, fused CUDA kernel.
 
     codes [B, L] int8 → (idx, counts) [B, W] int32, W = L-k+1: rows
     ascending, a run start holds the index and its count, every other
-    cell the sentinel ``4**k`` and 0.
+    cell the sentinel ``4**k`` and 0.  ``checksum=True`` also returns
+    ``chk`` (see the module's docstring).
     """
     if codes.device.type == "cpu":
-        return rowsort_rle_plain(codes, k, canonical)
+        return rowsort_rle_plain(codes, k, canonical, checksum=checksum)
     w = _check(codes, k, 1, MAX_SPARSE_PERREAD_K)
     codes = codes.contiguous()
     idx = torch.empty((codes.shape[0], w), dtype=torch.int32, device=codes.device)
     cnt = torch.empty_like(idx)
+    chk = _checksum_out(codes, w, False, checksum)
     if codes.shape[0]:
-        _launch(_library().cfrk_rowsort_rle, codes, (idx, cnt), k, w, canonical)
+        _launch(_library().cfrk_rowsort_rle, codes, (idx, cnt), chk, k, w, canonical)
         rowsort_rle.launches += 1
-    return idx, cnt
+    return (idx, cnt) if chk is None else (idx, cnt, chk)
 
 
-def rowsort_rle_large(codes: torch.Tensor, k: int, canonical: bool = False):
+def rowsort_rle_large(codes: torch.Tensor, k: int, canonical: bool = False, *,
+                      checksum: bool = False):
     """Per-read sparse rows for 16 <= k <= 31, fused CUDA kernel.
 
     codes [B, L] int8 → (hi, lo, counts) [B, W] int32: hi and lo are bit
     views of the uint32 (hi, lo) key words, sorted lexicographically,
     sentinel 0xFFFFFFFF (-1 as int32) at non-run-start cells.
+    ``checksum=True`` also returns ``chk`` (see the module's docstring).
     """
     if codes.device.type == "cpu":
-        return rowsort_rle_large_plain(codes, k, canonical)
+        return rowsort_rle_large_plain(codes, k, canonical, checksum=checksum)
     w = _check(codes, k, 16, 31)
     codes = codes.contiguous()
     hi = torch.empty((codes.shape[0], w), dtype=torch.int32, device=codes.device)
     lo = torch.empty_like(hi)
     cnt = torch.empty_like(hi)
+    chk = _checksum_out(codes, w, True, checksum)
     if codes.shape[0]:
-        _launch(
-            _library().cfrk_rowsort_rle_large, codes, (hi, lo, cnt), k, w,
-            canonical,
-        )
+        _launch(_library().cfrk_rowsort_rle_large, codes, (hi, lo, cnt), chk, k, w,
+                canonical)
         rowsort_rle_large.launches += 1
-    return hi, lo, cnt
+    return (hi, lo, cnt) if chk is None else (hi, lo, cnt, chk)
 
 
 rowsort_rle.launches = 0

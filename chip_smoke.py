@@ -54,7 +54,7 @@ Phases, each of which exits non-zero on failure:
 6. spectrum legs at real size (BASELINE.json configs 3 and 4): 1M
    seeded 150 bp reads through ``--mode spectrum`` at k=8 (the
    histogram kernel; its row must equal the numpy oracle) and, on the
-   first 250k of them, at k=15 ``--spectrum-format hist`` (the sorted
+   first 125k of them, at k=15 ``--spectrum-format hist`` (the sorted
    route on the rowsort kernel; sum of count x kmers must equal the
    valid windows), and the 100k x
    152 bp reads through ``-k 31 --canonical --mode sparse`` (tsv equal
@@ -85,7 +85,7 @@ Phases, each of which exits non-zero on failure:
    spilled runs), resumed in this process (fewer launches than a fresh
    run) and held to the sha256 of an unbudgeted ``--stream`` child, both
    children's peak RSS logged; and ``-k 15 --mode spectrum --stream
-   --spectrum-format hist`` on the 250k x 150 bp reads (the sorted route:
+   --spectrum-format hist`` on the 125k x 150 bp reads (the sorted route:
    the k <= 15 rowsort kernel, the sha256 of phase 6's k=15 leg);
 8. times: each kernel's ms per 8192-read batch beside the plain route's
    on the card (CUDA events, after warm-up; the rowsort kernels as a
@@ -99,7 +99,11 @@ Phases, each of which exits non-zero on failure:
    integer rate, whichever is larger, from the shape it was timed at),
    the spectrum kernel against the sorted route per batch at k = 9 and
    10 on the random and the poly-A batch, the end-to-end
-   bases/s of phases 5 to 7, and the rowsort probe tool
+   bases/s of phases 5 to 7; the two rowsort kernels with
+   ``checksum=True`` at the main batch and at widths of every launch
+   layout, their ``chk`` array-equal to the plain twins' and their rows
+   to the ``checksum=False`` call's, and both timed as graph replays
+   with and without it; and the rowsort probe tool
    (``python -m cfrk_tpu_torch.tools.rowsort_probe``) for each variant
    at k = 8 and k = 31, its checksums held to the plain twin's;
 9. entry layer, each leg the CLI in a child process reporting its
@@ -187,7 +191,19 @@ Phases, each of which exits non-zero on failure:
    logged with the card's name and power limit; then ``count_file``,
    ``spectrum_file`` and ``count_perread`` (on a numpy array) with no
    device, each launching its kernel on the card and equal to its
-   ``device="cpu"`` result.
+   ``device="cpu"`` result;
+14. the benchmarks, each a child process: ``python -m
+   cfrk_tpu_torch.bench`` (its line has the JAX bench's keys, a value
+   above 0 and ``vs_sort_sol`` <= 1 in both cases); ``python -m
+   cfrk_tpu_torch.tools.bench_suite --steps 512 --ingest-reads 200000
+   --stream-reads 100000 --json-out`` (every case; ``golden_k2_exact``
+   byte-exact, every device case's ``vs_sol`` <= 1); ``python -m
+   cfrk_tpu_torch.tools.bench_format`` (its four shapes).  The first two
+   report their launches (a captured graph counts each of its launches
+   once), which join the main path's counts.
+
+The bounds of the ``kernels`` line come from ``cfrk_tpu_torch/ops/
+roofline.py``, the one place they are computed.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON record of the kernels, and the one before that the card's
@@ -211,11 +227,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 BATCH = 8192
-# NVIDIA H100 SXM (data sheet): device memory rate, and the integer rate
-# of the plain cores, one operation a lane where the 67 TFLOP/s float32
-# rate counts a fused multiply-add as two.
-HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 33.5e12
 READS = 100_000  # BASELINE.json config 2: 100k reads per leg
 # The k=8 dense-API leg takes the first batch of them: its host side
 # unpacks 2.1 GB a batch, on both routes (and again in the packed stream
@@ -225,12 +236,13 @@ READS = 100_000  # BASELINE.json config 2: 100k reads per leg
 DENSE_API_READS = BATCH
 SPECTRUM_READS = 1_000_000  # BASELINE.json config 3: a 1M-read metagenome
 # The two k = 15 sorted-route legs (phase 6's in-memory run, phase 7's
-# streamed run pinned to its sha256) take the first quarter of those
-# reads: at 1M each took 40-47 s of the host's fold and checkpoints, and
-# at 500k the run with phases 11-12 took 490.4 s (NVIDIA H100 80GB HBM3,
-# 700 W), too near 600 s for a host 1.33x slower.
-K15_READS = 250_000
-K15_FASTA = WORK / "r250k.fa"
+# streamed run pinned to its sha256) take the first eighth of those
+# reads: at 1M each took 40-47 s of the host's fold and checkpoints; at
+# 500k the run with phases 11-12 took 490.4 s, and at 250k the run with
+# phases 13-14 621.4 s on a slow host (NVIDIA H100 80GB HBM3, 700 W),
+# 37.4 s of it these two legs.
+K15_READS = 125_000
+K15_FASTA = WORK / "r_k15.fa"
 # The budgeted sparse leg: config 4's k = 31 canonical reads of 152 bp,
 # cut from config 3's 1M reads to 600k so that the smoke stays well under
 # 600 s (at 1M the leg took 112 s of a 579 s run); about 17 M distinct
@@ -331,8 +343,9 @@ def row_cells(row: bytes) -> dict:
 
 
 def check_kernels(seed: int) -> dict:
-    """Phase 3: every kernel against its plain twin on CPU copies of the
-    same inputs; returns {kernel name: max |kernel - plain|}."""
+    """Phase 3: every kernel against its plain twin (plain PyTorch, which
+    runs on any device) on the same tensors on the card; returns
+    {kernel name: max |kernel - plain|}."""
     import numpy as np
     import torch
 
@@ -378,11 +391,12 @@ def check_kernels(seed: int) -> dict:
                 if past_ceiling:
                     runs.append((past[name], count_perread_rows, "past_ceiling"))
                 for codes, fn, case in runs:
-                    got = fn(on_card(codes, case), k, canonical)
+                    x = on_card(codes, case)
+                    got = fn(x, k, canonical)
                     torch.cuda.synchronize()
-                    want = plain(torch.from_numpy(codes), k, canonical)
+                    want = plain(x, k, canonical)
                     for g, w in zip(got, want):
-                        g = g.cpu()
+                        g, w = g.cpu(), w.cpu()
                         if g.shape != w.shape or g.dtype != w.dtype:
                             fail(f"{name} k={k} {case}: {g.shape}/{g.dtype} "
                                  f"vs plain {w.shape}/{w.dtype}")
@@ -506,10 +520,10 @@ def check_perread_kernel(cases: dict, contig, main_batch, skewed: dict) -> int:
                         continue
                     for rb, checksum in ((16, False), (5, True)):
                         kw = dict(packed=packed, read_block=rb, checksum=checksum)
+                        x = on_card(codes, case)
                         err = max(err, compare_arrays(
-                            "perread_hist",
-                            P.perread_hist(on_card(codes, case), k, canonical, **kw),
-                            P.perread_hist_plain(torch.from_numpy(codes), k, canonical, **kw),
+                            "perread_hist", P.perread_hist(x, k, canonical, **kw),
+                            P.perread_hist_plain(x, k, canonical, **kw),
                             f"k={k} canonical={canonical} {case} {kw}"))
     codes = torch.from_numpy(main_batch).cuda()
     for packed in (False, "fh", "b4"):
@@ -554,10 +568,10 @@ def check_probe_kernel(cases: dict, batch) -> int:
                 w = codes.shape[1] - k + 1
                 if w <= 0 or w > R.rowsort_max_windows(k):
                     continue
+                x = on_card(codes, case)
                 err = max(err, compare_arrays(
-                    "rowsort_probe",
-                    R.rowsort_probe(on_card(codes, case), k, variant, canonical),
-                    R.rowsort_probe_plain(torch.from_numpy(codes), k, variant, canonical),
+                    "rowsort_probe", R.rowsort_probe(x, k, variant, canonical),
+                    R.rowsort_probe_plain(x, k, variant, canonical),
                     f"{variant} k={k} canonical={canonical} {case}"))
     log(f"kernel vs plain: rowsort_probe {sorted(R.PROBE_VARIANTS)} x k=1/8/15 "
         f"(uint32) and k=16/31 canonical (uint64) x {sorted(cases)} and "
@@ -588,14 +602,16 @@ def check_spectrum_kernel(cases: dict, big, skewed: dict) -> int:
             for case, codes in cases.items():
                 if codes.shape[1] < k:
                     continue
-                compare(S.spectrum_hist(on_card(codes, case), k, canonical),
-                        S.spectrum_hist_plain(torch.from_numpy(codes), k, canonical),
+                x = on_card(codes, case)
+                compare(S.spectrum_hist(x, k, canonical),
+                        S.spectrum_hist_plain(x, k, canonical),
                         f"k={k} canonical={canonical} {case}")
-            a, b = cases["150bp"], cases["edge_rows_odd_batch"]
-            table = S.spectrum_hist(torch.from_numpy(a).cuda(), k, canonical)
-            S.spectrum_hist(torch.from_numpy(b).cuda(), k, canonical, out=table)
-            want = S.spectrum_hist_plain(torch.from_numpy(a), k, canonical)
-            S.spectrum_hist_plain(torch.from_numpy(b), k, canonical, out=want)
+            a, b = (torch.from_numpy(cases[n]).cuda()
+                    for n in ("150bp", "edge_rows_odd_batch"))
+            table = S.spectrum_hist(a, k, canonical)
+            S.spectrum_hist(b, k, canonical, out=table)
+            want = S.spectrum_hist_plain(a, k, canonical)
+            S.spectrum_hist_plain(b, k, canonical, out=want)
             compare(table, want, f"k={k} canonical={canonical} running table")
     for case, batch in skewed.items():
         codes = torch.from_numpy(batch).cuda()
@@ -939,14 +955,14 @@ def spectrum_legs(seed: int, r152, fa152: Path, fa1m: Path) -> list:
             fail("spectrum_k8: the row differs from spectrum_np")
         return f"row of {row.size} cells equals spectrum_np; sum {int(row.sum())}"
 
-    r250k = r1m[:K15_READS]
-    write_fasta(K15_FASTA, r250k)
+    r_k15 = r1m[:K15_READS]
+    write_fasta(K15_FASTA, r_k15)
 
     def check_k15(out: bytes) -> str:
         pairs = np.array([[int(x) for x in line.split(b"\t")]
                           for line in out.splitlines()], np.int64)
         total = int((pairs[:, 0] * pairs[:, 1]).sum())
-        want = valid_windows(r250k, 15)
+        want = valid_windows(r_k15, 15)
         if total != want:
             fail(f"spectrum_k15_hist: sum count x kmers {total} != {want} windows")
         return f"sum count x kmers = {total} valid windows; {int(pairs[:, 1].sum())} distinct"
@@ -969,7 +985,7 @@ def spectrum_legs(seed: int, r152, fa152: Path, fa1m: Path) -> list:
     legs = [
         run_spectrum_leg("spectrum_k8", fa1m, r1m, ["-k", "8", "--mode", "spectrum"],
                          kernels, check_k8, keep=True),
-        run_spectrum_leg("spectrum_k15_hist", K15_FASTA, r250k,
+        run_spectrum_leg("spectrum_k15_hist", K15_FASTA, r_k15,
                          ["-k", "15", "--mode", "spectrum", "--spectrum-format", "hist"],
                          kernels, check_k15),
         run_spectrum_leg("sparse_k31_canonical", fa152, r152,
@@ -2465,20 +2481,112 @@ def run_probe(card: str) -> dict:
             "ms": records["full_k8"]["step_ms"], "plain_ms": plain_ms}
 
 
-def bound(nbytes: int, ops: int) -> tuple:
-    """(ms, "bytes" | "operations"): the least time the card could take
-    to move ``nbytes`` through device memory (each input read once, each
-    output written once) or to do ``ops`` integer operations, whichever
-    is longer."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / INT_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+# Widths of every launch layout of the rowsort kernels (``width_cases``):
+# a row of 16 keys, rows of 256 keys (8 or 16 a block), 4096 keys (16 keys
+# a thread), 8192 keys (one block a row, the shared-memory network), a
+# ragged last block of 8193 reads, one run of 4096, all N, and reads
+# shorter than k.
+CHECKSUM_WIDTHS = ("n16_B7", "n256_B7", "n4096_B7", "n8192_B7", "n256_B8193",
+                   "polyA_n4096", "all_N", "shorter_than_k")
 
 
-def sort_ops(rows: int, w: int) -> int:
-    """Comparisons a sort of ``rows`` rows of ``w`` keys cannot avoid,
-    w * ceil(log2 w) a row, plus one operation a key to build it."""
-    return rows * w * (max(w - 1, 1).bit_length() + 1)
+def check_checksums(seed: int, card: str) -> dict:
+    """Phase 8, ``checksum=True`` of the two rowsort kernels: at the main
+    batch and at ``CHECKSUM_WIDTHS``, ``chk`` array-equal to the plain
+    twin's and the rows to the ``checksum=False`` call's; then the main
+    batch as graph replays with the checksum and without it.  Returns
+    {kernel: {"err", "ms", "checksum_ms"}}."""
+    import numpy as np
+    import torch
+
+    from cfrk_tpu_torch.ops.cuda import rowsort as R
+    from cfrk_tpu_torch.tools.rowsort_times import time_graph
+
+    rng = np.random.default_rng(seed + 7)
+
+    def batch(b, length, p=0.01):
+        c = rng.integers(0, 4, size=(b, length)).astype(np.int8)
+        c[rng.random(c.shape) < p] = -1
+        return c
+
+    out = {}
+    for name, kern, plain, k, canonical, length in (
+        ("rowsort_rle", R.rowsort_rle, R.rowsort_rle_plain, 8, False, 150),
+        ("rowsort_rle_large", R.rowsort_rle_large, R.rowsort_rle_large_plain,
+         31, True, 152),
+    ):
+        main_batch = np.full((BATCH, 256), -1, np.int8)
+        main_batch[:, :length] = batch(BATCH, length)
+        cases = {"main": main_batch, **{n: c for n, c in width_cases(batch, k).items()
+                                        if n in CHECKSUM_WIDTHS}}
+        err = 0
+        for case, codes in cases.items():
+            x = on_card(codes, case)
+            *rows, chk = kern(x, k, canonical, checksum=True)
+            err = max(err, compare_arrays(name, tuple(rows), kern(x, k, canonical),
+                                          f"k={k} {case}: rows with checksum=True"))
+            want = plain(x, k, canonical, checksum=True)[-1]
+            err = max(err, compare_arrays(name, chk, want, f"k={k} {case}: chk"))
+        x = torch.from_numpy(main_batch).cuda()
+        bare = time_graph(lambda: kern(x, k, canonical))
+        summed = time_graph(lambda: kern(x, k, canonical, checksum=True))
+        out[name] = {"err": err, "ms": bare, "checksum_ms": summed}
+        log(f"checksum {name} k={k} canonical={canonical}: chk and rows array-equal "
+            f"on {sorted(cases)}; [{BATCH}, 256] {bare:.4f} ms without, "
+            f"{summed:.4f} ms with checksum=True, graph replays ({card})")
+    return out
+
+
+def bench_legs(card: str) -> dict:
+    """Phase 14: ``cfrk_tpu_torch.bench``, ``tools.bench_suite`` and
+    ``tools.bench_format``, each a child process; fails on a record out
+    of its bounds.  Returns the launches the first two report."""
+    from collections import Counter
+
+    launches = Counter()
+    res = run_child("bench", [sys.executable, "-m", "cfrk_tpu_torch.bench"])
+    if res["rc"]:
+        fail(f"bench exited {res['rc']}: {res['err'][-3000:]}")
+    line = json.loads(res["out"].strip().splitlines()[-1])
+    keys = {"metric", "value", "unit", "vs_baseline", "beats_dense_write_sol", "k8", "k31"}
+    if not keys <= set(line) or not line["value"] > 0:
+        fail(f"bench line: {sorted(line)}, value {line.get('value')}")
+    for case in ("k8", "k31"):
+        if not 0 < line[case]["vs_sort_sol"] <= 1:
+            fail(f"bench {case}: vs_sort_sol {line[case]['vs_sort_sol']}")
+    launches.update(line["launches"])
+    log("bench: " + json.dumps({"card": card, **line}))
+
+    path = WORK / "GPU_BENCHSUITE.json"
+    res = run_child("bench_suite", [
+        sys.executable, "-m", "cfrk_tpu_torch.tools.bench_suite", "--steps", "512",
+        "--ingest-reads", "200000", "--stream-reads", "100000", "--json-out", str(path)])
+    if res["rc"]:
+        fail(f"bench_suite exited {res['rc']}: {res['err'][-3000:]}")
+    doc = json.loads(path.read_text())
+    cases = {rec["bench"]: rec for rec in doc["cases"]}
+    if not cases.get("golden_k2_exact", {}).get("byte_exact"):
+        fail("bench_suite: golden_k2_exact is not byte-exact")
+    device_cases = [rec for rec in doc["cases"] if "sol_model" in rec]
+    if len(device_cases) != 11:
+        fail(f"bench_suite: {len(device_cases)} device cases, not 11")
+    for rec in device_cases:
+        if not 0 < rec["vs_sol"] <= 1:
+            fail(f"bench_suite {rec['bench']}: vs_sol {rec['vs_sol']}")
+    launches.update(doc["launches"])
+    log("bench_suite: " + json.dumps({"card": card, "cases": doc["cases"],
+                                      "launches": doc["launches"]}))
+
+    res = run_child("bench_format", [sys.executable, "-m",
+                                     "cfrk_tpu_torch.tools.bench_format"])
+    if res["rc"]:
+        fail(f"bench_format exited {res['rc']}: {res['err'][-3000:]}")
+    shapes = json.loads(res["out"].strip().splitlines()[-1])
+    if set(shapes) != {"pairs_k8", "pairs64_k31", "dense_k2", "dense_pairs_k8"} or not all(
+            r["mb_s"] > 0 for r in shapes.values()):
+        fail(f"bench_format: {shapes}")
+    log("bench_format: " + json.dumps({"card": card, "cpu": cpu_model(), **shapes}))
+    return dict(launches)
 
 
 def time_torch_sort(seed: int) -> dict:
@@ -2624,6 +2732,12 @@ def main() -> int:
     clock.lap("7 streamed legs")
 
     # 8. times: plain, kernel, kernel, plain at the main path's batch shape
+    from cfrk_tpu_torch.ops.roofline import (
+        perread_bound,
+        probe_bound,
+        rowsort_bound,
+        spectrum_bound,
+    )
     from cfrk_tpu_torch.tools.rowsort_times import time_graph, time_shape
 
     times, bounds = {}, {}
@@ -2641,9 +2755,7 @@ def main() -> int:
         k2 = time_graph(lambda: kern(codes, k, canonical))
         p2 = time_kernel(plain, codes, k, canonical)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        w = 256 - k + 1
-        bounds[name] = bound(codes.numel() + BATCH * w * 4 * (2 if k <= 15 else 3),
-                             sort_ops(BATCH, w))
+        bounds[name] = rowsort_bound(BATCH, 256, k, canonical)
         log(f"time {name} k={k} canonical={canonical} [{BATCH}, 256]: kernel "
             f"{k1:.4f}/{k2:.4f} ms as a graph replay ({eager:.4f} ms in an eager "
             f"loop, which also times the host's launches), plain "
@@ -2661,13 +2773,14 @@ def main() -> int:
     # The main path's emit ("b4", the k8_dense_api_nonzero leg's).
     times["perread_hist"] = (perread_times["b4"]["ms"], perread_times["b4"]["plain_ms"])
     # Bounds of the other kernels, from the shapes timed above: a k=8
-    # table of int32 out of [8192, 256] codes; the "b4" block, one byte a
-    # cell; the probe's [8192, 150] codes to one int64 a row.
-    in_bytes = BATCH * 256
-    bounds["spectrum_hist"] = bound(in_bytes + 4**8 * 4, BATCH * 249)
-    bounds["perread_hist"] = bound(in_bytes + perread_times["b4"]["written_bytes"],
-                                   BATCH * 249)
-    bounds["rowsort_probe"] = bound(BATCH * 150 + BATCH * 8, sort_ops(BATCH, 143))
+    # table out of [8192, 256] codes; the "b4" block; the probe's
+    # [8192, 150] codes.
+    bounds["spectrum_hist"] = spectrum_bound(BATCH, 256, 8)
+    bounds["perread_hist"] = perread_bound(BATCH, 256, 8, "b4")
+    bounds["rowsort_probe"] = probe_bound(BATCH, 150, 8)
+    checksums = check_checksums(args.seed, card)
+    for name, rec in checksums.items():
+        errs[name] = max(errs[name], rec["err"])
     probe = run_probe(card)
     launches["rowsort_probe"] = probe["launches"]
     errs["rowsort_probe"] = max(errs["rowsort_probe"], probe["err"])
@@ -2715,6 +2828,13 @@ def main() -> int:
         launches[name] += n
     log("scaling_and_defaults_launches: " + json.dumps(phase13_launches))
     clock.lap("13 scaling ladder and library defaults")
+
+    # 14. the benchmarks, as children; their launches join the counts
+    bench_launches = bench_legs(card)
+    for name, n in bench_launches.items():
+        launches[name] += n
+    log("bench_launches: " + json.dumps(bench_launches))
+    clock.lap("14 benchmarks")
     log("end_to_end: " + json.dumps({
         "card": card,
         "legs": {leg["leg"]: leg["bases_per_s"]

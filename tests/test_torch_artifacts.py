@@ -4,7 +4,10 @@ say what the port claims for them: ``GPU_VALID.json`` (from
 ``GPU_SCALE.json`` (from ``tools/scale_demo``) with its three legs, the
 sparse leg killed mid-run and resumed to the same bytes, each output
 hashing to the JAX package's run of the same legs on a TPU
-(``SCALE_r05.json``)."""
+(``SCALE_r05.json``); and ``GPU_BENCHSUITE.json`` (from
+``tools/bench_suite``) with every case on an NVIDIA card, each device
+case within its bound (``vs_sol`` <= 1) and the golden case
+byte-exact."""
 
 import json
 from pathlib import Path
@@ -24,6 +27,11 @@ def gpu_valid():
 @pytest.fixture(scope="module")
 def gpu_scale():
     return json.loads((ROOT / "GPU_SCALE.json").read_text())
+
+
+@pytest.fixture(scope="module")
+def gpu_benchsuite():
+    return json.loads((ROOT / "GPU_BENCHSUITE.json").read_text())
 
 
 @pytest.fixture(scope="module")
@@ -102,3 +110,35 @@ def test_gpu_scale_check_equals_tpu_run(gpu_scale, tpu_scale):
     assert gpu["count_mass_model"] == tpu["count_mass_model"]
     base = gpu_scale["legs"]["sparse_k31_resume"]["full"]["peak_rss_mb"]
     assert gpu["peak_rss_mb"] <= 1.05 * base
+
+
+_SUITE_CASES = ["golden_k2_exact", "perread_k8_dense", "perread_k8_rowsort",
+                "perread_k8_short70", "contig_k8_32kb", "contig_k8_128kb",
+                "spectrum_k15_dense", "spectrum_k8_pallas", "spectrum_k8_sort_device",
+                "spectrum_k15_sort", "spectrum_k9_auto_e2e", "sparse_k31_canonical",
+                "ingest_stream_batches", "stream_spectrum_k8", "stream_perread_k2_cfrk",
+                "stream_perread_k8_nonzero"]
+
+
+def test_gpu_benchsuite_is_from_an_nvidia_card(gpu_benchsuite):
+    doc = gpu_benchsuite
+    assert doc["platform"] == "gpu" and doc["device_kind"].startswith("NVIDIA")
+    name, limit = (part.strip() for part in doc["device"]["card"].split(","))
+    assert name == doc["device_kind"] and limit.endswith("W")
+    assert doc["steps"] == 512 and doc["read_len"] == 150 and doc["timestamp"]
+    assert [c["bench"] for c in doc["cases"]] == _SUITE_CASES
+    assert all(doc["launches"][name] > 0 for name in (
+        "rowsort_rle", "rowsort_rle_large", "spectrum_hist", "perread_hist"))
+
+
+@pytest.mark.parametrize("case", [c for c in _SUITE_CASES if c != "golden_k2_exact"
+                                  and not c.startswith(("ingest", "stream"))])
+def test_gpu_benchsuite_device_case_within_its_bound(gpu_benchsuite, case):
+    (rec,) = [c for c in gpu_benchsuite["cases"] if c["bench"] == case]
+    assert 0 < rec["vs_sol"] <= 1 and rec["sol_model"]
+    assert rec["step_ms"] > 0 and rec["value"] > 0
+
+
+def test_gpu_benchsuite_golden_is_byte_exact(gpu_benchsuite):
+    (rec,) = [c for c in gpu_benchsuite["cases"] if c["bench"] == "golden_k2_exact"]
+    assert rec["byte_exact"] is True

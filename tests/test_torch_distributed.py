@@ -11,12 +11,17 @@ file: never to the port's own single-process run.  Tolerance: exact
 equality of bytes and offsets.
 
 A process test fails, with every rank's stderr, when a rank dies or a
-launch outlives its timeout; it never skips.  The coordinator ports
-come from binding to port 0, and a launch is made again once only when
-a rank's stderr says that its address was in use.
+launch outlives its timeout; it never skips.  The coordinator ports lie
+below the kernel's ephemeral port range, in a slice of their own for
+each pytest-xdist worker (``_free_ports``): no other worker, and no
+socket bound to port 0 (gloo's pair sockets, the other files' groups),
+can draw one of them.  A launch is made again on fresh ports, up to
+``_ATTEMPTS`` times in all, only when a rank's stderr says that its
+address was in use.
 """
 
 import gzip
+import itertools
 import json
 import os
 import socket
@@ -355,15 +360,69 @@ def test_local_id_picks_the_card(monkeypatch, local):
             tcli._rank_card(cuda)
 
 
-def _free_ports(n: int) -> list:
-    socks = [socket.socket() for _ in range(n)]
+# Ports a worker's slice holds, and the slots of slices below the
+# ephemeral range (xdist numbers a replacement worker on from the last).
+_SLICE, _SLOTS = 256, 32
+
+
+def _port_slice() -> range:
+    """This worker's coordinator ports: slice ``PYTEST_XDIST_WORKER``
+    (gw0, gw1, ...; 0 without xdist) of ``_SLOTS`` slices that end at the
+    low bound of ``/proc/sys/net/ipv4/ip_local_port_range``, from which
+    the kernel draws every port-0 bind."""
     try:
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
+        low = int(Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")[2:]
+    slot = int(worker) % _SLOTS if worker.isdigit() else 0
+    start = max(1024, low - _SLOTS * _SLICE) + slot * _SLICE
+    return range(start, start + _SLICE)
+
+
+_SLICE_PORTS = _port_slice()
+_PORTS = itertools.cycle(_SLICE_PORTS)
+
+
+def _bindable(port: int) -> bool:
+    with socket.socket() as sock:
+        try:
+            sock.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
+
+
+def _free_ports(n: int) -> list:
+    """``n`` ports of this worker's slice, in turn, each free when
+    picked; a port is used again only after the rest of the slice."""
+    ports = []
+    for port in itertools.islice(_PORTS, len(_SLICE_PORTS)):
+        if _bindable(port):
+            ports.append(port)
+            if len(ports) == n:
+                return ports
+    raise RuntimeError(f"fewer than {n} free ports in {_SLICE_PORTS}")
+
+
+@pytest.mark.parametrize("worker", ["gw0", "gw5", "gw37", None])
+def test_coordinator_ports_lie_below_the_ephemeral_range(monkeypatch, worker):
+    """Each worker's slice lies below the range that port-0 binds draw
+    from, apart from every other worker's (a replacement worker's too,
+    up to ``_SLOTS`` workers); the picks are distinct and free."""
+    low = int(Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split()[0])
+    slices = []
+    for name in (worker, "gw1"):
+        if name is None:
+            monkeypatch.delenv("PYTEST_XDIST_WORKER", raising=False)
+        else:
+            monkeypatch.setenv("PYTEST_XDIST_WORKER", name)
+        slices.append(set(_port_slice()))
+    assert len(slices[0]) == _SLICE and max(slices[0]) < low and min(slices[0]) >= 1024
+    assert not slices[0] & slices[1]
+    ports = _free_ports(5)
+    assert len(set(ports)) == 5 and set(ports) <= set(_SLICE_PORTS)
+    assert all(_bindable(p) for p in ports)
 
 
 def test_existing_group_is_left_alone_and_world_of_one_runs(monkeypatch, inputs):
@@ -449,6 +508,9 @@ print(json.dumps(out))
 """
 
 
+_ATTEMPTS = 5
+
+
 def _taken(err: str) -> bool:
     return "address already in use" in err.lower()
 
@@ -490,21 +552,33 @@ def _launch(world: int, script: str, args, cwd: Path, env_of_rank) -> list:
             for p, (out, err) in zip(procs, logs)]
 
 
+def _launch_on_ports(world: int, script: str, n_ports: int, args, cwd: Path,
+                     env_of_rank) -> list:
+    """:func:`_launch` on ``n_ports`` fresh ports (rank i gets
+    ``args(ports, i)`` and ``env_of_rank(ports, i)``), made again on fresh
+    ports while a rank's stderr says that its address was in use, up to
+    ``_ATTEMPTS`` launches in all.  Returns the last launch's runs."""
+    for _ in range(_ATTEMPTS):
+        ports = _free_ports(n_ports)
+        runs = _launch(world, script, lambda r: args(ports, r), cwd,
+                       lambda r: env_of_rank(ports, r))
+        if not any(_taken(err) for _, _, err in runs):
+            break
+    return runs
+
+
 def _run_legs(world: int, legs: dict, cwd: Path) -> dict:
-    """Every leg ({name: argv}) on ``world`` ranks, in one launch; a
-    launch whose port was taken is made once more on fresh ports.
-    Returns {name: [each rank's outcome]}."""
-    for attempt in (0, 1):
-        plan = json.dumps([[name, port, argv] for (name, argv), port
-                           in zip(legs.items(), _free_ports(len(legs)))])
-        runs = _launch(world, _RANK, lambda r: [str(r), str(world), plan], cwd,
-                       lambda r: {})
-        if attempt == 0 and any(_taken(err) for _, _, err in runs):
-            continue
-        bad = [(rank, rc, err[-3000:]) for rank, (rc, _, err) in enumerate(runs) if rc]
-        assert not bad, f"ranks died: {bad}"
-        results = [json.loads(out.strip().splitlines()[-1]) for _, out, _ in runs]
-        return {name: [r[name] for r in results] for name in legs}
+    """Every leg ({name: argv}) on ``world`` ranks, in one launch, each
+    leg on a port of its own.  Returns {name: [each rank's outcome]}."""
+    def args(ports, rank):
+        plan = [[name, port, argv] for (name, argv), port in zip(legs.items(), ports)]
+        return [str(rank), str(world), json.dumps(plan)]
+
+    runs = _launch_on_ports(world, _RANK, len(legs), args, cwd, lambda ports, r: {})
+    bad = [(rank, rc, err[-3000:]) for rank, (rc, _, err) in enumerate(runs) if rc]
+    assert not bad, f"ranks died: {bad}"
+    results = [json.loads(out.strip().splitlines()[-1]) for _, out, _ in runs]
+    return {name: [r[name] for r in results] for name in legs}
 
 
 # The JAX CLI's refusals; the gzip hint names the port's make_synthetic.
@@ -617,20 +691,14 @@ _CLI = "import sys\nfrom cfrk_tpu_torch.cli import main\nsys.exit(main(sys.argv[
 def _cli_ranks(world, argv, cwd, fault_of_rank) -> list:
     """One CLI run on ``world`` ranks, rank i armed with
     ``CFRK_FAULT_INJECT=fault_of_rank(i)`` where that is not None."""
-    for attempt in (0, 1):
-        port = _free_ports(1)[0]
+    def env_of_rank(ports, rank):
+        env = {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{ports[0]}",
+               "JAX_NUM_PROCESSES": str(world), "JAX_PROCESS_ID": str(rank)}
+        if fault_of_rank(rank):
+            env["CFRK_FAULT_INJECT"] = fault_of_rank(rank)
+        return env
 
-        def env_of_rank(rank):
-            env = {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-                   "JAX_NUM_PROCESSES": str(world), "JAX_PROCESS_ID": str(rank)}
-            if fault_of_rank(rank):
-                env["CFRK_FAULT_INJECT"] = fault_of_rank(rank)
-            return env
-
-        runs = _launch(world, _CLI, lambda r: argv, cwd, env_of_rank)
-        if attempt == 0 and any(_taken(err) for _, _, err in runs):
-            continue
-        return runs
+    return _launch_on_ports(world, _CLI, 1, lambda ports, r: argv, cwd, env_of_rank)
 
 
 def test_ranks_started_by_slurm_write_one_process_bytes(tmp_path, inputs, jax_bytes):
@@ -641,14 +709,9 @@ def test_ranks_started_by_slurm_write_one_process_bytes(tmp_path, inputs, jax_by
     out = tmp_path / "o.cfrk"
     argv = [inputs["plain"], str(out), *_LEGS["perread_plain"][1], "--distributed",
             "--device", "cpu", "--batch-size", "8"]
-    for attempt in (0, 1):
-        port = _free_ports(1)[0]
-        runs = _launch(2, _CLI, lambda r: argv, tmp_path, lambda r: {
-            "SLURM_JOB_ID": "777", "SLURM_STEP_NODELIST": "localhost", "SLURM_NTASKS": "2",
-            "SLURM_PROCID": str(r), "SLURM_LOCALID": "0",
-            "JAX_COORDINATOR_PORT": str(port)})
-        if not any(_taken(err) for _, _, err in runs):
-            break
+    runs = _launch_on_ports(2, _CLI, 1, lambda ports, r: argv, tmp_path, lambda ports, r: {
+        "SLURM_JOB_ID": "777", "SLURM_STEP_NODELIST": "localhost", "SLURM_NTASKS": "2",
+        "SLURM_PROCID": str(r), "SLURM_LOCALID": "0", "JAX_COORDINATOR_PORT": str(ports[0])})
     assert [rc for rc, _, _ in runs] == [0, 0], [r[2][-2000:] for r in runs]
     assert out.read_bytes() == jax_bytes["perread_plain"]
     assert sorted(p.name for p in tmp_path.iterdir() if p.name.startswith("o.")) == ["o.cfrk"]

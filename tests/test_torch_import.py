@@ -74,6 +74,10 @@ _MODULES = [
     "cfrk_tpu_torch.parallel.sharded",
     "cfrk_tpu_torch.parallel.bucket",
     "cfrk_tpu_torch.parallel.seqpar",
+    "cfrk_tpu_torch.ops.roofline",
+    "cfrk_tpu_torch.bench",
+    "cfrk_tpu_torch.tools.bench_suite",
+    "cfrk_tpu_torch.tools.bench_format",
 ]
 
 
@@ -274,8 +278,6 @@ def test_kernel_ceilings_fit_shared_memory():
 # Public names of ported cfrk_tpu modules that the port does not carry,
 # each with the reason.
 _NAME_EXCEPTIONS = {
-    "cfrk_tpu.io.fasta.peek_first_read_len":
-        "its one caller is the TPU batch rule; it comes with #9",
     **{f"cfrk_tpu.io.native.{flag}": "the fallback flags: the port has no fallback"
        for flag in ("HAVE_NATIVE", "HAVE_STREAM_NATIVE", "HAVE_PACK_NATIVE",
                     "HAVE_QUAL_NATIVE", "HAVE_FOLD_NATIVE", "HAVE_KMER_TSV_NATIVE")},
@@ -287,6 +289,15 @@ _NAME_EXCEPTIONS = {
         "in the port's ops/perread_sparse, beside the drain it runs",
     "cfrk_tpu.ops.sparse.rows_to_triples":
         "in the port's ops/perread_sparse, beside the drain it runs",
+    # The TPU v5e's units, which an H100 has not: its bounds count bytes at
+    # HBM_BW and integer operations at INT_OPS (ops/roofline.py).
+    **{f"cfrk_tpu.ops.roofline.{name}": "a TPU v5e rate (MXU, VPU, cross-lane "
+       "permutes, one-hot builds, serial scatter updates); the H100 bound has none"
+       for name in ("INT8_MXU_OPS", "BF16_MXU_FLOPS", "VPU_ALU_OPS", "CROSS_LANE_OPS",
+                    "ONEHOT_BUILD_ELEMS_PER_S", "SCALAR_UPDATES_PER_S")},
+    "cfrk_tpu.ops.roofline.onehot_family_sol":
+        "the floor of the TPU's compare-built one-hot kernels; the port's "
+        "perread_hist builds no one-hot (its bound is ops/roofline.perread_bound)",
 }
 
 # cfrk_tpu modules with no module of the same path in the port.
@@ -299,7 +310,6 @@ _MODULE_EXCEPTIONS = {
     "cfrk_tpu.ops.pallas.rowsort": "ported as ops/cuda/rowsort.py (rowsort_rle, "
                                    "rowsort_rle_large)",
     "cfrk_tpu.ops.pallas.spectrum": "ported as ops/cuda/spectrum.py (spectrum_hist)",
-    "cfrk_tpu.ops.roofline": "v5e constants; an H100 bound module comes with #3",
 }
 
 
