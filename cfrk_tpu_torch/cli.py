@@ -821,10 +821,15 @@ def _process_group(distributed: bool):
     """``--distributed``: the run's ``torch.distributed`` group, started
     from the coordinator variables or a SLURM / Open MPI job's
     (``parallel/distributed``); yields
-    its world size (1 without the flag).  A group this run started is
-    destroyed when the run ends, also when it fails: a failing rank then
-    exits and frees its port, and the others' barriers fail instead of
-    waiting on it."""
+    its world size (1 without the flag).  A group this run starts is
+    joined by every process before any goes on (a barrier): a process
+    that then ends at once, as every process does on a refused input,
+    would otherwise close its connections while another is still
+    connecting, and that one would fail with a broken connection in
+    place of the refusal.  A group this run started is destroyed when
+    the run ends, also when it fails: a failing rank then exits and
+    frees its port, and the others' barriers fail instead of waiting on
+    it."""
     if not distributed:
         yield 1
         return
@@ -834,6 +839,8 @@ def _process_group(distributed: bool):
 
     owns = maybe_initialize_distributed(force=True)
     try:
+        if owns:
+            dist.barrier()  # cfrk-group-joined: every process is connected
         yield dist.get_world_size()
     finally:
         if owns:

@@ -10,25 +10,39 @@ merged output is held to the bytes of ``cfrk_tpu``'s CLI on the same
 file: never to the port's own single-process run.  Tolerance: exact
 equality of bytes and offsets.
 
-A process test fails, with every rank's stderr, when a rank dies or a
-launch outlives its timeout; it never skips.  The coordinator ports lie
+Every process test starts its ranks through ``_launch``: each rank in a
+session of its own (a signal to its process group cannot reach pytest),
+with stdin from ``/dev/null`` and one torch thread, and the whole session
+killed when the launch ends.  A process test fails, never skips, when a
+rank dies or a launch outlives its timeout, with a report that says
+which of the two it was: the wall time and attempt, each rank's return
+code (a signal by name), peak RSS and stderr tail, and the host's load
+and available memory at that moment.  The coordinator ports lie
 below the kernel's ephemeral port range, in a slice of their own for
-each pytest-xdist worker (``_free_ports``): no other worker, and no
+each pytest-xdist worker (``_held_ports``): no other worker, and no
 socket bound to port 0 (gloo's pair sockets, the other files' groups),
-can draw one of them.  A launch is made again on fresh ports, up to
-``_ATTEMPTS`` times in all, only when a rank's stderr says that its
-address was in use.
+can draw one of them.  Each port is held by a bound socket for as long
+as its launch runs, so that another test run on the same host, whose
+workers have the same slices, cannot pick it and join its ranks to ours.
+A launch is made again on fresh ports, up to ``_ATTEMPTS`` times in all,
+only when a rank's stderr says that its address was in use.
 """
 
+import contextlib
 import gzip
 import itertools
 import json
 import os
+import random
+import re
+import resource
+import signal
 import socket
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -381,7 +395,10 @@ def _port_slice() -> range:
 
 
 _SLICE_PORTS = _port_slice()
-_PORTS = itertools.cycle(_SLICE_PORTS)
+# From a random place in the slice: two test runs on one host have the
+# same slices, and would otherwise try the same ports in the same order.
+_FIRST = random.SystemRandom().randrange(_SLICE)
+_PORTS = itertools.cycle([*_SLICE_PORTS[_FIRST:], *_SLICE_PORTS[:_FIRST]])
 
 
 def _bindable(port: int) -> bool:
@@ -393,16 +410,33 @@ def _bindable(port: int) -> bool:
     return True
 
 
-def _free_ports(n: int) -> list:
-    """``n`` ports of this worker's slice, in turn, each free when
-    picked; a port is used again only after the rest of the slice."""
-    ports = []
-    for port in itertools.islice(_PORTS, len(_SLICE_PORTS)):
-        if _bindable(port):
-            ports.append(port)
-            if len(ports) == n:
-                return ports
-    raise RuntimeError(f"fewer than {n} free ports in {_SLICE_PORTS}")
+@contextlib.contextmanager
+def _held_ports(n: int):
+    """``n`` ports of this worker's slice, in turn, each free when picked
+    and held for the block by a socket bound to it; a port is used again
+    only after the rest of the slice.  While it is held, a plain bind of
+    the port fails (another run's pick included), and the process that
+    hosts a group's store binds and listens on it all the same: the
+    holder sets SO_REUSEADDR after its bind, as the store does, and never
+    listens."""
+    held = []
+    try:
+        for port in itertools.islice(_PORTS, len(_SLICE_PORTS)):
+            sock = socket.socket()
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                sock.close()
+                continue
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            held.append(sock)
+            if len(held) == n:
+                yield [s.getsockname()[1] for s in held]
+                return
+        raise RuntimeError(f"fewer than {n} free ports in {_SLICE_PORTS}")
+    finally:
+        for sock in held:
+            sock.close()
 
 
 @pytest.mark.parametrize("worker", ["gw0", "gw5", "gw37", None])
@@ -420,8 +454,9 @@ def test_coordinator_ports_lie_below_the_ephemeral_range(monkeypatch, worker):
         slices.append(set(_port_slice()))
     assert len(slices[0]) == _SLICE and max(slices[0]) < low and min(slices[0]) >= 1024
     assert not slices[0] & slices[1]
-    ports = _free_ports(5)
-    assert len(set(ports)) == 5 and set(ports) <= set(_SLICE_PORTS)
+    with _held_ports(5) as ports:
+        assert len(set(ports)) == 5 and set(ports) <= set(_SLICE_PORTS)
+        assert not any(_bindable(p) for p in ports)
     assert all(_bindable(p) for p in ports)
 
 
@@ -432,19 +467,20 @@ def test_existing_group_is_left_alone_and_world_of_one_runs(monkeypatch, inputs)
     bytes, and the CLI destroys the group it started."""
     import torch.distributed as dist
 
-    port = _free_ports(1)[0]
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", f"127.0.0.1:{port}")
     monkeypatch.setenv("JAX_NUM_PROCESSES", "1")
     monkeypatch.setenv("JAX_PROCESS_ID", "0")
     argv = [inputs["plain"], "8", "--nonzero"]
     assert jax_main([argv[0], "j.cfrk", *argv[1:], "--devices", "1"]) == 0
-    assert main([argv[0], "t.cfrk", *argv[1:], "--distributed", "--device", "cpu"]) == 0
+    with _held_ports(1) as (port,):
+        monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", f"127.0.0.1:{port}")
+        assert main([argv[0], "t.cfrk", *argv[1:], "--distributed", "--device", "cpu"]) == 0
     assert not dist.is_initialized()
     assert Path("t.cfrk").read_bytes() == Path("j.cfrk").read_bytes()
     assert not [p for p in os.listdir() if ".part" in p]
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_ports(1)[0]}",
-                            rank=0, world_size=1)
+    with _held_ports(1) as (port,):
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                                world_size=1)
     try:
         assert tdist.maybe_initialize_distributed() is False
         monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
@@ -483,11 +519,28 @@ def test_splice_keeps_an_empty_row_and_skips_an_empty_part(tmp_path):
 
 # ---------------------------------------------------------------- processes
 
+# The head of every rank's script: one intra-op and one inter-op torch
+# thread (the ranks run --device cpu on batches of 8 and need no thread
+# pool; ``_launch`` also sets OMP_NUM_THREADS and MKL_NUM_THREADS to 1),
+# and the rank's end once the process that started it (its pid in
+# TEST_LAUNCHER_PID) is gone: a rank leads a session of its own, so a
+# signal to the test run's process group, as a timeout sends it, does not
+# reach the rank.
+_RANK_HEAD = """import os, threading, time, torch
+torch.set_num_threads(1)
+torch.set_num_interop_threads(1)
+def _orphaned():
+    while os.getppid() == int(os.environ["TEST_LAUNCHER_PID"]):
+        time.sleep(0.5)
+    os._exit(70)
+threading.Thread(target=_orphaned, daemon=True).start()
+"""
+
 # One rank: runs each leg's argv through the CLI's main in turn, each on
 # its own coordinator port, and prints each leg's outcome as one JSON
 # line at the end.  A leg whose group could not bind its port ends the
 # rank at once, so that the launch is made again.
-_RANK = """
+_RANK = _RANK_HEAD + """
 import json, os, sys, traceback
 from cfrk_tpu_torch.cli import main
 rank, world, legs = int(sys.argv[1]), int(sys.argv[2]), json.loads(sys.argv[3])
@@ -515,56 +568,121 @@ def _taken(err: str) -> bool:
     return "address already in use" in err.lower()
 
 
-def _launch(world: int, script: str, args, cwd: Path, env_of_rank) -> list:
+class Launch(NamedTuple):
+    """One launch: each rank's (returncode, stdout, stderr), pid (also its
+    session's id) and peak RSS (KiB), the launch's wall time (s) and
+    which attempt it was (from 1)."""
+
+    runs: list
+    pids: list
+    rss_kib: list
+    wall: float
+    attempt: int
+
+
+def _report(what: str, launch: Launch) -> str:
+    """Why a launch failed (``what``: a timeout or a rank death), with the
+    host's state at this moment: its load and available memory, and the
+    peak RSS of this process's largest child so far."""
+    avail = re.search(r"MemAvailable:\s*(\d+ kB)", Path("/proc/meminfo").read_text())
+    lines = [f"{what}: {len(launch.runs)} ranks, attempt {launch.attempt} of {_ATTEMPTS}, "
+             f"{launch.wall:.1f} s wall",
+             f"loadavg {Path('/proc/loadavg').read_text().strip()}; MemAvailable "
+             f"{avail.group(1) if avail else '?'}; children's peak RSS "
+             f"{resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss} KiB"]
+    for rank, ((rc, _, err), pid, rss) in enumerate(zip(launch.runs, launch.pids,
+                                                        launch.rss_kib)):
+        code = f"{rc} ({signal.Signals(-rc).name})" if rc < 0 else str(rc)
+        lines.append(f"--- rank {rank} (pid {pid}): rc {code}, peak RSS {rss} KiB, "
+                     f"stderr tail ---\n{err[-3000:]}")
+    return "\n".join(lines)
+
+
+def _exit_code(proc):
+    """The rank's return code once it has ended (minus the signal that
+    killed it), else None.  The rank is not reaped, so that its pid, which
+    is also its session's and process group's id, cannot be reused before
+    :func:`_launch` kills that group."""
+    info = os.waitid(os.P_PID, proc.pid, os.WEXITED | os.WNOHANG | os.WNOWAIT)
+    if info is None:
+        return None
+    return info.si_status if info.si_code == os.CLD_EXITED else -info.si_status
+
+
+def _launch(world: int, script: str, args, cwd: Path, env_of_rank,
+            timeout: float = LAUNCH_TIMEOUT_S, attempt: int = 1) -> Launch:
     """``world`` processes of ``python -c script`` (rank i gets
-    ``args(i)`` and the environment ``env_of_rank(i)``): returns each
-    rank's (returncode, stdout, stderr).  A rank alive past the timeout
-    fails the test with every rank's stderr; a rank that died because
-    its coordinator port was taken ends the launch at once."""
-    env = dict(os.environ)
+    ``args(i)`` and the environment ``env_of_rank(i)``), each in a session
+    of its own with stdin from ``/dev/null``, one OpenMP / MKL thread and
+    this process's pid in ``TEST_LAUNCHER_PID`` (``_RANK_HEAD``).
+    A rank alive past ``timeout`` fails the test with :func:`_report`; a
+    rank that died because its coordinator port was taken ends the launch
+    at once.  However the launch ends, every rank's session is killed
+    (children of a rank included) before the ranks are reaped."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               TEST_LAUNCHER_PID=str(os.getpid()))
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     procs, logs = [], []
-    for rank in range(world):
-        out, err = cwd / f"rank{rank}.out", cwd / f"rank{rank}.err"
-        logs.append((out, err))
-        with open(out, "w") as o, open(err, "w") as e:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", script, *args(rank)], cwd=cwd, stdout=o,
-                stderr=e, env={**env, **env_of_rank(rank)}))
-    deadline = time.monotonic() + LAUNCH_TIMEOUT_S
+    start = time.monotonic()
+    timed_out = False
     try:
-        while any(p.poll() is None for p in procs):
-            if time.monotonic() > deadline:
-                pytest.fail(f"a rank outlived {LAUNCH_TIMEOUT_S} s:\n" + "\n".join(
-                    f"--- rank {r} ---\n{err.read_text()[-3000:]}"
-                    for r, (_, err) in enumerate(logs)))
-            if any(p.poll() not in (None, 0) and _taken(err.read_text())
+        for rank in range(world):
+            out, err = cwd / f"rank{rank}.out", cwd / f"rank{rank}.err"
+            logs.append((out, err))
+            with open(out, "w") as o, open(err, "w") as e:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", script, *args(rank)], cwd=cwd,
+                    stdin=subprocess.DEVNULL, stdout=o, stderr=e,
+                    env={**env, **env_of_rank(rank)}, start_new_session=True))
+        while any(_exit_code(p) is None for p in procs):
+            if time.monotonic() - start > timeout:
+                timed_out = True
+                break
+            if any(_exit_code(p) not in (None, 0) and _taken(err.read_text())
                    for p, (_, err) in zip(procs, logs)):
                 break
             time.sleep(0.05)
     finally:
         for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    return [(p.returncode, out.read_text(), err.read_text())
-            for p, (out, err) in zip(procs, logs)]
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        rss = []
+        for p in procs:
+            _, status, usage = os.wait4(p.pid, 0)
+            p.returncode = os.waitstatus_to_exitcode(status)
+            rss.append(usage.ru_maxrss)
+    launch = Launch([(p.returncode, out.read_text(), err.read_text())
+                     for p, (out, err) in zip(procs, logs)], [p.pid for p in procs], rss,
+                    time.monotonic() - start, attempt)
+    if timed_out:
+        pytest.fail(_report(f"timeout: a rank outlived {timeout} s", launch))
+    return launch
+
+
+def _all_ok(launch: Launch) -> list:
+    """The runs of a launch whose ranks all returned 0; else the test
+    fails with :func:`_report`."""
+    if any(rc for rc, _, _ in launch.runs):
+        pytest.fail(_report("rank death: a rank returned non-zero", launch))
+    return launch.runs
 
 
 def _launch_on_ports(world: int, script: str, n_ports: int, args, cwd: Path,
-                     env_of_rank) -> list:
-    """:func:`_launch` on ``n_ports`` fresh ports (rank i gets
+                     env_of_rank) -> Launch:
+    """:func:`_launch` on ``n_ports`` fresh ports, held while it runs (rank i gets
     ``args(ports, i)`` and ``env_of_rank(ports, i)``), made again on fresh
     ports while a rank's stderr says that its address was in use, up to
-    ``_ATTEMPTS`` launches in all.  Returns the last launch's runs."""
-    for _ in range(_ATTEMPTS):
-        ports = _free_ports(n_ports)
-        runs = _launch(world, script, lambda r: args(ports, r), cwd,
-                       lambda r: env_of_rank(ports, r))
-        if not any(_taken(err) for _, _, err in runs):
+    ``_ATTEMPTS`` launches in all.  Returns the last launch."""
+    for attempt in range(1, _ATTEMPTS + 1):
+        with _held_ports(n_ports) as ports:
+            launch = _launch(world, script, lambda r: args(ports, r), cwd,
+                             lambda r: env_of_rank(ports, r), attempt=attempt)
+        if not any(_taken(err) for _, _, err in launch.runs):
             break
-    return runs
+    return launch
 
 
 def _run_legs(world: int, legs: dict, cwd: Path) -> dict:
@@ -574,9 +692,7 @@ def _run_legs(world: int, legs: dict, cwd: Path) -> dict:
         plan = [[name, port, argv] for (name, argv), port in zip(legs.items(), ports)]
         return [str(rank), str(world), json.dumps(plan)]
 
-    runs = _launch_on_ports(world, _RANK, len(legs), args, cwd, lambda ports, r: {})
-    bad = [(rank, rc, err[-3000:]) for rank, (rc, _, err) in enumerate(runs) if rc]
-    assert not bad, f"ranks died: {bad}"
+    runs = _all_ok(_launch_on_ports(world, _RANK, len(legs), args, cwd, lambda ports, r: {}))
     results = [json.loads(out.strip().splitlines()[-1]) for _, out, _ in runs]
     return {name: [r[name] for r in results] for name in legs}
 
@@ -685,10 +801,11 @@ def test_unrangeable_single_input_is_refused(ranked, inputs, kind):
     assert ranked["results"][f"refuse_{kind}"] == [{"exit": want}] * ranked["world"]
 
 
-_CLI = "import sys\nfrom cfrk_tpu_torch.cli import main\nsys.exit(main(sys.argv[1:]))\n"
+_CLI = _RANK_HEAD + ("import sys\nfrom cfrk_tpu_torch.cli import main\n"
+                      "sys.exit(main(sys.argv[1:]))\n")
 
 
-def _cli_ranks(world, argv, cwd, fault_of_rank) -> list:
+def _cli_ranks(world, argv, cwd, fault_of_rank, script: str = _CLI) -> Launch:
     """One CLI run on ``world`` ranks, rank i armed with
     ``CFRK_FAULT_INJECT=fault_of_rank(i)`` where that is not None."""
     def env_of_rank(ports, rank):
@@ -698,7 +815,7 @@ def _cli_ranks(world, argv, cwd, fault_of_rank) -> list:
             env["CFRK_FAULT_INJECT"] = fault_of_rank(rank)
         return env
 
-    return _launch_on_ports(world, _CLI, 1, lambda ports, r: argv, cwd, env_of_rank)
+    return _launch_on_ports(world, script, 1, lambda ports, r: argv, cwd, env_of_rank)
 
 
 def test_ranks_started_by_slurm_write_one_process_bytes(tmp_path, inputs, jax_bytes):
@@ -709,10 +826,10 @@ def test_ranks_started_by_slurm_write_one_process_bytes(tmp_path, inputs, jax_by
     out = tmp_path / "o.cfrk"
     argv = [inputs["plain"], str(out), *_LEGS["perread_plain"][1], "--distributed",
             "--device", "cpu", "--batch-size", "8"]
-    runs = _launch_on_ports(2, _CLI, 1, lambda ports, r: argv, tmp_path, lambda ports, r: {
+    launch = _launch_on_ports(2, _CLI, 1, lambda ports, r: argv, tmp_path, lambda ports, r: {
         "SLURM_JOB_ID": "777", "SLURM_STEP_NODELIST": "localhost", "SLURM_NTASKS": "2",
         "SLURM_PROCID": str(r), "SLURM_LOCALID": "0", "JAX_COORDINATOR_PORT": str(ports[0])})
-    assert [rc for rc, _, _ in runs] == [0, 0], [r[2][-2000:] for r in runs]
+    _all_ok(launch)
     assert out.read_bytes() == jax_bytes["perread_plain"]
     assert sorted(p.name for p in tmp_path.iterdir() if p.name.startswith("o.")) == ["o.cfrk"]
 
@@ -728,17 +845,53 @@ def test_killed_ranks_resume_to_jax_bytes(tmp_path, inputs, jax_bytes, killed):
             "--device", "cpu", "--batch-size", "8"]
     fault = (lambda r: "checkpoint:2") if killed == "both" else (
         lambda r: "checkpoint:2" if r == 1 else None)
-    runs = _cli_ranks(2, argv, tmp_path, fault)
-    assert all(rc != 0 for rc, _, _ in runs), [r[2][-2000:] for r in runs]
+    launch = _cli_ranks(2, argv, tmp_path, fault)
+    runs = launch.runs
+    assert all(rc != 0 for rc, _, _ in runs), _report("a rank returned 0", launch)
     assert "InjectedFault" in runs[1][2]
     if killed == "rank1":
         assert "InjectedFault" not in runs[0][2]
     assert not out.exists()
     assert (tmp_path / "o.cfrk.part1.ckpt.json").exists()
-    runs = _cli_ranks(2, [*argv, "--resume"], tmp_path, lambda r: None)
-    assert [rc for rc, _, _ in runs] == [0, 0], [r[2][-2000:] for r in runs]
+    _all_ok(_cli_ranks(2, [*argv, "--resume"], tmp_path, lambda r: None))
     assert out.read_bytes() == jax_bytes["perread_bgzf"]
     assert sorted(p.name for p in tmp_path.iterdir() if p.name.startswith("o.")) == ["o.cfrk"]
+
+
+# The CLI with its group's start and end stamped on stderr, the last rank
+# slow to finish joining (as a rank the host has not scheduled yet is).
+_JOIN_PROBE = _RANK_HEAD + """
+import sys, time
+import torch.distributed as dist
+from cfrk_tpu_torch.cli import main
+join, leave = dist.init_process_group, dist.destroy_process_group
+def init(*args, **kwargs):
+    join(*args, **kwargs)
+    if dist.get_rank() == dist.get_world_size() - 1:
+        time.sleep(1)
+    print("joined", time.monotonic(), file=sys.stderr, flush=True)
+def destroy(*args, **kwargs):
+    print("leaving", time.monotonic(), file=sys.stderr, flush=True)
+    leave(*args, **kwargs)
+dist.init_process_group, dist.destroy_process_group = init, destroy
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+def test_no_rank_leaves_the_group_before_every_rank_has_joined(tmp_path, inputs):
+    """Three ranks refuse a FASTQ input, the last one slow to finish
+    joining the group: each exits with the JAX CLI's refusal (none with a
+    broken connection), and none leaves the group before the last has
+    joined it."""
+    argv = [inputs["fastq"], "-k", "2", "-o", str(tmp_path / "o.out"), "--distributed",
+            "--device", "cpu"]
+    launch = _cli_ranks(3, argv, tmp_path, lambda r: None, script=_JOIN_PROBE)
+    want = _REFUSAL_MESSAGE["fastq"].format(inp=inputs["fastq"])
+    assert all(rc == 1 and err.rstrip().endswith(want) for rc, _, err in launch.runs), \
+        _report("a rank did not refuse", launch)
+    stamps = [{key: float(t) for key, t in re.findall(r"^(joined|leaving) (\S+)$", err, re.M)}
+              for _, _, err in launch.runs]
+    assert max(s["joined"] for s in stamps) <= min(s["leaving"] for s in stamps)
 
 
 def _dealt_run(tmp_path, inputs, world: int, names: list, flags: list) -> list:
@@ -748,9 +901,9 @@ def _dealt_run(tmp_path, inputs, world: int, names: list, flags: list) -> list:
     rank's ``--stats`` line."""
     paths = [inputs[n] for n in names]
     out = tmp_path / "out"
-    runs = _cli_ranks(world, [*paths, *flags, "--out-dir", str(out), "--distributed",
-                              "--device", "cpu", "--stats"], tmp_path, lambda r: None)
-    assert [rc for rc, _, _ in runs] == [0] * world, [r[2][-2000:] for r in runs]
+    runs = _all_ok(_cli_ranks(world, [*paths, *flags, "--out-dir", str(out), "--distributed",
+                                      "--device", "cpu", "--stats"], tmp_path, lambda r: None))
+    assert len(runs) == world
     for path in paths:
         assert jax_main([path, *flags, "--out-dir", str(tmp_path / "jax"),
                          "--devices", "1"]) == 0
@@ -778,3 +931,86 @@ def test_several_inputs_on_more_ranks_than_inputs(tmp_path, inputs):
     stats = _dealt_run(tmp_path, inputs, 3, ["plain", "two_records"],
                        ["-k", "5", "--mode", "spectrum"])
     assert [s["files"] for s in stats] == [1, 1, 0]
+
+
+# ----------------------------------------------------------------- harness
+
+
+def _live_session(sid: int) -> list:
+    """The pids of the processes of session ``sid`` that are not zombies."""
+    alive = []
+    for entry in Path("/proc").iterdir():
+        try:
+            fields = (entry / "stat").read_text().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        if int(fields[3]) == sid and fields[0] != "Z":
+            alive.append(int(entry.name))
+    return alive
+
+
+def test_rank_that_signals_its_group_dies_alone(tmp_path):
+    """A rank that sends SIGTERM to its own process group ends only
+    itself: this process lives on, the other rank's session is its own,
+    and the launch reports a rank death with the signal by name."""
+    script = ("import os, signal, sys, time\n"
+              "if sys.argv[1] == '0':\n    os.killpg(0, signal.SIGTERM)\n"
+              "time.sleep(1)\n")
+    launch = _launch(2, script, lambda r: [str(r)], tmp_path, lambda r: {})
+    assert [rc for rc, _, _ in launch.runs] == [-signal.SIGTERM, 0]
+    with pytest.raises(pytest.fail.Exception,
+                       match=r"^rank death(.|\n)*rank 0 \(pid \d+\): rc -15 \(SIGTERM\), "
+                             r"peak RSS \d+ KiB"):
+        _all_ok(launch)
+
+
+def test_rank_past_its_timeout_is_reported_and_its_session_killed(tmp_path):
+    """A rank (and a child it started) still alive at the launch's
+    timeout: the test fails as a timeout, with the rank's stderr, and no
+    process of the rank's session survives the launch."""
+    script = ("import subprocess, sys, time\n"
+              "print('started', file=sys.stderr, flush=True)\n"
+              "subprocess.Popen([sys.executable, '-c', 'import time; time.sleep(120)'])\n"
+              "time.sleep(120)\n")
+    start = time.monotonic()
+    with pytest.raises(pytest.fail.Exception, match=r"^timeout: a rank outlived 5 s") as failed:
+        _launch(1, script, lambda r: [], tmp_path, lambda r: {}, timeout=5)
+    assert time.monotonic() - start < 60
+    message = str(failed.value)
+    assert "attempt 1 of" in message and "\nstarted\n" in message
+    sid = int(re.search(r"rank 0 \(pid (\d+)\): rc -9 \(SIGKILL\)", message).group(1))
+    deadline = time.monotonic() + 10
+    while _live_session(sid) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert _live_session(sid) == []
+
+
+def test_ranks_run_single_threaded_in_a_session_of_their_own(tmp_path):
+    """Each rank's torch has one intra-op thread from its environment
+    alone, and one of each once a rank script's head has run; stdin reads
+    EOF from ``/dev/null``; the rank leads a session of its own.  Both
+    rank scripts start with that head."""
+    probe = ("import torch\nn = torch.get_num_threads()\n" + _RANK_HEAD
+             + "import json, sys\nprint(json.dumps([n, torch.get_num_threads(), "
+               "torch.get_num_interop_threads(), sys.stdin.read(), "
+               "os.readlink('/proc/self/fd/0'), os.getsid(0) == os.getpid()]))\n")
+    runs = _all_ok(_launch(2, probe, lambda r: [], tmp_path, lambda r: {}))
+    assert [json.loads(out) for _, out, _ in runs] == [[1, 1, 1, "", os.devnull, True]] * 2
+    assert _RANK.startswith(_RANK_HEAD) and _CLI.startswith(_RANK_HEAD)
+
+
+def test_rank_ends_when_its_launcher_is_gone(tmp_path):
+    """A rank whose starting process exits without ending it (as a test
+    process killed with its process group does) ends by itself."""
+    launcher = ("import os, subprocess, sys\n"
+                "rank = subprocess.Popen([sys.executable, '-c', sys.argv[1]], "
+                "start_new_session=True, stderr=subprocess.DEVNULL, "
+                "env={**os.environ, 'TEST_LAUNCHER_PID': str(os.getpid())})\n"
+                "print(rank.pid)\n")
+    started = subprocess.run([sys.executable, "-c", launcher, _RANK_HEAD + "time.sleep(120)\n"],
+                             capture_output=True, text=True, timeout=60, check=True)
+    pid = int(started.stdout)
+    deadline = time.monotonic() + 60
+    while _live_session(pid) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert _live_session(pid) == []
