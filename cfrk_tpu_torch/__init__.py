@@ -34,6 +34,10 @@ spilling under a memory budget), the run metrics and checkpoint, and
 the multi-file workflow.
 """
 
+import time as _time
+
+_IMPORT_START_NS = _time.perf_counter_ns()
+
 from .format import CfrkWriter, format_file_bytes, parse_cfrk
 from .io.fasta import encode_seq, iter_fasta, read_fasta, read_fasta_encoded
 from .ops.encode import window_components, window_indices
@@ -55,6 +59,7 @@ from .pipeline.stream import (
 )
 from .runtime import RunMetrics, StreamCheckpoint, run_workflow
 from .version import __version__
+from .runtime.metrics import record_once as _record_once
 
 __all__ = [
     "__version__",
@@ -85,3 +90,6 @@ __all__ = [
     "StreamCheckpoint",
     "run_workflow",
 ]
+
+_record_once("cfrk.import", _IMPORT_START_NS)
+del _time, _IMPORT_START_NS, _record_once

@@ -28,6 +28,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from ...runtime.metrics import once_span
+
 __all__ = ["NVCC_FLAGS", "CXX_FLAGS", "build_library", "build_libraries",
            "host_compiler", "load_library", "once"]
 
@@ -97,7 +99,12 @@ def build_library(name: str) -> Path:
     so = BUILD_DIR / f"lib{name}-{digest}.so"
     if so.exists():
         return so
-    compiler = _nvcc() if cuda else host_compiler()
+    with once_span(f"cfrk.library.build.{name}"):
+        _compile(src, so, _nvcc() if cuda else host_compiler(), flags)
+    return so
+
+
+def _compile(src: Path, so: Path, compiler: str, flags) -> None:
     try:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # Build to a private name, then rename: concurrent first uses
@@ -128,7 +135,6 @@ def build_library(name: str) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return so
 
 
 def build_libraries(names) -> dict:
@@ -166,5 +172,7 @@ def once(fn):
 @once
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>``'s library once per
-    process."""
-    return ctypes.CDLL(str(build_library(name)))
+    process (span ``cfrk.library.load.<name>``, around the build's
+    ``cfrk.library.build.<name>`` when the compiler runs)."""
+    with once_span(f"cfrk.library.load.{name}"):
+        return ctypes.CDLL(str(build_library(name)))

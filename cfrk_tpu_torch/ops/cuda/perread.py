@@ -28,7 +28,8 @@ defines the packed and checksum shapes.
 As in ``ops/cuda/rowsort.py``, the wrapper takes its plain twin only for
 a tensor on the CPU.  For a CUDA tensor it launches the kernel or
 raises; a build or launch failure is never replaced by the plain route.
-``perread_hist.launches`` counts the kernel's launches.
+``perread_hist.launches`` counts the kernel's launches; its spans and its
+``cfrk.out_bytes`` count are those of ``ops/cuda/rowsort.py``'s wrappers.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ...runtime.metrics import count_out, launch, register_launches, span
 from ..encode import split_k, window_indices
 from .build import load_library, once
 
@@ -291,8 +293,9 @@ def perread_hist(codes: torch.Tensor, k: int, canonical: bool = False, *,
     ``rb`` reads.  Length is unbounded.
     """
     if codes.device.type == "cpu":
-        return perread_hist_plain(codes, k, canonical, packed=packed,
-                                  read_block=read_block, checksum=checksum)
+        with span("cfrk.perread_hist.plain"):
+            return count_out(perread_hist_plain(codes, k, canonical, packed=packed,
+                                                read_block=read_block, checksum=checksum))
     w, kl, packing, rb, b_pad = _plan(codes, k, packed, read_block)
     if codes.device.type != "cuda":
         raise ValueError(f"codes on {codes.device}: the kernel needs CUDA")
@@ -310,7 +313,8 @@ def perread_hist(codes: torch.Tensor, k: int, canonical: bool = False, *,
     if rows:
         with torch.cuda.device(codes.device):
             stream = torch.cuda.current_stream(codes.device).cuda_stream
-            err = _library().cfrk_perread_hist(
+            err = launch(
+                "perread_hist", _library().cfrk_perread_hist,
                 codes.data_ptr(), out.data_ptr(),
                 chk.data_ptr() if checksum else None,
                 rows, b, length, w, k, kl, int(canonical), _PACKINGS[packing],
@@ -319,7 +323,8 @@ def perread_hist(codes: torch.Tensor, k: int, canonical: bool = False, *,
         if err != 0:
             raise RuntimeError(f"cfrk_perread_hist launch failed: CUDA error {err}")
         perread_hist.launches += 1
-    return (out, chk) if checksum else out
+    return count_out((out, chk) if checksum else out)
 
 
 perread_hist.launches = 0
+register_launches(perread_hist)

@@ -37,7 +37,10 @@ This module owns the device decision: a wrapper takes its plain twin
 only for a tensor on the CPU.  For a CUDA tensor it launches its kernel
 or raises; a build or launch failure is never replaced by the plain
 route.  Each wrapper counts its launches in its ``launches`` attribute,
-so a run can show it went through the kernel.
+so a run can show it went through the kernel, and the bytes it returns
+under the counter ``cfrk.out_bytes``; its launch is the span
+``cfrk.<wrapper>.launch`` (``.first_launch`` the first time), its plain
+twin ``cfrk.<wrapper>.plain`` (``runtime/metrics.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ...runtime.metrics import count_out, launch, register_launches, span
 from ..encode import window_indices
 from ..sparse import INVALID_SENTINEL, LO_BASES, kmer_keys
 from .build import load_library, once
@@ -462,13 +466,13 @@ def _check(codes: torch.Tensor, k: int, lo: int, hi: int) -> int:
     return w
 
 
-def _launch(fn, codes: torch.Tensor, outs, chk, k: int, w: int,
+def _launch(kernel: str, fn, codes: torch.Tensor, outs, chk, k: int, w: int,
             canonical: bool) -> None:
     b, length = codes.shape
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = fn(
-            codes.data_ptr(), *(o.data_ptr() for o in outs),
+        err = launch(
+            kernel, fn, codes.data_ptr(), *(o.data_ptr() for o in outs),
             None if chk is None else chk.data_ptr(),
             b, length, w, k, int(canonical), stream,
         )
@@ -493,16 +497,18 @@ def rowsort_rle(codes: torch.Tensor, k: int, canonical: bool = False, *,
     ``chk`` (see the module's docstring).
     """
     if codes.device.type == "cpu":
-        return rowsort_rle_plain(codes, k, canonical, checksum=checksum)
+        with span("cfrk.rowsort_rle.plain"):
+            return count_out(rowsort_rle_plain(codes, k, canonical, checksum=checksum))
     w = _check(codes, k, 1, MAX_SPARSE_PERREAD_K)
     codes = codes.contiguous()
     idx = torch.empty((codes.shape[0], w), dtype=torch.int32, device=codes.device)
     cnt = torch.empty_like(idx)
     chk = _checksum_out(codes, w, False, checksum)
     if codes.shape[0]:
-        _launch(_library().cfrk_rowsort_rle, codes, (idx, cnt), chk, k, w, canonical)
+        _launch("rowsort_rle", _library().cfrk_rowsort_rle, codes, (idx, cnt), chk, k, w,
+                canonical)
         rowsort_rle.launches += 1
-    return (idx, cnt) if chk is None else (idx, cnt, chk)
+    return count_out((idx, cnt) if chk is None else (idx, cnt, chk))
 
 
 def rowsort_rle_large(codes: torch.Tensor, k: int, canonical: bool = False, *,
@@ -515,7 +521,9 @@ def rowsort_rle_large(codes: torch.Tensor, k: int, canonical: bool = False, *,
     ``checksum=True`` also returns ``chk`` (see the module's docstring).
     """
     if codes.device.type == "cpu":
-        return rowsort_rle_large_plain(codes, k, canonical, checksum=checksum)
+        with span("cfrk.rowsort_rle_large.plain"):
+            return count_out(rowsort_rle_large_plain(codes, k, canonical,
+                                                     checksum=checksum))
     w = _check(codes, k, 16, 31)
     codes = codes.contiguous()
     hi = torch.empty((codes.shape[0], w), dtype=torch.int32, device=codes.device)
@@ -523,10 +531,10 @@ def rowsort_rle_large(codes: torch.Tensor, k: int, canonical: bool = False, *,
     cnt = torch.empty_like(hi)
     chk = _checksum_out(codes, w, True, checksum)
     if codes.shape[0]:
-        _launch(_library().cfrk_rowsort_rle_large, codes, (hi, lo, cnt), chk, k, w,
-                canonical)
+        _launch("rowsort_rle_large", _library().cfrk_rowsort_rle_large, codes,
+                (hi, lo, cnt), chk, k, w, canonical)
         rowsort_rle_large.launches += 1
-    return (hi, lo, cnt) if chk is None else (hi, lo, cnt, chk)
+    return count_out((hi, lo, cnt) if chk is None else (hi, lo, cnt, chk))
 
 
 rowsort_rle.launches = 0
@@ -560,7 +568,8 @@ def rowsort_probe(codes: torch.Tensor, k: int, variant: str,
     uint64 above): codes [B, L] int8 → [B] int64 checksums, equal to
     :func:`rowsort_probe_plain`'s."""
     if codes.device.type == "cpu":
-        return rowsort_probe_plain(codes, k, variant, canonical)
+        with span("cfrk.rowsort_probe.plain"):
+            return count_out(rowsort_probe_plain(codes, k, variant, canonical))
     w = _probe_check(codes, k, variant)
     if codes.device.type != "cuda":
         raise ValueError(f"codes on {codes.device}: the kernel needs CUDA")
@@ -570,7 +579,8 @@ def rowsort_probe(codes: torch.Tensor, k: int, variant: str,
     if b:
         with torch.cuda.device(codes.device):
             stream = torch.cuda.current_stream(codes.device).cuda_stream
-            err = _library().cfrk_rowsort_probe(
+            err = launch(
+                "rowsort_probe", _library().cfrk_rowsort_probe,
                 codes.data_ptr(), chk.data_ptr(), b, length, w, k,
                 int(canonical), int(k > MAX_SPARSE_PERREAD_K),
                 PROBE_VARIANTS[variant], stream,
@@ -578,7 +588,8 @@ def rowsort_probe(codes: torch.Tensor, k: int, variant: str,
         if err != 0:
             raise RuntimeError(f"cfrk_rowsort_probe launch failed: CUDA error {err}")
         rowsort_probe.launches += 1
-    return chk
+    return count_out(chk)
 
 
 rowsort_probe.launches = 0
+register_launches(rowsort_rle, rowsort_rle_large, rowsort_probe)

@@ -21,7 +21,8 @@ a fresh ``4**k`` table; without ``out`` they start from a zeroed table.
 As in ``ops/cuda/rowsort.py``, the wrapper takes its plain twin only for
 a tensor on the CPU.  For a CUDA tensor it launches the kernel or
 raises; a build or launch failure is never replaced by the plain route.
-``spectrum_hist.launches`` counts the kernel's launches.
+``spectrum_hist.launches`` counts the kernel's launches; its spans and its
+``cfrk.out_bytes`` count are those of ``ops/cuda/rowsort.py``'s wrappers.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ...runtime.metrics import count_out, launch, register_launches, span
 from ..encode import window_indices
 from .build import load_library, once
 from .rowsort import UNIT_BASES, pack_units_model, packed_window_keys_model
@@ -171,7 +173,8 @@ def spectrum_hist(codes: torch.Tensor, k: int, canonical: bool = False,
             f"{codes.dtype}"
         )
     if codes.device.type == "cpu":
-        return spectrum_hist_plain(codes, k, canonical, out)
+        with span("cfrk.spectrum_hist.plain"):
+            return count_out(spectrum_hist_plain(codes, k, canonical, out))
     b, length = codes.shape
     w = length - k + 1
     if w <= 0:
@@ -183,14 +186,16 @@ def spectrum_hist(codes: torch.Tensor, k: int, canonical: bool = False,
     if b:
         with torch.cuda.device(codes.device):
             stream = torch.cuda.current_stream(codes.device).cuda_stream
-            err = _library().cfrk_spectrum_hist(
+            err = launch(
+                "spectrum_hist", _library().cfrk_spectrum_hist,
                 codes.data_ptr(), table.data_ptr(), b, length, w, k,
                 int(canonical), stream,
             )
         if err != 0:
             raise RuntimeError(f"cfrk_spectrum_hist launch failed: CUDA error {err}")
         spectrum_hist.launches += 1
-    return table
+    return count_out(table)
 
 
 spectrum_hist.launches = 0
+register_launches(spectrum_hist)

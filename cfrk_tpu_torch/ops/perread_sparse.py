@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..runtime.metrics import count, span, traced
 from .cuda.rowsort import (
     KEY64_SENTINEL,
     LO_MASK,
@@ -92,12 +93,21 @@ def count_perread_rows(codes: torch.Tensor, k: int, canonical: bool = False):
     reaches a wrapper of ``ops/cuda/rowsort.py``, which alone picks the
     device route (a CUDA tensor launches the kernel, a CPU tensor takes
     the plain twin).
+
+    A call is the span ``cfrk.rows`` (``cfrk.rows.tiled`` inside it on
+    the tiled route) and one count of ``cfrk.rows.calls``.
     """
+    count("cfrk.rows.calls")
+    return traced("cfrk.rows", _rows, codes, k, canonical)
+
+
+def _rows(codes: torch.Tensor, k: int, canonical: bool):
     w = codes.shape[-1] - k + 1
     if w > rowsort_max_windows(k):
-        return count_perread_rows_tiled(
-            codes, k, canonical, step=rowsort_max_windows(k)
-        )
+        with span("cfrk.rows.tiled"):
+            return count_perread_rows_tiled(
+                codes, k, canonical, step=rowsort_max_windows(k)
+            )
     if k <= MAX_SPARSE_PERREAD_K:
         return rowsort_rle(codes, k, canonical)
     return rowsort_rle_large(codes, k, canonical)
@@ -109,8 +119,8 @@ def count_perread_rows_tiled(codes: torch.Tensor, k: int,
 
     Splits the position axis into tiles of ``step`` windows with k-1
     halo columns (every window lands in exactly one tile), runs every
-    tile of every read through :func:`count_perread_rows` on the codes'
-    device, and merges each read's per-tile (key, count) pairs on host.
+    tile of every read through the row wrappers on the codes' device,
+    and merges each read's per-tile (key, count) pairs on host.
     The result is array-equal to the single-shot plain route: a run
     start's position in the sorted row is the exclusive prefix sum of
     the preceding run counts, so the exact layout rebuilds from the
@@ -137,7 +147,7 @@ def count_perread_rows_tiled(codes: torch.Tensor, k: int,
     for s in range(0, stacked.shape[0], rows_per):
         chunk = torch.from_numpy(stacked[s : s + rows_per]).to(codes.device)
         keys_c, cnt_c = pairs_to_host(
-            narrow_for_fetch(count_perread_rows(chunk, k, canonical), k),
+            narrow_for_fetch(_rows(chunk, k, canonical), k),
             chunk.shape[0],
         )
         key_parts.append(keys_c)
@@ -204,11 +214,13 @@ def compact_pairs(idx: torch.Tensor, counts: torch.Tensor, k: int):
 def narrow_for_fetch(device_out, k: int):
     """The one device→host narrowing policy for a per-read result:
     :func:`compact_pairs` for an (idx, counts) pair, count narrowing for
-    a (hi, lo, counts) triple.  Every drain goes through it."""
-    if len(device_out) == 2:
-        return compact_pairs(*device_out, k)
-    hi, lo, cnt = device_out
-    return hi, lo, _narrow_counts(cnt)
+    a (hi, lo, counts) triple.  Every drain goes through it (span
+    ``cfrk.narrow``)."""
+    with span("cfrk.narrow"):
+        if len(device_out) == 2:
+            return compact_pairs(*device_out, k)
+        hi, lo, cnt = device_out
+        return hi, lo, _narrow_counts(cnt)
 
 
 def valid_pair_prefix(rows, w: int):
@@ -225,21 +237,22 @@ def pairs_to_host(device_out, n_reads: int):
     For the (idx, counts) pair the keys are int32 indices (an int16 bit
     view is read as uint16); for the (hi, lo, counts) triple they are the
     uint64 combined code ``hi * 4**LO_BASES + lo``.  Sentinel cells keep
-    count 0 and are skipped by the formatter.
+    count 0 and are skipped by the formatter.  Span ``cfrk.to_host``.
     """
     def host(t):
         return t[:n_reads].cpu().numpy()
 
-    if len(device_out) == 2:
-        idx, counts = map(host, device_out)
-        if idx.dtype == np.int16:
-            idx = idx.view(np.uint16)
-        return idx.astype(np.int32, copy=False), counts.astype(np.int32, copy=False)
-    hi, lo, counts = map(host, device_out)
-    combined = (hi.view(np.uint32).astype(np.uint64) << np.uint64(2 * LO_BASES)) | (
-        lo.view(np.uint32).astype(np.uint64)
-    )
-    return combined, counts.astype(np.int32, copy=False)
+    with span("cfrk.to_host"):
+        if len(device_out) == 2:
+            idx, counts = map(host, device_out)
+            if idx.dtype == np.int16:
+                idx = idx.view(np.uint16)
+            return idx.astype(np.int32, copy=False), counts.astype(np.int32, copy=False)
+        hi, lo, counts = map(host, device_out)
+        combined = (hi.view(np.uint32).astype(np.uint64) << np.uint64(2 * LO_BASES)) | (
+            lo.view(np.uint32).astype(np.uint64)
+        )
+        return combined, counts.astype(np.int32, copy=False)
 
 
 def rows_to_triples(rows, k: int):

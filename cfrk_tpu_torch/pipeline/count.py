@@ -60,6 +60,7 @@ from ..parallel.sharded import (
     count_perread_sparse_sharded,
     spectrum_sharded,
 )
+from ..runtime.metrics import span
 from .batch import auto_batch_size, iter_batches, round_up
 
 __all__ = [
@@ -363,28 +364,40 @@ def count_file_sparse_rows(
     from the same pairs.  The batches run on ``device``: a CUDA device
     goes through the CUDA kernels, the CPU through the plain route; with
     ``mesh`` the rows shard over its devices (no collective).  Returns
-    the number of reads written.
+    the number of reads written.  Its stages are the spans
+    ``cfrk.stage.<name>`` of ``tools/stage_breakdown.py``'s names: parse,
+    pad, h2d, rows, drain, format.
     """
     if not nonzero and k > 8:
         raise ValueError("dense rows require k <= 8")
     device = run_device(device, mesh)
-    reads = read_fasta_encoded(path, min_qual)
+    with span("cfrk.stage.parse"):
+        reads = read_fasta_encoded(path, min_qual)
     n_written = 0
     with CfrkWriter(out_path) as w:
         if not reads:
             return 0
         bs, ml = _plan_shapes(reads, k, batch_size, max_len, mesh)
-        for batch in iter_batches(reads, bs, ml):
-            codes = torch.from_numpy(batch.codes).to(device)
-            if mesh is not None:
-                out = count_perread_sparse_sharded(codes, k, mesh, canonical=canonical)
-            else:
-                out = count_perread_rows(codes, k, canonical)
-            idx, counts = pairs_to_host(narrow_for_fetch(out, k), batch.n_reads)
-            if nonzero:
-                w.write_pairs(idx, counts)
-            else:
-                w.write_pairs_dense(idx, counts, 4**k)
+        batches = iter_batches(reads, bs, ml)
+        while True:
+            with span("cfrk.stage.pad"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            with span("cfrk.stage.h2d"):
+                codes = torch.from_numpy(batch.codes).to(device)
+            with span("cfrk.stage.rows"):
+                if mesh is not None:
+                    out = count_perread_sparse_sharded(codes, k, mesh, canonical=canonical)
+                else:
+                    out = count_perread_rows(codes, k, canonical)
+            with span("cfrk.stage.drain"):
+                idx, counts = pairs_to_host(narrow_for_fetch(out, k), batch.n_reads)
+            with span("cfrk.stage.format"):
+                if nonzero:
+                    w.write_pairs(idx, counts)
+                else:
+                    w.write_pairs_dense(idx, counts, 4**k)
             n_written += batch.n_reads
     return n_written
 

@@ -3,7 +3,7 @@ config files and the multi-file workflow."""
 
 from .checkpoint import StreamCheckpoint, checkpoint_path
 from .faults import InjectedFault
-from .metrics import RunMetrics, StageTimer
+from .metrics import RunMetrics
 from .workflow import (
     WorkflowResult,
     WorkflowTask,
@@ -15,7 +15,6 @@ from .workflow import (
 __all__ = [
     "InjectedFault",
     "RunMetrics",
-    "StageTimer",
     "StreamCheckpoint",
     "WorkflowResult",
     "WorkflowTask",

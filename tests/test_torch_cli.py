@@ -1108,7 +1108,8 @@ def test_list_devices_on_a_cpu_host(capsys):
 
 def test_profile_writes_a_trace(tmp_path):
     """``--profile DIR`` on ``--device cpu`` writes one Chrome trace of
-    the run into DIR, and the output is unchanged."""
+    the run into DIR, and the output is unchanged; the trace holds the
+    program's spans: the dispatcher's and the driver's stages."""
     fa = _prefix_fasta(tmp_path, "seq2.fasta.gz", 20)
     assert main([fa, "a.cfrk", "4", "--device", "cpu", "--profile", "trace"]) == 0
     assert main([fa, "b.cfrk", "4", "--device", "cpu"]) == 0
@@ -1117,6 +1118,10 @@ def test_profile_writes_a_trace(tmp_path):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"cfrk.rows", "cfrk.rowsort_rle.plain", "cfrk.narrow", "cfrk.to_host"} <= spans
+    assert {f"cfrk.stage.{s}" for s in ("parse", "pad", "h2d", "rows", "drain",
+                                        "format")} <= spans
 
 
 def test_multi_file_dense_k9_fails_each_task_as_jax_cli(tmp_path, capsys):

@@ -295,6 +295,9 @@ _NAME_EXCEPTIONS = {
        "permutes, one-hot builds, serial scatter updates); the H100 bound has none"
        for name in ("INT8_MXU_OPS", "BF16_MXU_FLOPS", "VPU_ALU_OPS", "CROSS_LANE_OPS",
                     "ONEHOT_BUILD_ELEMS_PER_S", "SCALAR_UPDATES_PER_S")},
+    **{f"cfrk_tpu.runtime{sub}.StageTimer": "nothing in the port read it; the port "
+       "times its layers with runtime/metrics.span and RunMetrics.stage"
+       for sub in ("", ".metrics")},
     "cfrk_tpu.ops.roofline.onehot_family_sol":
         "the floor of the TPU's compare-built one-hot kernels; the port's "
         "perread_hist builds no one-hot (its bound is ops/roofline.perread_bound)",
