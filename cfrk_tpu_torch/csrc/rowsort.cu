@@ -48,6 +48,22 @@
 //    it, finds its run end by binary search for the first larger key;
 //    the row is written with coalesced int32 stores.
 //
+// Two keys a register (k <= 8, rows of up to 4096 keys): a key is below
+// 4**8 and fits 16 bits, so rowsort_rle_pairs holds two in each 32-bit
+// word, word j keys j and j + width/2, and sorts both halves of the row
+// at once with Hopper's packed min.u16x2 / max.u16x2: one instruction
+// each orders two pairs, one shuffle moves two keys.  The halves sort
+// with the bitonic network's flip form, in which every pair ascends, so
+// no compare-exchange needs a direction; the upper half's keys are
+// complemented meanwhile, which makes it descend.  One stage inside each
+// word and the final merge's cleaners, again two keys an instruction,
+// finish the row.  A padding cell takes 0xFFFF, which at k = 8 is also
+// a real key (TTTTTTTT): each row counts its real windows, n_valid, and
+// after the sort cells [0, n_valid) are exactly its real keys in order,
+// since no padding value is below a real key.  The emit treats the cells
+// from n_valid on as sentinels and cuts the last run there; it writes
+// the same int32 words as the uint32 path.
+//
 // Keys: k <= 15 sorts uint32 with sentinel 4**k; k > 15 sorts one
 // uint64 `hi << 30 | lo` (< 4**31 for a real window) with sentinel
 // all-ones, and splits back to the (hi, lo) uint32 words at emit.  A
@@ -71,6 +87,10 @@
 //   kRleOnly   build + the run-end search on the UNSORTED keys, with
 //              kFull's checksum;
 //   kNoop      build, with kSortOnly's checksum.
+// At k <= 8 the variants take the two-keys-a-register path of the
+// production kernel; its 16-bit cells hold 0xFFFF for padding, so the
+// sorted variants read the cells from n_valid on, and the unsorted ones
+// the cells of invalid windows, as the sentinel 4**k.
 // kEmit is the production kernel.  The searches run over the first
 // n = 2**ceil(log2 W) keys of the row whatever width the sort takes, so
 // kRleOnly's checksum on unsorted keys does not depend on the path;
@@ -120,9 +140,17 @@ constexpr int kRegThreads = 256;
 constexpr int kMinWidth = 32;
 constexpr int kMaxRegWidth = kRegThreads << kLogKeysWide;
 
+// The two-keys-a-register path (k <= kMaxPairK) holds as many keys a
+// thread as the uint32 path, two a word, in the same rows a block: a
+// sweep of its own counts (tools/rowsort_sweep.py, PERF.md) found none
+// faster at any width.
+constexpr int kMaxPairK = 8;
+constexpr uint32_t kPad16 = 0xFFFFu;
+
 static_assert((1 << kLogKeysWide) <= cfrk::kUnitBases &&
                   kLogKeys <= kLogKeysWide,
               "a thread's windows must start in one packed unit");
+static_assert(kLogKeys >= 1, "a thread holds at least one word of two keys");
 
 template <bool kLarge>
 using KeyOf = typename std::conditional<kLarge, uint64_t, uint32_t>::type;
@@ -244,34 +272,46 @@ __device__ __forceinline__ void bitonic_sort(Key* s, int n) {
 }
 
 // A thread's kKeys consecutive keys to and from shared memory, 16 bytes
-// at a time (`p` is aligned to kKeys keys).
+// at a time (`p` is aligned to kKeys keys), or one by one where they are
+// fewer.
 template <typename Key, int kKeys>
 __device__ __forceinline__ void store_keys(Key* p, const Key (&v)[kKeys]) {
+  if constexpr (kKeys * sizeof(Key) < 16) {
 #pragma unroll
-  for (int e = 0; e < kKeys; e += 16 / int(sizeof(Key))) {
-    if constexpr (sizeof(Key) == 4) {
-      *reinterpret_cast<uint4*>(p + e) =
-          make_uint4(v[e], v[e + 1], v[e + 2], v[e + 3]);
-    } else {
-      *reinterpret_cast<ulonglong2*>(p + e) = make_ulonglong2(v[e], v[e + 1]);
+    for (int e = 0; e < kKeys; ++e) p[e] = v[e];
+  } else {
+#pragma unroll
+    for (int e = 0; e < kKeys; e += 16 / int(sizeof(Key))) {
+      if constexpr (sizeof(Key) == 4) {
+        *reinterpret_cast<uint4*>(p + e) =
+            make_uint4(v[e], v[e + 1], v[e + 2], v[e + 3]);
+      } else {
+        *reinterpret_cast<ulonglong2*>(p + e) =
+            make_ulonglong2(v[e], v[e + 1]);
+      }
     }
   }
 }
 
 template <typename Key, int kKeys>
 __device__ __forceinline__ void load_keys(Key (&v)[kKeys], const Key* p) {
+  if constexpr (kKeys * sizeof(Key) < 16) {
 #pragma unroll
-  for (int e = 0; e < kKeys; e += 16 / int(sizeof(Key))) {
-    if constexpr (sizeof(Key) == 4) {
-      const uint4 q = *reinterpret_cast<const uint4*>(p + e);
-      v[e] = q.x;
-      v[e + 1] = q.y;
-      v[e + 2] = q.z;
-      v[e + 3] = q.w;
-    } else {
-      const ulonglong2 q = *reinterpret_cast<const ulonglong2*>(p + e);
-      v[e] = q.x;
-      v[e + 1] = q.y;
+    for (int e = 0; e < kKeys; ++e) v[e] = p[e];
+  } else {
+#pragma unroll
+    for (int e = 0; e < kKeys; e += 16 / int(sizeof(Key))) {
+      if constexpr (sizeof(Key) == 4) {
+        const uint4 q = *reinterpret_cast<const uint4*>(p + e);
+        v[e] = q.x;
+        v[e + 1] = q.y;
+        v[e + 2] = q.z;
+        v[e + 3] = q.w;
+      } else {
+        const ulonglong2 q = *reinterpret_cast<const ulonglong2*>(p + e);
+        v[e] = q.x;
+        v[e + 1] = q.y;
+      }
     }
   }
 }
@@ -498,6 +538,348 @@ __global__ void __launch_bounds__(kRegThreads)
   }
 }
 
+// ---- two keys a register (k <= 8) -----------------------------------
+
+__device__ __forceinline__ uint32_t min_u16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("min.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t max_u16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Order both 16-bit lanes of a and b ascending: two compare-exchanges,
+// no direction, no select.
+__device__ __forceinline__ void exchange_pairs(uint32_t& a, uint32_t& b) {
+  const uint32_t lo = min_u16x2(a, b);
+  b = max_u16x2(a, b);
+  a = lo;
+}
+
+// One stage of the flip-form network on a row's words in shared memory:
+// pairs (i, i + span), or with `mirror` (i, i ^ (2 span - 1)), for the
+// words' pairs t, t + step, ... of `pairs`.
+__device__ __forceinline__ void shared_pairs(uint32_t* s, int span,
+                                             bool mirror, int t, int step,
+                                             int pairs) {
+  for (int q = t; q < pairs; q += step) {
+    const int i = 2 * q - (q & (span - 1));
+    const int j = mirror ? i ^ (2 * span - 1) : i + span;
+    uint32_t a = s[i];
+    uint32_t b = s[j];
+    exchange_pairs(a, b);
+    s[i] = a;
+    s[j] = b;
+  }
+}
+
+// The cleaner strides below kWords: both words of a pair are the
+// thread's own.
+template <int kWords>
+__device__ __forceinline__ void register_pairs(uint32_t (&v)[kWords]) {
+#pragma unroll
+  for (int stride = kWords >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+    for (int e = 0; e < kWords; ++e) {
+      if ((e & stride) == 0) exchange_pairs(v[e], v[e | stride]);
+    }
+  }
+}
+
+// The stages of one merge from word stride `stride` (>= kWords) down to
+// 1, over `half` words a row held by half / kWords threads: the first is
+// the flip form's mirror stage when `mirror` (word i against the
+// merge's last word minus its offset), the rest are cleaners.  Strides
+// that pair two warps go through shared memory at `srow` with block
+// barriers (every thread of the block calls this with the same `half`),
+// then strides of a warp are shuffles, where each thread keeps the
+// smaller or the larger keys of a pair of words as a whole; the last
+// are the thread's own.
+template <int kWords>
+__device__ __forceinline__ void merge_pairs(uint32_t (&v)[kWords],
+                                            uint32_t* srow, int t, int half,
+                                            int stride, bool mirror) {
+  constexpr int kWarpSpan = 32 * kWords;
+  if (stride >= kWarpSpan) {
+    store_keys(srow + t * kWords, v);
+    __syncthreads();
+    for (; stride >= kWarpSpan; stride >>= 1, mirror = false) {
+      shared_pairs(srow, stride, mirror, t, half / kWords, half >> 1);
+      __syncthreads();
+    }
+    load_keys(v, srow + t * kWords);
+  } else if (mirror) {
+    // Word e's partner is word kWords - 1 - e of lane t ^ lane_mask.
+    const int lane_mask = 2 * stride / kWords - 1;
+    const bool keep_low = (t & (stride / kWords)) == 0;
+    uint32_t other[kWords];
+#pragma unroll
+    for (int e = 0; e < kWords; ++e) {
+      other[e] = __shfl_xor_sync(kFullWarp, v[kWords - 1 - e], lane_mask);
+    }
+#pragma unroll
+    for (int e = 0; e < kWords; ++e) {
+      v[e] = keep_low ? min_u16x2(v[e], other[e]) : max_u16x2(v[e], other[e]);
+    }
+    stride >>= 1;
+  }
+  for (; stride >= kWords; stride >>= 1) {
+    const int lane_mask = stride / kWords;
+    const bool keep_low = (t & lane_mask) == 0;
+#pragma unroll
+    for (int e = 0; e < kWords; ++e) {
+      const uint32_t other = __shfl_xor_sync(kFullWarp, v[e], lane_mask);
+      v[e] = keep_low ? min_u16x2(v[e], other) : max_u16x2(v[e], other);
+    }
+  }
+  register_pairs(v);
+}
+
+// Ascending sort of a row of 2 * half 16-bit keys held as `half` words,
+// word j keys j (low lane) and j + half (high lane), thread t the words
+// [t * kWords, (t + 1) * kWords).  Each lane's half sorts with the flip
+// form of the bitonic network (every pair ascends: a merge of `size`
+// pairs word i first with i ^ (size - 1), then cleans at size / 4, ...,
+// 1), the high lane complemented so that it ends descending; then the
+// row is bitonic, and one stage inside each word (key j against key
+// j + half) and the cleaners from half / 2 down merge it.  `srow` as
+// for merge_pairs.
+template <int kWords>
+__device__ __forceinline__ void sort_pairs(uint32_t (&v)[kWords],
+                                           uint32_t* srow, int t, int half) {
+#pragma unroll
+  for (int e = 0; e < kWords; ++e) v[e] ^= 0xFFFF0000u;
+  // Merges of up to kWords words lie inside one thread.
+#pragma unroll
+  for (int size = 2; size <= kWords; size <<= 1) {
+#pragma unroll
+    for (int e = 0; e < kWords; ++e) {
+      if ((e & (size >> 1)) == 0) exchange_pairs(v[e], v[e ^ (size - 1)]);
+    }
+#pragma unroll
+    for (int stride = size >> 2; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int e = 0; e < kWords; ++e) {
+        if ((e & stride) == 0) exchange_pairs(v[e], v[e | stride]);
+      }
+    }
+  }
+  for (int size = 2 * kWords; size <= half; size <<= 1) {
+    merge_pairs(v, srow, t, half, size >> 1, true);
+  }
+#pragma unroll
+  for (int e = 0; e < kWords; ++e) {
+    const uint32_t w = v[e] ^ 0xFFFF0000u;
+    const uint32_t swapped = __byte_perm(w, 0, 0x1032);
+    v[e] = __byte_perm(min_u16x2(w, swapped), max_u16x2(w, swapped), 0x7610);
+  }
+  merge_pairs(v, srow, t, half, half >> 1, false);
+}
+
+// Whether window j of a packed row is real: none of its k codes is < 0
+// (`bad`: the row's invalid words read as 32-bit).
+__device__ __forceinline__ bool window_real(const uint32_t* bad, int j, int k) {
+  return (__funnelshift_r(bad[j >> 5], bad[(j >> 5) + 1], j & 31) &
+          ((1u << k) - 1u)) == 0;
+}
+
+// Bit e set iff window p + e is real, for e <= 32 - k: the invalid bits
+// from p on, each OR-ed with the k - 1 that follow it.
+__device__ __forceinline__ uint32_t real_windows(const uint32_t* bad, int p,
+                                                 int k) {
+  const uint32_t x = __funnelshift_r(bad[p >> 5], bad[(p >> 5) + 1], p & 31);
+  uint32_t any = x;
+  int span = 1;
+  for (; 2 * span <= k; span <<= 1) any |= any >> span;
+  if (span < k) any |= any >> (k - span);
+  return ~any;
+}
+
+// The 16-bit keys of the kWords windows from p (a multiple of kWords):
+// key e in `key[e]`, kPad16 where the window is not real.  Returns the
+// number of real windows.  kCanonical is a template parameter so that
+// the loop holds no branch.
+template <bool kCanonical, int kWords>
+__device__ __forceinline__ int build_pairs(const uint32_t* units,
+                                           const uint32_t* bad, int p, int k,
+                                           uint32_t (&key)[kWords]) {
+  const uint32_t* u = units + (p >> 4);
+  const uint32_t u0 = u[0], u1 = u[1];
+  const uint32_t real = real_windows(bad, p, k);
+#pragma unroll
+  for (int e = 0; e < kWords; ++e) {
+    const uint32_t x = cfrk::packed_window_key<uint32_t>(
+        u0, u1, 0, 0, (p & 15) + e, k, kCanonical, 0);
+    key[e] = (real >> e) & 1u ? x : kPad16;
+  }
+  return __popc(real & ((1u << kWords) - 1u));
+}
+
+// The thread's words: key p0 + e in the low lane of v[e], key
+// half + p0 + e in its high lane.  Returns the number of real windows.
+template <bool kCanonical, int kWords>
+__device__ __forceinline__ int build_words(const uint32_t* units,
+                                           const uint32_t* bad, int p0,
+                                           int half, int k,
+                                           uint32_t (&v)[kWords]) {
+  uint32_t lo[kWords];
+  uint32_t hi[kWords];
+  const int valid = build_pairs<kCanonical>(units, bad, p0, k, lo) +
+                    build_pairs<kCanonical>(units, bad, half + p0, k, hi);
+#pragma unroll
+  for (int e = 0; e < kWords; ++e) v[e] = lo[e] | (hi[e] << 16);
+  return valid;
+}
+
+// Stage 4 for one row of 16-bit cells s[0..n): as finish_row, with the
+// cells from n_valid on (sorted variants) or of invalid windows
+// (unsorted) read as the sentinel 4**k.
+template <int kVariant, bool kChecksum = false>
+__device__ __forceinline__ int64_t finish_pairs_row(
+    const uint16_t* s, const uint32_t* bad, int n_valid, int n, int W, int k,
+    int t, int step, int64_t base, int32_t* __restrict__ key_out,
+    int32_t* __restrict__ cnt_out) {
+  const uint32_t sentinel = 1u << (2 * k);
+  int64_t acc = 0;
+  for (int i = t; i < W; i += step) {
+    const uint16_t key = s[i];
+    if constexpr (kVariant == kSortOnly || kVariant == kNoop) {
+      const bool real =
+          kVariant == kSortOnly ? i < n_valid : window_real(bad, i, k);
+      acc += int(((real ? key : sentinel) ^ uint32_t(i)) & 3);
+    } else if constexpr (kVariant == kRleOnly) {
+      // Unsorted cells: a search step treats an invalid window's cell as
+      // the sentinel, above every key.
+      if (window_real(bad, i, k) &&
+          (i == 0 || !window_real(bad, i - 1, k) || s[i - 1] != key)) {
+        int lo = i + 1;
+        int hi = n;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (!window_real(bad, mid, k) || s[mid] > key) {
+            hi = mid;
+          } else {
+            lo = mid + 1;
+          }
+        }
+        acc += ((lo - i) & 3) + int(key & 3);
+      }
+    } else {
+      const bool first = i < n_valid && (i == 0 || s[i - 1] != key);
+      const int count = first ? run_end<kVariant>(s, i, n_valid, key) - i : 0;
+      if constexpr (kVariant == kEmit) {
+        cnt_out[base + i] = count;
+        key_out[base + i] = int32_t(first ? uint32_t(key) : sentinel);
+      }
+      if (kVariant != kEmit || kChecksum) {
+        if (first) acc += (count & 3) + int(key & 3);
+      }
+    }
+  }
+  return acc;
+}
+
+// Rows of up to kMaxRegWidth keys at k <= kMaxPairK: `width` (a power of
+// two in [kMinWidth, 2 * kRegThreads * kWords], >= n) keys a row as
+// width / 2 words, width / (2 * kWords) threads a row,
+// 2 * kRegThreads * kWords / width rows a block.  Eight blocks an SM
+// (32 registers a thread, no spill; 40 without the bound) take 2 % off
+// a call of 100 000 rows of 256 keys (PERF.md).
+template <int kVariant, int kWords, bool kChecksum = false>
+__global__ void __launch_bounds__(kRegThreads, 8)
+    rowsort_rle_pairs(const int8_t* __restrict__ codes,
+                      int32_t* __restrict__ key_out,
+                      int32_t* __restrict__ cnt_out,
+                      int64_t* __restrict__ chk, int B, int L, int W, int n,
+                      int width, int k, bool canonical) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kMaxRows = 2 * kRegThreads * kWords / kMinWidth;
+  __shared__ unsigned long long row_sum[kMaxRows];
+  __shared__ int row_valid[kMaxRows];
+  const int half = width >> 1;
+  const int threads = half / kWords;  // of one row
+  const int rows = kRegThreads / threads;
+  const int upr = units_of(width);
+  uint16_t* s = reinterpret_cast<uint16_t*>(smem_raw);
+  uint32_t* units = reinterpret_cast<uint32_t*>(s + rows * width);
+  uint16_t* invalid = reinterpret_cast<uint16_t*>(units + rows * upr);
+  const int64_t row0 = int64_t(blockIdx.x) * rows;
+  if (int(threadIdx.x) < rows) {
+    row_valid[threadIdx.x] = 0;
+    if constexpr (kVariant != kEmit) row_sum[threadIdx.x] = 0;
+  }
+
+  // As in rowsort_rle_regs, the staged codes lie where the keys will.
+  stage_rows(codes, B, L, row0, rows, upr, reinterpret_cast<int8_t*>(s),
+             units, invalid);
+
+  const int r = int(threadIdx.x) / threads;
+  const int t = int(threadIdx.x) - r * threads;
+  uint16_t* srow = s + r * width;
+  const uint32_t* urow = units + r * upr;
+  const uint32_t* bad = reinterpret_cast<const uint32_t*>(invalid + r * upr);
+  const int p0 = t * kWords;
+  // Windows past W, and every window of a row past B, hold a code past
+  // the row's end, which packs as invalid: the invalid bits alone say
+  // which windows are real.
+  uint32_t v[kWords];
+  int valid = canonical ? build_words<true>(urow, bad, p0, half, k, v)
+                        : build_words<false>(urow, bad, p0, half, k, v);
+  // n_valid: the row's threads' counts, summed inside each warp and then
+  // across the row's warps.
+  const int span = threads < 32 ? threads : 32;
+  for (int o = span >> 1; o > 0; o >>= 1) {
+    valid += __shfl_xor_sync(kFullWarp, valid, o);
+  }
+  if ((t & (span - 1)) == 0) atomicAdd(&row_valid[r], valid);
+
+  if constexpr (sorts(kVariant)) {
+    uint32_t* words = reinterpret_cast<uint32_t*>(srow);
+    sort_pairs(v, words, t, half);
+    // Strides that paired two warps left words of other threads where
+    // the cells below go.
+    if (half >= 64 * kWords) __syncthreads();
+  }
+  // Key j of the row to srow[j]: the low lanes to [p0, p0 + kWords), the
+  // high lanes to [half + p0, ...), two keys a 32-bit word.
+  uint32_t low2[kWords / 2];
+  uint32_t high2[kWords / 2];
+#pragma unroll
+  for (int e = 0; e < kWords; e += 2) {
+    low2[e / 2] = __byte_perm(v[e], v[e + 1], 0x5410);
+    high2[e / 2] = __byte_perm(v[e], v[e + 1], 0x7632);
+  }
+  store_keys(reinterpret_cast<uint32_t*>(srow + p0), low2);
+  store_keys(reinterpret_cast<uint32_t*>(srow + half + p0), high2);
+  __syncthreads();
+
+  int64_t acc = 0;
+  if (row0 + r < B) {
+    acc = finish_pairs_row<kVariant, kChecksum>(
+        srow, bad, row_valid[r], n, W, k, t, threads, (row0 + r) * W,
+        key_out, cnt_out);
+  }
+  if constexpr (kVariant == kEmit && kChecksum) {
+    acc = cfrk::block_sum(acc);
+    if (threadIdx.x == 0) chk[blockIdx.x] = acc;
+  } else if constexpr (kVariant != kEmit) {
+    for (int o = span >> 1; o > 0; o >>= 1) {
+      acc += __shfl_xor_sync(kFullWarp, acc, o);
+    }
+    if ((t & (span - 1)) == 0) {
+      atomicAdd(&row_sum[r], static_cast<unsigned long long>(acc));
+    }
+    __syncthreads();
+    if (int(threadIdx.x) < rows && row0 + threadIdx.x < B) {
+      chk[row0 + threadIdx.x] = int64_t(row_sum[threadIdx.x]);
+    }
+  }
+}
+
 // Rows above kMaxRegWidth keys: one block a row, the n keys and the
 // whole network in shared memory.
 template <bool kLarge, int kVariant, bool kChecksum = false>
@@ -546,6 +928,20 @@ int launch(const int8_t* codes, int32_t* key_out, int32_t* lo_out,
     const bool wide_keys = width > (kRegThreads << kLogKeys) ||
                            (!kLarge && width >= kWideFrom32);
     const int rows = (kRegThreads << (wide_keys ? kLogKeysWide : kLogKeys)) / width;
+    if constexpr (!kLarge) {
+      if (k <= kMaxPairK) {
+        const size_t smem = size_t(rows) * width * sizeof(uint16_t) +
+                            size_t(rows) * units_of(width) * 6;
+        const auto kernel =
+            wide_keys
+                ? rowsort_rle_pairs<kVariant, 1 << (kLogKeysWide - 1), kChecksum>
+                : rowsort_rle_pairs<kVariant, 1 << (kLogKeys - 1), kChecksum>;
+        kernel<<<(B + rows - 1) / rows, kRegThreads, smem, stream>>>(
+            codes, key_out, cnt_out, chk, B, L, W, n, width, k,
+            canonical != 0);
+        return int(cudaGetLastError());
+      }
+    }
     const size_t smem = size_t(rows) * width * sizeof(Key) +
                         size_t(rows) * units_of(width) * 6;
     const auto kernel =

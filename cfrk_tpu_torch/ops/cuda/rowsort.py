@@ -19,7 +19,13 @@ shift out of them.  :func:`pack_units_model` and
 :func:`packed_window_keys_model` are a numpy model of that arithmetic
 (``cfrk::pack_unit`` and ``cfrk::packed_window_key`` of
 ``csrc/kmer_key.cuh``, line for line), so that the CPU tests can hold it
-against the plain key functions.  The kernels' output is array-equal to
+against the plain key functions; :func:`sort_in_registers_model` models
+the uint32 and uint64 sort network.  At k <= 8, rows of up to 4096 keys
+sort two 16-bit keys a register (``rowsort_rle_pairs``;
+:func:`key16_path` mirrors the launch rule, and launches on that path
+also count under ``KEY16_LAUNCHES``): :func:`pair_keys_model`,
+:func:`sort_pairs_model` and :func:`finish_pairs_model` model its key
+build, its network and its emit.  The kernels' output is array-equal to
 the plain twins
 :func:`rowsort_rle_plain` / :func:`rowsort_rle_large_plain`, which sort
 with ``torch.sort`` on any device; ``ops/perread_sparse.py`` exports them
@@ -50,7 +56,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ...runtime.metrics import count_out, launch, register_launches, span
+from ...runtime.metrics import count, count_out, launch, register_launches, span
 from ..encode import window_indices
 from ..sparse import INVALID_SENTINEL, LO_BASES, kmer_keys
 from .build import load_library, once
@@ -76,6 +82,13 @@ __all__ = [
     "pack_units_model",
     "packed_window_keys_model",
     "sort_in_registers_model",
+    "KEY16_LAUNCHES",
+    "key16_path",
+    "keys_per_thread",
+    "PAD16",
+    "pair_keys_model",
+    "sort_pairs_model",
+    "finish_pairs_model",
 ]
 
 MAX_SPARSE_PERREAD_K = 15
@@ -145,8 +158,34 @@ def rle_rows(keys: torch.Tensor, is_real: torch.Tensor, sentinel: int):
 # The kernel's launch layout (``launch`` in csrc/rowsort.cu): threads of
 # a register-path block, log2 of the keys a thread holds (and of the
 # wider choice), the uint32 width from which a thread holds the wider
-# count, the narrowest row.
+# count, the narrowest row, the largest k of the 16-bit path (whose
+# threads hold as many keys, two a word, in the same rows a block).
 _REG_THREADS, _LOG_KEYS, _LOG_KEYS_WIDE, _WIDE_FROM_32, _MIN_WIDTH = 256, 3, 4, 256, 32
+_MAX_PAIR_K = 8
+
+# Launches of rowsort_rle that took the two-keys-a-register path.
+KEY16_LAUNCHES = "cfrk.rowsort_rle.key16_launches"
+
+
+def _sort_width(w: int) -> int:
+    """The register path's row width for ``w`` windows: the power of
+    two >= w and >= 32; above 4096 the row takes the shared-memory
+    network."""
+    return max(_MIN_WIDTH, 1 << max(w - 1, 0).bit_length())
+
+
+def key16_path(w: int, k: int) -> bool:
+    """Whether the kernel sorts rows of ``w`` windows at this k two keys
+    a register (16-bit keys): k <= 8 and rows of up to 4096 keys."""
+    return k <= _MAX_PAIR_K and _sort_width(w) <= _REG_THREADS << _LOG_KEYS_WIDE
+
+
+def keys_per_thread(width: int, large: bool) -> int:
+    """Keys a thread of the register path holds in rows of ``width``
+    keys (``large``: the uint64 keys above k = 15); the 16-bit path's
+    threads hold as many, two a word."""
+    wide = width > _REG_THREADS << _LOG_KEYS or (not large and width >= _WIDE_FROM_32)
+    return 1 << (_LOG_KEYS_WIDE if wide else _LOG_KEYS)
 
 
 def checksum_rows_per_block(w: int, large: bool) -> int:
@@ -154,12 +193,10 @@ def checksum_rows_per_block(w: int, large: bool) -> int:
     ``w`` windows (``large``: the uint64 keys above k = 15), so reads
     per entry of its checksum: several rows a block up to 4096 keys a
     row, one above."""
-    n = 1 << max(w - 1, 0).bit_length()
-    if n > _REG_THREADS << _LOG_KEYS_WIDE:
+    width = _sort_width(w)
+    if width > _REG_THREADS << _LOG_KEYS_WIDE:
         return 1
-    width = max(n, _MIN_WIDTH)
-    wide = width > _REG_THREADS << _LOG_KEYS or (not large and width >= _WIDE_FROM_32)
-    return (_REG_THREADS << (_LOG_KEYS_WIDE if wide else _LOG_KEYS)) // width
+    return _REG_THREADS * keys_per_thread(width, large) // width
 
 
 def _block_checksum(low_key: torch.Tensor, counts: torch.Tensor, large: bool) -> torch.Tensor:
@@ -279,8 +316,7 @@ def packed_units(w: int) -> int:
     ``csrc/rowsort.cu`` at the row's sort width, the power of two >= w
     and >= 32): its windows' units and two more, which a window of 31
     bases can reach into."""
-    width = max(32, 1 << max(w - 1, 0).bit_length())
-    return width // UNIT_BASES + 2
+    return _sort_width(w) // UNIT_BASES + 2
 
 
 def pack_units_model(row: np.ndarray, n_units: int):
@@ -429,6 +465,154 @@ def sort_in_registers_model(keys: np.ndarray, keys_per_thread: int) -> np.ndarra
     return v.reshape(-1)
 
 
+_LOW16 = np.uint32(0xFFFF)
+_HIGH16 = np.uint32(0xFFFF0000)
+PAD16 = 0xFFFF  # a 16-bit cell that holds no real key (kPad16)
+
+
+def _min_u16x2(a, b):
+    """``min.u16x2``: the smaller of each 16-bit lane."""
+    return (np.minimum(a & _LOW16, b & _LOW16)
+            | (np.minimum(a >> np.uint32(16), b >> np.uint32(16)) << np.uint32(16)))
+
+
+def _max_u16x2(a, b):
+    """``max.u16x2``: the larger of each 16-bit lane."""
+    return (np.maximum(a & _LOW16, b & _LOW16)
+            | (np.maximum(a >> np.uint32(16), b >> np.uint32(16)) << np.uint32(16)))
+
+
+def pair_keys_model(bases, invalid, width: int, k: int, canonical: bool,
+                    words_per_thread: int):
+    """numpy model of the key build of ``rowsort_rle_pairs`` in
+    ``csrc/rowsort.cu`` (``real_windows``, ``build_pairs``) over one row
+    packed by :func:`pack_units_model` into ``packed_units(width)``
+    units: thread t builds the windows from ``t*K`` and from
+    ``width/2 + t*K`` (K = ``words_per_thread``).  Returns ``(keys,
+    n_valid)``: the row's ``width`` keys by window, uint32, ``PAD16``
+    where a window is not real, and the number of real windows."""
+    kw = words_per_thread
+    bad = invalid[0::2] | (invalid[1::2] << np.uint64(16))  # read as 32-bit
+    p = np.arange(0, width, kw)  # the first window of each run of K
+    # real_windows: the invalid bits from p on, each OR-ed with the k - 1
+    # that follow it.
+    any_ = _funnelshift_r(bad[p >> 5], bad[(p >> 5) + 1], (p & 31).astype(np.uint64))
+    span = 1
+    while 2 * span <= k:
+        any_ |= any_ >> np.uint64(span)
+        span <<= 1
+    if span < k:
+        any_ |= any_ >> np.uint64(k - span)
+    real = ~any_ & _U32
+    e = np.arange(kw, dtype=np.uint64)
+    is_real = ((real[:, None] >> e) & np.uint64(1)).astype(bool).reshape(-1)
+    key = packed_window_keys_model(bases, np.zeros_like(invalid), np.arange(width), k,
+                                   canonical, 32, 0)
+    keys = np.where(is_real, key, PAD16).astype(np.uint32)
+    return keys, int(is_real.sum())
+
+
+def sort_pairs_model(keys: np.ndarray, words_per_thread: int) -> np.ndarray:
+    """numpy model of ``sort_pairs`` of ``csrc/rowsort.cu``: one row of
+    ``width`` 16-bit keys (a power of two) as ``width/2`` words, word j
+    keys j (low lane) and j + width/2 (high lane), thread t the words
+    ``[t*K, (t+1)*K)`` (K = ``words_per_thread``).  Each lane's half
+    sorts with the flip form of the bitonic network, every pair
+    ascending, the high lane complemented; then one stage inside each
+    word and the cleaners from width/4 down.  Strides below K exchange a
+    thread's own words, strides up to 16 K a thread's words with those
+    of lane ``t ^ mask`` (the shuffle), wider strides pairs of words in
+    shared memory (``shared_pairs``).  Returns the row's cells as the
+    kernel stores them: sorted ascending."""
+    kw = words_per_thread
+    width = keys.size
+    half = width // 2
+    threads = half // kw
+    keys = np.asarray(keys, np.uint32)
+    v = (keys[:half] | (keys[half:] << np.uint32(16))).reshape(threads, kw)
+    t = np.arange(threads)
+
+    def exchange(e, f):
+        a, b = v[:, e].copy(), v[:, f].copy()
+        v[:, e] = _min_u16x2(a, b)
+        v[:, f] = _max_u16x2(a, b)
+
+    def register_pairs():
+        stride = kw >> 1
+        while stride:
+            for e in range(kw):
+                if e & stride == 0:
+                    exchange(e, e | stride)
+            stride >>= 1
+
+    def merge_pairs(stride, mirror):
+        nonlocal v
+        if stride >= 32 * kw:  # pairs of two warps: shared memory
+            s = v.reshape(-1)
+            while stride >= 32 * kw:
+                q = np.arange(half >> 1)
+                i = 2 * q - (q & (stride - 1))
+                j = i ^ (2 * stride - 1) if mirror else i + stride
+                a, b = s[i].copy(), s[j].copy()
+                s[i] = _min_u16x2(a, b)
+                s[j] = _max_u16x2(a, b)
+                stride >>= 1
+                mirror = False
+            v = s.reshape(threads, kw)
+        elif mirror:  # word e against word K-1-e of lane t ^ mask
+            keep_low = (t & (stride // kw)) == 0
+            other = v[t ^ (2 * stride // kw - 1)][:, ::-1]
+            v = np.where(keep_low[:, None], _min_u16x2(v, other), _max_u16x2(v, other))
+            stride >>= 1
+        while stride >= kw:  # warp shuffles
+            lane_mask = stride // kw
+            keep_low = (t & lane_mask) == 0
+            other = v[t ^ lane_mask]
+            v = np.where(keep_low[:, None], _min_u16x2(v, other), _max_u16x2(v, other))
+            stride >>= 1
+        register_pairs()
+
+    v ^= _HIGH16
+    size = 2
+    while size <= kw:  # merges of up to K words lie inside one thread
+        for e in range(kw):
+            if e & (size >> 1) == 0:
+                exchange(e, e ^ (size - 1))
+        stride = size >> 2
+        while stride:
+            for e in range(kw):
+                if e & stride == 0:
+                    exchange(e, e | stride)
+            stride >>= 1
+        size <<= 1
+    while size <= half:
+        merge_pairs(size >> 1, True)
+        size <<= 1
+    w = v ^ _HIGH16
+    swapped = ((w & _LOW16) << np.uint32(16)) | (w >> np.uint32(16))
+    v = (_min_u16x2(w, swapped) & _LOW16) | (_max_u16x2(w, swapped) & _HIGH16)
+    merge_pairs(half >> 1, False)
+    words = v.reshape(-1)
+    return np.concatenate([words & _LOW16, words >> np.uint32(16)])
+
+
+def finish_pairs_model(s: np.ndarray, n_valid: int, w: int, k: int):
+    """numpy model of ``finish_pairs_row`` (the production kernel's
+    emit) over one sorted row of 16-bit cells: a run start is a cell
+    below ``n_valid`` that differs from the one before; its run ends at
+    the first larger key, cut at ``n_valid``.  Returns ``(idx, counts)``,
+    int32 ``[w]``, with the sentinel ``4**k`` and 0 off the run
+    starts."""
+    s = np.asarray(s, np.int64)
+    i = np.arange(w)
+    key = s[:w]
+    first = i < n_valid
+    first[1:] &= key[1:] != key[:-1]
+    end = np.minimum(np.searchsorted(s[:n_valid], key, side="right"), n_valid)
+    counts = np.where(first, end - i, 0).astype(np.int32)
+    return np.where(first, key, 4**k).astype(np.int32), counts
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -507,7 +691,7 @@ def rowsort_rle(codes: torch.Tensor, k: int, canonical: bool = False, *,
     if codes.shape[0]:
         _launch("rowsort_rle", _library().cfrk_rowsort_rle, codes, (idx, cnt), chk, k, w,
                 canonical)
-        rowsort_rle.launches += 1
+        _count_launch(w, k)
     return count_out((idx, cnt) if chk is None else (idx, cnt, chk))
 
 
@@ -537,6 +721,14 @@ def rowsort_rle_large(codes: torch.Tensor, k: int, canonical: bool = False, *,
     return count_out((hi, lo, cnt) if chk is None else (hi, lo, cnt, chk))
 
 
+def _count_launch(w: int, k: int) -> None:
+    """Count one launch of :func:`rowsort_rle`, and under
+    ``KEY16_LAUNCHES`` those that took the 16-bit path."""
+    rowsort_rle.launches += 1
+    if key16_path(w, k):
+        count(KEY16_LAUNCHES)
+
+
 rowsort_rle.launches = 0
 rowsort_rle_large.launches = 0
 
@@ -564,8 +756,9 @@ def _probe_check(codes: torch.Tensor, k: int, variant: str) -> int:
 
 def rowsort_probe(codes: torch.Tensor, k: int, variant: str,
                   canonical: bool = False) -> torch.Tensor:
-    """One probe variant of the rowsort kernel (uint32 keys for k <= 15,
-    uint64 above): codes [B, L] int8 → [B] int64 checksums, equal to
+    """One probe variant of the rowsort kernel (16-bit keys two a
+    register for k <= 8 and rows of up to 4096 keys, uint32 keys for
+    k <= 15, uint64 above): codes [B, L] int8 → [B] int64 checksums, equal to
     :func:`rowsort_probe_plain`'s."""
     if codes.device.type == "cpu":
         with span("cfrk.rowsort_probe.plain"):

@@ -24,6 +24,12 @@ The checks, each named for what it holds on the card:
   at k=8;
 * ``sorted_spectrum_parity``: the k=12 sorted route (per-read rows into
   the sparse accumulator) against scatter;
+* ``rowsort_key16_parity``: ``rowsort_rle``'s two-keys-a-register path
+  (k <= 8, rows of up to 4096 keys) against its twin at k = 1, 4, 7 and
+  8, canonical or not, on rows of 32, 128, 256 and 4096 windows with
+  poly-T (the 16-bit padding value's key at k = 8), poly-A, all-N,
+  N-heavy and half-padded rows, and with its checksum; the probe's four
+  variants at k = 8 against ``rowsort_probe_plain``;
 * ``rowsort_kernel_parity``: ``rowsort_rle`` / ``rowsort_rle_large``
   against their twins at k = 8, 15 and 31 canonical on 150, 200, 500 and
   70 bp rows and on a row at the kernel ceiling; 64 kb and 128 kb contigs
@@ -185,6 +191,41 @@ def _rows_vs_plain(x: torch.Tensor, k: int, canonical: bool, what: str) -> None:
                      rowsort_rle_large_plain(x, k, canonical), what)
 
 
+def rowsort_key16_parity(device: torch.device) -> dict:
+    """``rowsort_rle`` at k <= 8, where it sorts two 16-bit keys a
+    register, against its plain twin, and the probe's variants at k = 8
+    against theirs."""
+    rng = np.random.default_rng(7)
+
+    def rows(b, length):
+        codes = _codes(rng, (b, length), p_n=0.01)
+        codes[0] = 3  # poly-T: the key 0xFFFF at k = 8
+        codes[1] = 0  # poly-A: one long run
+        codes[2] = -1  # all N: no real window
+        codes[3][rng.random(length) < 0.4] = -1
+        codes[4, length // 2:] = -1
+        return torch.from_numpy(codes).to(device)
+
+    cases = 0
+    for k in (1, 4, 7, 8):
+        for w, b in ((32, 150), (128, 70), (256, 40), (4096, 6)):
+            x = rows(b, w + k - 1)
+            for canonical in (False, True):
+                _rows_vs_plain(x, k, canonical, f"k={k} canonical={canonical} {w} windows")
+                cases += 1
+    x = rows(37, 150)
+    assert_equal(rowsort_rle(x, 8, checksum=True), rowsort_rle_plain(x, 8, checksum=True),
+                 "k=8 with checksum")
+    variants = {}
+    for length in (150, 4103):
+        x = rows(40 if length == 150 else 6, length)
+        for variant in ("full", "sortonly", "rleonly", "noop"):
+            chk = rowsort_probe(x, 8, variant)
+            assert_equal(chk, rowsort_probe_plain(x, 8, variant), f"k=8 probe {variant}")
+            variants[f"{variant}_{length}"] = int(chk.sum())
+    return {"cases": cases, "probe_checksums": variants}
+
+
 def rowsort_kernel_parity(device: torch.device) -> dict:
     """The row-sort kernels against their plain twins: k=8, 15, 31
     canonical, rows of 150, 200, 500 and 70 bp and at the kernel
@@ -277,6 +318,7 @@ CHECKS = {fn.__name__: fn for fn in (
     perread_kernel_parity,
     spectrum_kernel_parity,
     sorted_spectrum_parity,
+    rowsort_key16_parity,
     rowsort_kernel_parity,
     mesh_kernel_probes,
     auto_batch_capacity,

@@ -3,9 +3,10 @@
     python cfrk_tpu_torch/tools/rowsort_times.py [--seed 0] [--iters 50] [--plain] \
         [--shapes main short70 ...]
 
-For each shape below, at k = 8 (``rowsort_rle``, uint32 keys) and k = 31
-canonical (``rowsort_rle_large``, uint64 keys): ms per launch of the
-kernel, and with ``--plain`` of its plain twin on the card.  Then the
+For each shape below, at k = 8 (``rowsort_rle``, two 16-bit keys a
+register up to 4096 keys a row), k = 12 (``rowsort_rle``, uint32 keys)
+and k = 31 canonical (``rowsort_rle_large``, uint64 keys): ms per launch
+of the kernel, and with ``--plain`` of its plain twin on the card.  Then the
 probe's four variants at k = 8 and k = 31 (``tools/rowsort_probe.py``).
 One JSON object per line; the first line is the card.
 
@@ -155,7 +156,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(json.dumps({"card": card, "package": cfrk_tpu_torch.__file__}), flush=True)
     for name in args.shapes:
-        for k, canonical in ((8, False), (31, True)):
+        for k, canonical in ((8, False), (12, False), (31, True)):
             print(json.dumps(time_shape(name, k, canonical, args.seed,
                                         args.iters, args.plain)), flush=True)
     for keys in (1, 2):

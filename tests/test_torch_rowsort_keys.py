@@ -11,8 +11,13 @@ against the port's plain key functions (``window_indices``,
 ``kmer_keys``) and against ``cfrk_tpu``'s own, over k x canonical x row
 length, on rows with N bases, -1 padding, poly-A and poly-T rows (the
 16-T case, whose hi word equals the uint32 sentinel at k = 31) and
-palindromic repeats (canonical ties).  Inputs from a numpy seed.
-Tolerance: none, every value is an integer.
+palindromic repeats (canonical ties).  At k <= 8 the kernel sorts two
+16-bit keys a register (``rowsort_rle_pairs``): its model -- key build
+with the padding value 0xFFFF and the count of real windows, the packed
+network, the emit cut at that count -- is held against ``np.sort`` and
+against the plain rows (``rowsort_rle_plain``, ``rle_rows``), poly-T
+rows included, whose key TTTTTTTT is 0xFFFF at k = 8.  Inputs from a
+numpy seed.  Tolerance: none, every value is an integer.
 """
 
 import functools
@@ -180,3 +185,127 @@ def test_model_rejects_k_beyond_key_width():
         R.packed_window_keys_model(bases, invalid, [0], 16, False, 32, 0)
     with pytest.raises(ValueError):
         R.packed_window_keys_model(bases, invalid, [0], 32, False, 64, 0)
+
+
+# ------------------------------------------- two keys a register (k <= 8)
+
+PAIR_KS = (1, 2, 7, 8)
+LONG = 4096 + 7  # rows of 512 .. 4096 windows at k <= 8 are its prefixes
+
+
+@functools.cache
+def _long_rows() -> np.ndarray:
+    """[8, LONG] int8 codes for the widest register rows: random rows
+    with N bases, one N-heavy, poly-T, poly-A, all-N, and rows padded
+    with -1 from several positions on."""
+    rng = np.random.default_rng(20241)
+    rows = rng.integers(0, 4, size=(8, LONG)).astype(np.int8)
+    rows[:2][rng.random((2, LONG)) < 0.01] = -1
+    rows[2][rng.random(LONG) < 0.4] = -1
+    rows[3] = 3
+    rows[4] = 0
+    rows[5] = -1
+    rows[6, 700:] = -1
+    rows[7, 2500:] = -1
+    rows[7, 100:600] = 3
+    return rows
+
+
+def _pair_rows_model(rows, k, canonical):
+    """The 16-bit path's rows by its model, row by row: packed, keys
+    built, sorted two a register, emitted; and the rows' real windows."""
+    w = rows.shape[1] - k + 1
+    width = R._sort_width(w)
+    kw = R.keys_per_thread(width, False) // 2
+    idx = np.empty((rows.shape[0], w), np.int32)
+    counts = np.empty_like(idx)
+    n_valid = []
+    for r, row in enumerate(rows):
+        bases, invalid = R.pack_units_model(row, R.packed_units(w))
+        keys, nv = R.pair_keys_model(bases, invalid, width, k, canonical, kw)
+        idx[r], counts[r] = R.finish_pairs_model(R.sort_pairs_model(keys, kw), nv, w, k)
+        n_valid.append(nv)
+    return idx, counts, np.array(n_valid)
+
+
+PAIR_CASES = ([(k, canonical, length, False) for k in PAIR_KS for canonical in (False, True)
+               for length in _lengths(k)]
+              + [(k, canonical, w + k - 1, True) for k in PAIR_KS for canonical in (False, True)
+                 for w in (512, 1030, 2048, 4096)])
+
+
+@pytest.mark.parametrize("k,canonical,length,long", PAIR_CASES)
+def test_pair_rows_equal_plain(k, canonical, length, long):
+    """The model of the 16-bit path gives the plain rows, and counts the
+    real windows the plain keys have."""
+    rows = (_long_rows() if long else _rows())[:, :length]
+    assert R.key16_path(length - k + 1, k)
+    codes = torch.from_numpy(rows)
+    idx, counts, n_valid = _pair_rows_model(rows, k, canonical)
+    want_idx, want_counts = R.rowsort_rle_plain(codes, k, canonical)
+    np.testing.assert_array_equal(idx, want_idx.numpy())
+    np.testing.assert_array_equal(counts, want_counts.numpy())
+    np.testing.assert_array_equal(
+        n_valid, (window_indices(codes, k, canonical) >= 0).sum(1).numpy())
+
+
+def test_poly_t_is_a_key_not_padding():
+    """At k = 8 TTTTTTTT is 0xFFFF, the padding value: a poly-T read is
+    one run of all its windows, and a read with T's before its -1 tail
+    keeps their run, cut where the real windows end."""
+    rows = np.full((2, 150), 3, np.int8)
+    rows[1, 40:] = -1
+    rows[1, :10] = 0
+    idx, counts, n_valid = _pair_rows_model(rows, 8, False)
+    assert n_valid.tolist() == [143, 33]
+    assert (idx[0, 0], counts[0, 0]) == (4**8 - 1, 143) and counts[0, 1:].sum() == 0
+    got = [(int(i), int(c)) for i, c in zip(idx[1], counts[1]) if c]
+    assert got == [(0, 3), (3, 1), (15, 1), (63, 1), (255, 1), (1023, 1), (4095, 1),
+                   (16383, 1), (4**8 - 1, 23)]
+
+
+@pytest.mark.parametrize("words_per_thread", [4, 8, 16])
+@pytest.mark.parametrize("width", [32, 64, 128, 256, 512, 1024, 2048, 4096])
+def test_pair_sort_network_sorts(width, words_per_thread):
+    """The packed network, as a numpy model, sorts rows of every width
+    the 16-bit path serves at every count of words a thread: distinct
+    keys, many duplicates, padding with real 0xFFFF keys among it, a
+    row of padding with a few real keys."""
+    rng = np.random.default_rng(width * words_per_thread)
+    pad = np.where(rng.random(width) < 0.5, R.PAD16, rng.integers(0, 1 << 16, width))
+    rows = [rng.integers(0, 1 << 16, width), rng.integers(0, 7, width), pad,
+            np.where(rng.random(width) < 0.1, rng.integers(0, 4**8, width), R.PAD16)]
+    for row in rows:
+        row = row.astype(np.uint32)
+        np.testing.assert_array_equal(R.sort_pairs_model(row, words_per_thread), np.sort(row))
+
+
+def test_key16_path_follows_the_launch_rule():
+    """k <= 8 and rows of up to 4096 keys take the 16-bit path
+    (csrc/rowsort.cu ``launch``); k 9-15, the uint64 keys and wider rows
+    keep their kernels.  Its threads hold the uint32 path's keys, two a
+    word, so the rows a block, and the checksum's layout, do not change
+    with k."""
+    for k in range(1, 32):
+        for w in (1, 31, 32, 143, 256, 2049, 4096, 4097, 16384, 32768):
+            assert R.key16_path(w, k) == (k <= 8 and w <= 4096), (w, k)
+    for width in (32, 64, 128, 256, 512, 1024, 2048, 4096):
+        keys = R.keys_per_thread(width, False)
+        assert keys // 2 <= R.UNIT_BASES and width >= keys
+        assert R.checksum_rows_per_block(width, False) == 256 * keys // width
+
+
+def test_key16_launches_is_a_counter(monkeypatch):
+    """A launch on the 16-bit path counts under KEY16_LAUNCHES beside
+    the wrapper's launches; other launches count only there."""
+    from cfrk_tpu_torch.runtime import metrics as M
+
+    monkeypatch.setattr(R.rowsort_rle, "launches", 0)
+    before = M.counters().get(R.KEY16_LAUNCHES, 0)
+    R._count_launch(143, 8)
+    R._count_launch(143, 12)
+    R._count_launch(8000, 8)
+    c = M.counters()
+    assert R.KEY16_LAUNCHES == "cfrk.rowsort_rle.key16_launches"
+    assert c[R.KEY16_LAUNCHES] - before == 1
+    assert c["cfrk.rowsort_rle.launches"] == 3
