@@ -4,7 +4,9 @@
 // (cfrk_tpu/ops/pallas/spectrum.py:62, body _spectrum_kernel :26).  It
 // computes what that kernel computes: codes [B, L] int8 → a [4**k]
 // int32 table of the counts of every valid window, forward or canonical
-// (min with the reverse complement), 1 <= k <= 10.  A window is counted
+// (min with the reverse complement), 1 <= k <= 10; and, under the name
+// spectrum_large, the same for 11 <= k <= 15, which the TPU kernel does
+// not take (step 5).  A window is counted
 // iff none of its codes is < 0; windows never cross reads.  The kernel
 // ADDS into the table it is given (the wrapper passes a zeroed table or
 // the running one), so a batch never needs a table of its own.
@@ -56,6 +58,22 @@
 //    on a few L2 addresses.  Above (k = 8 is 256 KB of int32, more than a
 //    block may hold): the global table itself, resident in the 50 MB L2.
 //    PERF.md has each choice beside the other, measured.
+// 5. Tables larger than the L2 (spectrum_large, 11 <= k <= 15; from k =
+//    12 on the table, 67 MB to 4.29 GB, no longer fits the L2).  The
+//    same walk into the global table: on a diverse batch nearly every
+//    window adds to a 32-byte sector of HBM that no other window of the
+//    batch touches, so each window costs one sector read and one written
+//    back, in no order the DRAM's open rows can use.  At k = 15 on one
+//    chip's 125 000 reads of a CAMI-like community (17 M windows, 14 M
+//    distinct sectors) it takes 1.25 ms a call, where moving those
+//    sectors once at the HBM rate takes 0.28 ms.  Measured beside it
+//    (PERF.md): index_add_ of the window indices, 5.4 ms; and keys
+//    bucketed by their top bits on the device into 16 MB slices of the
+//    table, then added slice by slice in buffer order, 1.7 ms: the
+//    bucketing (count, scan, scatter: 0.56 ms) bought only 0.1 ms of the
+//    adds, since a slice spans far more rows than the few accesses each
+//    row gets while the slice is in flight.  The held pairs of step 3
+//    still merge repeats.
 //
 // Counts are exact while every bin stays below 2**31; the caller
 // (DenseSpectrumAccumulator) keeps each table below SPILL_LIMIT windows.
@@ -77,6 +95,7 @@ constexpr int kSharedThreads = 512;
 constexpr int kGlobalThreads = 256;
 constexpr int kRun = cfrk::kUnitBases;  // windows a thread walks per step
 constexpr int kMaxSharedK = 7;
+constexpr int kMaxHistK = 10;  // spectrum_kernel's k (the JAX package's)
 constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr uint32_t kSentinel = 0xFFFFFFFFu;
 
@@ -137,16 +156,18 @@ __device__ __forceinline__ void flush_warp(uint32_t key, int32_t run,
 // `skew` is the distance of the batch's first byte from the 16-byte
 // boundary below it: unit u of step s covers the flat offsets
 // [16 * (s * kThreads + u) - skew, + 16).
+// `hist` (kShared: the block's 4**k bins), `units` and `invalid` (one
+// more than the block's threads) are the block's shared memory.
 template <bool kShared>
-__global__ void __launch_bounds__(kShared ? kSharedThreads : kGlobalThreads)
-    spectrum_kernel(const int8_t* __restrict__ codes,
-                    int32_t* __restrict__ table, int64_t total, int L, int W,
-                    int k, bool canonical, int skew, int64_t steps) {
+__device__ __forceinline__ void spectrum_body(const int8_t* __restrict__ codes,
+                                              int32_t* __restrict__ table,
+                                              int64_t total, int L, int W,
+                                              int k, bool canonical, int skew,
+                                              int64_t steps, int32_t* hist,
+                                              uint32_t* units,
+                                              uint32_t* invalid) {
   constexpr int kThreads = kShared ? kSharedThreads : kGlobalThreads;
   constexpr int kStepCodes = kThreads * kRun;
-  extern __shared__ int32_t hist[];  // kShared: the block's 4**k bins
-  __shared__ uint32_t units[kThreads + 1];
-  __shared__ uint32_t invalid[kThreads + 1];
   const int t = threadIdx.x;
   int32_t* bins = kShared ? hist : table;
   if constexpr (kShared) {
@@ -191,6 +212,31 @@ __global__ void __launch_bounds__(kShared ? kSharedThreads : kGlobalThreads)
   }
 }
 
+template <bool kShared>
+__global__ void __launch_bounds__(kShared ? kSharedThreads : kGlobalThreads)
+    spectrum_kernel(const int8_t* __restrict__ codes,
+                    int32_t* __restrict__ table, int64_t total, int L, int W,
+                    int k, bool canonical, int skew, int64_t steps) {
+  constexpr int kThreads = kShared ? kSharedThreads : kGlobalThreads;
+  extern __shared__ int32_t hist[];
+  __shared__ uint32_t units[kThreads + 1];
+  __shared__ uint32_t invalid[kThreads + 1];
+  spectrum_body<kShared>(codes, table, total, L, W, k, canonical, skew, steps,
+                         hist, units, invalid);
+}
+
+// 11 <= k <= 15: the global-table walk of spectrum_kernel<false> under a
+// name of its own (step 5).
+__global__ void __launch_bounds__(kGlobalThreads)
+    spectrum_large(const int8_t* __restrict__ codes,
+                   int32_t* __restrict__ table, int64_t total, int L, int W,
+                   int k, bool canonical, int skew, int64_t steps) {
+  __shared__ uint32_t units[kGlobalThreads + 1];
+  __shared__ uint32_t invalid[kGlobalThreads + 1];
+  spectrum_body<false>(codes, table, total, L, W, k, canonical, skew, steps,
+                       nullptr, units, invalid);
+}
+
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 }  // namespace
@@ -198,7 +244,8 @@ int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 extern "C" {
 
 // codes [B, L] int8 → table [4**k] int32 += the counts of every valid
-// window (W = L-k+1 windows per read, 1 <= k <= 10).
+// window (W = L-k+1 windows per read, 1 <= k <= 15): spectrum_kernel up
+// to k = 10, spectrum_large above.
 int cfrk_spectrum_hist(const void* codes, void* table, int B, int L, int W,
                        int k, int canonical, void* stream) {
   const int64_t total = int64_t(B) * L;
@@ -234,8 +281,13 @@ int cfrk_spectrum_hist(const void* codes, void* table, int B, int L, int W,
   } else {
     const int64_t steps = ceil_div(total + skew, kGlobalThreads * kRun);
     const int64_t grid = steps < 8 * int64_t(sms) ? steps : 8 * int64_t(sms);
-    spectrum_kernel<false><<<unsigned(grid), kGlobalThreads, 0, s>>>(
-        c, t, total, L, W, k, canonical != 0, skew, steps);
+    if (k <= kMaxHistK) {
+      spectrum_kernel<false><<<unsigned(grid), kGlobalThreads, 0, s>>>(
+          c, t, total, L, W, k, canonical != 0, skew, steps);
+    } else {
+      spectrum_large<<<unsigned(grid), kGlobalThreads, 0, s>>>(
+          c, t, total, L, W, k, canonical != 0, skew, steps);
+    }
   }
   return int(cudaGetLastError());
 }

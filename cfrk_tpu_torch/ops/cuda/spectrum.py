@@ -1,18 +1,21 @@
 """Global dense spectrum: a hand-written CUDA histogram kernel and its
 plain PyTorch twin.
 
-:func:`spectrum_hist` (1 <= k <= 10) replaces ``spectrum_pallas``
-(cfrk_tpu/ops/pallas/spectrum.py:62): codes ``[B, L]`` int8 → the
+:func:`spectrum_hist` replaces ``spectrum_pallas``
+(cfrk_tpu/ops/pallas/spectrum.py:62) for 1 <= k <= 10 and goes on to
+k = 15, which the TPU kernel does not take: codes ``[B, L]`` int8 → the
 ``[4**k]`` int32 counts of every valid window, forward or canonical.
 The kernel builds the window keys itself, out of the batch packed as one
 flat run of 16-code units, merges runs of equal keys in registers and
 histograms the rest with atomics (``csrc/spectrum.cu`` explains the
-design and its bounds on the H100); :func:`spectrum_hist_model` is a
-numpy model of that arithmetic, thread by thread, which the CPU tests
-hold against the plain twin.
-Its plain twin :func:`spectrum_hist_plain` is the ``scatter`` route of
-``ops/spectrum.py``: ``index_add_`` of the valid window indices, on any
-device, for k <= 15.
+design and its bounds on the H100).  Above k = 10, where the table (67 MB
+to 4.29 GB from k = 12) is larger than the L2, the same walk runs under
+the kernel name ``spectrum_large``, and each such launch also counts
+under ``LARGE_LAUNCHES``.  :func:`spectrum_hist_model` is a numpy model
+of that arithmetic, thread by thread, which the CPU tests hold against
+the plain twin.  Its plain twin :func:`spectrum_hist_plain` is the
+``scatter`` route of ``ops/spectrum.py``: ``index_add_`` of the valid
+window indices, on any device, for k <= 15.
 
 Both ADD into ``out`` when it is given (the running table of
 ``DenseSpectrumAccumulator``) and return it, so a batch never allocates
@@ -28,21 +31,26 @@ raises; a build or launch failure is never replaced by the plain route.
 from __future__ import annotations
 
 import ctypes
+from collections import defaultdict
 
 import numpy as np
 import torch
 
-from ...runtime.metrics import count_out, launch, register_launches, span
+from ...runtime.metrics import count, count_out, launch, register_launches, span
 from ..encode import window_indices
 from .build import load_library, once
 from .rowsort import UNIT_BASES, pack_units_model, packed_window_keys_model
 
-__all__ = ["SPECTRUM_MAX_K", "spectrum_hist", "spectrum_hist_model",
-           "spectrum_hist_plain"]
+__all__ = ["HIST_MAX_K", "LARGE_LAUNCHES", "SPECTRUM_MAX_K", "spectrum_hist",
+           "spectrum_hist_model", "spectrum_hist_plain"]
 
 # The TPU kernel's limit (its VMEM accumulator), kept so that the two
-# packages accept and refuse the same k.
+# packages accept and refuse the same k under impl="pallas".
 SPECTRUM_MAX_K = 10
+# The CUDA kernel's limit: above SPECTRUM_MAX_K it is spectrum_large.
+HIST_MAX_K = 15
+# Launches of spectrum_hist that ran spectrum_large (k > SPECTRUM_MAX_K).
+LARGE_LAUNCHES = "cfrk.spectrum_hist.large_launches"
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -83,9 +91,12 @@ _SENTINEL = 0xFFFFFFFF
 
 def spectrum_hist_model(codes: np.ndarray, k: int, canonical: bool = False,
                         *, skew: int = 0, threads: int = 256, grid: int = 4):
-    """numpy model of ``spectrum_kernel`` of ``csrc/spectrum.cu``, thread
-    by thread.  Returns ``(table, atomics)``: the ``[4**k]`` int64 counts,
-    and how many atomic adds reached the table.
+    """numpy model of the kernels of ``csrc/spectrum.cu``, thread by
+    thread.  Returns ``(table, atomics)``: the counts, and how many
+    atomic adds reached the table.  Up to k = 10 the counts are the
+    ``[4**k]`` int64 table; above, where that table would take 8 * 4**k
+    bytes, they are the pair ``(keys, counts)``: the distinct keys the
+    batch adds to, ascending, and their int64 counts.
 
     The batch is one flat run of codes cut into 16-code units, ``skew``
     codes of the first unit lying before the batch (invalid, as are the
@@ -107,7 +118,8 @@ def spectrum_hist_model(codes: np.ndarray, k: int, canonical: bool = False,
     keys = packed_window_keys_model(
         bases, invalid, np.arange(steps * threads * UNIT_BASES), k, canonical,
         32, _SENTINEL).tolist()
-    table = np.zeros(4**k, np.int64)
+    sparse = k > SPECTRUM_MAX_K
+    table = defaultdict(int) if sparse else np.zeros(4**k, np.int64)
     atomics = 0
 
     def add(key, run):
@@ -145,6 +157,10 @@ def spectrum_hist_model(codes: np.ndarray, k: int, canonical: bool = False,
                 for key, run in groups.items():
                     if run:
                         add(key, run)
+    if sparse:
+        distinct = sorted(table)
+        counts = [table[key] for key in distinct]
+        return (np.array(distinct, np.int64), np.array(counts, np.int64)), atomics
     return table, atomics
 
 
@@ -160,13 +176,14 @@ def spectrum_hist(codes: torch.Tensor, k: int, canonical: bool = False,
                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Global spectrum of a code batch, CUDA histogram kernel.
 
-    codes [B, L] int8 → [4**k] int32 (1 <= k <= 10), added into ``out``
+    codes [B, L] int8 → [4**k] int32 (1 <= k <= 15), added into ``out``
     when given.  Each window of each read counts once iff none of its
-    codes is < 0.
+    codes is < 0.  Above k = 10 the launch runs ``spectrum_large``, for
+    tables larger than the L2, and counts under ``LARGE_LAUNCHES``.
     """
-    if not 1 <= k <= SPECTRUM_MAX_K:
+    if not 1 <= k <= HIST_MAX_K:
         raise ValueError(f"the dense spectrum kernel supports 1 <= k <= "
-                         f"{SPECTRUM_MAX_K}, got k={k}")
+                         f"{HIST_MAX_K}, got k={k}")
     if codes.ndim != 2 or codes.dtype != torch.int8:
         raise ValueError(
             f"codes must be a [B, L] int8 tensor, got {tuple(codes.shape)} "
@@ -194,6 +211,8 @@ def spectrum_hist(codes: torch.Tensor, k: int, canonical: bool = False,
         if err != 0:
             raise RuntimeError(f"cfrk_spectrum_hist launch failed: CUDA error {err}")
         spectrum_hist.launches += 1
+        if k > SPECTRUM_MAX_K:
+            count(LARGE_LAUNCHES)
     return count_out(table)
 
 

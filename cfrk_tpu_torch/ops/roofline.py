@@ -15,11 +15,13 @@ the card's power limit beside it.
 :func:`bound` gives ``(ms, "bytes" | "operations")``; the route bounds
 take the shapes of one call: :func:`rowsort_bound` (``rowsort_rle`` /
 ``rowsort_rle_large``), :func:`spectrum_bound` (``spectrum_hist`` and
-any dense-table update), :func:`perread_bound` (``perread_hist`` in
-each emit) and :func:`probe_bound` (``rowsort_probe``).  The JAX names
-that keep their meaning give bases/s: :func:`dense_emit_sol`,
-:func:`sort_sol`, :func:`scatter_sol`; :func:`bases_per_s` turns any
-route bound into bases/s.
+any dense-table update), :func:`table_bound` (``spectrum_hist`` into a
+table larger than the L2, from the sectors a batch touches),
+:func:`perread_bound` (``perread_hist`` in each emit) and
+:func:`probe_bound` (``rowsort_probe``).  The JAX names that keep their
+meaning give bases/s: :func:`dense_emit_sol`, :func:`sort_sol`,
+:func:`scatter_sol`; :func:`bases_per_s` turns any route bound into
+bases/s.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ __all__ = [
     "sort_ops",
     "rowsort_bound",
     "spectrum_bound",
+    "table_bound",
     "perread_bound",
     "probe_bound",
     "pad_pow2",
@@ -94,6 +97,16 @@ def spectrum_bound(batch: int, read_len: int, k: int) -> tuple:
     one update a window."""
     windows = batch * _windows(read_len, k)
     return bound(batch * read_len + min(4**k, windows) * 4, windows)
+
+
+def table_bound(n_codes: int, windows: int, sectors: int) -> tuple:
+    """One update of a dense table larger than the L2 (``spectrum_hist``
+    above k = 10, its kernel ``spectrum_large``): ``n_codes`` int8 codes
+    read, each of the ``sectors`` distinct 32-byte sectors of the table
+    that the batch's keys touch read once and written once (64 B a
+    sector, the unit the L2 and HBM move: no design that keeps the table
+    in HBM moves fewer), and one update a window."""
+    return bound(n_codes + 64 * sectors, windows)
 
 
 def perread_bound(batch: int, read_len: int, k: int, emit: str | None = "b4") -> tuple:

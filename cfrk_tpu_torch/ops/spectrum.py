@@ -13,15 +13,24 @@ chosen by ``impl``:
   no counterpart: the product is always float32.
 * ``pallas``: the name is kept so that command lines carry over; it
   names the hand-written CUDA histogram kernel that replaces
-  ``spectrum_pallas`` (``ops/cuda/spectrum.spectrum_hist``, k <= 10).  On
-  a CPU tensor its plain twin, the scatter route, runs.
+  ``spectrum_pallas`` (``ops/cuda/spectrum.spectrum_hist``).  Asked for
+  by name it takes k <= 10, the JAX package's limit.  On a CPU tensor
+  its plain twin, the scatter route, runs.
 
-``auto`` follows the JAX package: on a CUDA tensor its TPU policy (the
-kernel for k <= 10; ``spectrum_file``'s sorted route takes k >= 11 before
-this is reached), elsewhere its off-TPU policy (``matmul`` for k <= 6,
-``scatter`` above).  The JAX package's slicing of large batches into
-8192-read kernel calls is a TPU-measured optimum and is not carried
-over: the table is the same without it.
+``auto`` on a CUDA tensor takes the histogram kernel (route ``pallas``)
+at every k <= 15, whatever the window count: up to k = 10 its table
+stays in the L2, and for 11 <= k <= 15, where the table (up to 4**15
+int32, 4.29 GB) is far larger than the L2, it runs ``spectrum_large``,
+which adds each window's count into the table in HBM, 4-5 times as
+fast as ``index_add_`` there (PERF.md).  Elsewhere ``auto`` is the JAX
+package's off-TPU policy (``matmul`` for k <= 6, ``scatter`` above).  The
+JAX package's slicing of large batches into 8192-read kernel calls is a
+TPU-measured optimum and is not carried over: the table is the same
+without it.
+
+A call is the span ``cfrk.spectrum``, one count of ``cfrk.spectrum.calls``,
+its B * W windows under ``cfrk.spectrum.windows`` and one count of
+``cfrk.spectrum.route.<route>`` for the route it takes.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import math
 
 import torch
 
+from ..runtime.metrics import count, traced
 from .cuda.spectrum import SPECTRUM_MAX_K, spectrum_hist, spectrum_hist_plain
 from .encode import as_codes, split_k, window_indices
 
@@ -74,31 +84,46 @@ def spectrum(
             "accumulates sparsely and densifies once); spectrum() itself "
             "is dense per batch"
         )
-    on_cuda = codes.device.type == "cuda"
-    n_windows = math.prod(codes.shape[:-1]) * max(codes.shape[-1] - k + 1, 0)
-    if n_windows >= 2**24 and (
-        impl == "matmul"
-        or (impl == "auto" and not (k <= SPECTRUM_MAX_K and on_cuda))
-    ):
-        # float32 accumulation is exact only below 2**24 per cell; a
-        # degenerate batch (all one k-mer) could exceed it.
-        impl = "scatter"
     if k > MAX_DENSE_SPECTRUM_K:
         raise ValueError(
             f"dense spectrum supports k <= {MAX_DENSE_SPECTRUM_K}; "
             "use the sparse mode for larger k"
         )
+    n_windows = math.prod(codes.shape[:-1]) * max(codes.shape[-1] - k + 1, 0)
+    route = _route(impl, k, codes.device.type == "cuda", n_windows)
+    count("cfrk.spectrum.calls")
+    count("cfrk.spectrum.windows", n_windows)
+    count("cfrk.spectrum.route." + route)
+    return traced("cfrk.spectrum", _ROUTES[route], codes.reshape(-1, codes.shape[-1]),
+                  k, canonical, out)
+
+
+def _route(impl: str, k: int, on_cuda: bool, n_windows: int) -> str:
+    """The route ``impl`` resolves to (``auto`` as the module says)."""
     if impl == "auto":
-        if k <= SPECTRUM_MAX_K and on_cuda:
-            impl = "pallas"
-        else:
-            impl = "matmul" if k <= 6 else "scatter"
-    flat = codes.reshape(-1, codes.shape[-1])
-    if impl == "scatter":
-        return spectrum_hist_plain(flat, k, canonical, out)
-    if impl == "pallas":
-        return spectrum_hist(flat, k, canonical, out)
-    if impl == "matmul":
-        table = _spectrum_matmul(flat, k, canonical)
-        return table if out is None else out.add_(table)
-    raise ValueError(f"unknown impl {impl!r}")
+        if on_cuda:
+            return "pallas"
+        impl = "matmul" if k <= 6 else "scatter"
+    if impl == "pallas" and k > SPECTRUM_MAX_K:
+        raise ValueError(f"impl='pallas' supports k <= {SPECTRUM_MAX_K}, the JAX "
+                         f"package's limit, got k={k}; impl='auto' takes the "
+                         "kernel on a CUDA tensor up to k = 15")
+    if impl == "matmul" and n_windows >= 2**24:
+        # float32 accumulation is exact only below 2**24 per cell; a
+        # degenerate batch (all one k-mer) could exceed it.
+        return "scatter"
+    if impl not in ("scatter", "pallas", "matmul"):
+        raise ValueError(f"unknown impl {impl!r}")
+    return impl
+
+
+def _matmul_into(codes: torch.Tensor, k: int, canonical: bool, out):
+    table = _spectrum_matmul(codes, k, canonical)
+    return table if out is None else out.add_(table)
+
+
+_ROUTES = {
+    "scatter": spectrum_hist_plain,
+    "pallas": spectrum_hist,
+    "matmul": _matmul_into,
+}

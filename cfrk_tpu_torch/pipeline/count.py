@@ -481,7 +481,13 @@ def _use_sorted_spectrum(k: int, impl: str, device: torch.device) -> bool:
     route per batch by far more than 10x at k = 9 and 10, on random and
     on skewed reads alike (``chip_smoke.py`` times both; PERF.md), and
     it needs no per-batch copy to the host.  k = 11-15 keeps the JAX
-    package's rule.  On a mesh ``device`` is its first device.
+    package's rule, now by measurement: ``spectrum_hist`` (its kernel
+    ``spectrum_large``) is ``ops/spectrum.spectrum``'s ``auto`` route
+    there, but a file run ends with the whole 4**k table fetched and
+    added on the host (4.29 GB at k = 15), and on ``chip_smoke.py``'s
+    125 000-read k = 15 file the sorted route was as fast in memory and
+    twice as fast streamed (PERF.md section 5).  On a mesh ``device`` is
+    its first device.
     """
     if impl == "sort":
         return True

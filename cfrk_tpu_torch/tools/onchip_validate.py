@@ -22,6 +22,12 @@ The checks, each named for what it holds on the card:
   checksum, and canonical, each against ``perread_hist_plain``;
 * ``spectrum_kernel_parity``: ``spectrum_hist`` against the scatter route
   at k=8;
+* ``spectrum_k15_parity``: ``spectrum(..., impl="auto")`` at k = 11, 12
+  and 15, forward and canonical (``spectrum_hist``, which runs
+  ``spectrum_large`` there), against ``spectrum_hist_plain``, on random
+  reads with N, reads shorter than k, a batch off a 16-byte boundary and
+  homopolymer and dinucleotide repeats, all into one running table a k;
+  the route and launch counters;
 * ``sorted_spectrum_parity``: the k=12 sorted route (per-read rows into
   the sparse accumulator) against scatter;
 * ``rowsort_key16_parity``: ``rowsort_rle``'s two-keys-a-register path
@@ -72,7 +78,7 @@ from ..ops.cuda.rowsort import (
     rowsort_rle_large_plain,
     rowsort_rle_plain,
 )
-from ..ops.cuda.spectrum import spectrum_hist
+from ..ops.cuda.spectrum import LARGE_LAUNCHES, spectrum_hist, spectrum_hist_plain
 from ..ops.perread import count_perread
 from ..ops.perread_sparse import count_perread_rows, count_perread_sparse, rows_to_triples
 from ..ops.reference import spectrum_np
@@ -83,6 +89,7 @@ from ..parallel.seqpar import make_seq_mesh, spectrum_seqpar_triples
 from ..parallel.sharded import count_perread_sharded_packed, count_perread_sparse_sharded
 from ..pipeline.batch import auto_batch_size
 from ..pipeline.count import count_reads
+from ..runtime.metrics import counters
 from . import card
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -166,6 +173,56 @@ def spectrum_kernel_parity(device: torch.device) -> dict:
     x = torch.from_numpy(_codes(np.random.default_rng(2), (64, 150))).to(device)
     assert_equal(spectrum_hist(x, 8), spectrum(x, 8, impl="scatter"), "k=8")
     return {"k": 8}
+
+
+def spectrum_k15_parity(device: torch.device) -> dict:
+    """The ``auto`` route at 11 <= k <= 15 (``spectrum_hist``, its kernel
+    ``spectrum_large``) against ``spectrum_hist_plain``, every batch added into one running
+    table a (k, canonical), compared on the device."""
+    rng = np.random.default_rng(9)
+    random = _codes(rng, (3000, 150), p_n=0.01)
+    short = random[:64].copy()
+    short[:, 9:] = -1  # reads of 9 bases: no window at k >= 11
+    repeats = np.zeros((512, 150), np.int8)  # poly-A
+    repeats[1::4] = 3  # poly-T
+    repeats[2::4, 1::2] = 1  # ACAC...
+    repeats[3::4, 0::2] = 2  # GTGT...
+    repeats[3::4, 1::2] = 3
+    # The same random reads off a 16-byte boundary (the card's
+    # allocations start on 512-byte ones).
+    flat = torch.from_numpy(np.concatenate([np.zeros(3, np.int8), random.reshape(-1)]))
+    odd = flat.to(device)[3:].view(random.shape)
+    batches = {"random": torch.from_numpy(random).to(device), "off_boundary": odd,
+               "short_reads": torch.from_numpy(short).to(device),
+               "repeats": torch.from_numpy(repeats).to(device)}
+    before = counters()
+    cases = []
+    for k in (11, 12, 15):
+        table = torch.zeros(4**k, dtype=torch.int32, device=device)
+        want = torch.zeros_like(table)
+        for canonical in (False, True):
+            table.zero_()
+            want.zero_()
+            for name, x in batches.items():
+                spectrum(x, k, canonical=canonical, out=table)
+                spectrum_hist_plain(x, k, canonical, want)
+                if not torch.equal(table, want):
+                    bad = torch.nonzero(table != want)[0].item()
+                    raise AssertionError(
+                        f"k={k} canonical={canonical} after {name}: bin {bad} "
+                        f"{int(table[bad])} != {int(want[bad])}")
+            cases.append(f"k{k}_{'canonical' if canonical else 'forward'}")
+        del table, want
+    # On a CPU tensor ``auto`` takes the scatter route and launches nothing.
+    route = "cfrk.spectrum.route." + ("pallas" if device.type == "cuda" else "scatter")
+    after = counters()
+    routed = after.get(route, 0) - before.get(route, 0)
+    launched = after.get(LARGE_LAUNCHES, 0) - before.get(LARGE_LAUNCHES, 0)
+    calls = len(cases) * len(batches)
+    if routed != calls or launched != (calls if device.type == "cuda" else 0):
+        raise AssertionError(f"{calls} calls: {route} {routed}, launches {launched}")
+    return {"cases": cases, "batches": sorted(batches), route: routed,
+            LARGE_LAUNCHES: launched}
 
 
 def sorted_spectrum_parity(device: torch.device) -> dict:
@@ -317,6 +374,7 @@ CHECKS = {fn.__name__: fn for fn in (
     perread_impl_parity,
     perread_kernel_parity,
     spectrum_kernel_parity,
+    spectrum_k15_parity,
     sorted_spectrum_parity,
     rowsort_key16_parity,
     rowsort_kernel_parity,

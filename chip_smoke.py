@@ -98,7 +98,12 @@ Phases, each of which exits non-zero on failure:
    kernel's bound (bytes over the memory rate, operations over the
    integer rate, whichever is larger, from the shape it was timed at),
    the spectrum kernel against the sorted route per batch at k = 9 and
-   10 on the random and the poly-A batch, the end-to-end
+   10 on the random and the poly-A batch; the large-table route at
+   k = 15 (``ops.spectrum.spectrum`` on 125 000 x 150 bp reads of 132
+   genomes into a running 4**15 table, forward and canonical
+   array-equal to the plain route, two launches of ``spectrum_large``
+   counted, both routes timed, the bound from the table sectors the
+   reads touch), the end-to-end
    bases/s of phases 5 to 7; the two rowsort kernels with
    ``checksum=True`` at the main batch and at widths of every launch
    layout, their ``chk`` array-equal to the plain twins' and their rows
@@ -2308,6 +2313,65 @@ def scaling_and_defaults(r150, fa150: Path, fa256: Path, card: str, gpu=None,
     return records, total
 
 
+def check_and_time_spectrum_large(seed: int, card: str) -> dict:
+    """Phase 8, a table larger than the L2: one chip's share of BASELINE
+    config 3, 125 000 seeded 150 bp reads of 132 genomes, through
+    ``ops.spectrum.spectrum(x, 15, out=table)`` (``auto``: ``spectrum_hist``,
+    whose kernel is ``spectrum_large`` there) into a running 4**15 int32
+    table on the card, forward and canonical, each array-equal to
+    ``spectrum_hist_plain`` into a table of its own; the route and
+    large-launch counters read across the leg; ms a call of the kernel
+    and of the plain route into the running table (CUDA events; kernel,
+    plain, plain, kernel); and the bound from the codes and the distinct
+    32-byte sectors of the table that the reads' keys touch."""
+    import torch
+
+    from cfrk_tpu_torch.ops.cuda import spectrum as S
+    from cfrk_tpu_torch.ops.encode import window_indices
+    from cfrk_tpu_torch.ops.roofline import table_bound
+    from cfrk_tpu_torch.ops.spectrum import spectrum
+    from cfrk_tpu_torch.runtime.metrics import counters
+    from cfrk_tpu_torch.tools.rowsort_times import time_eager
+
+    x = torch.from_numpy(synthetic_reads(seed + 5, 125_000, 150, genomes=132)).cuda()
+    table = torch.zeros(4**15, dtype=torch.int32, device="cuda")
+    want = torch.zeros_like(table)
+    route = "cfrk.spectrum.route.pallas"
+
+    def delta(name):
+        return counters().get(name, 0) - before.get(name, 0)
+
+    before = counters()
+    for canonical in (False, True):
+        table.zero_()
+        want.zero_()
+        spectrum(x, 15, canonical=canonical, out=table)
+        S.spectrum_hist_plain(x, 15, canonical, want)
+        if not torch.equal(table, want):
+            bad = int(torch.nonzero(table != want)[0])
+            fail(f"spectrum_large k=15 canonical={canonical} [125000, 150]: bin {bad} "
+                 f"{int(table[bad])} != plain {int(want[bad])}")
+    if delta(route) != 2 or delta(S.LARGE_LAUNCHES) != 2:
+        fail(f"spectrum(x, 15) on the card: {delta(route)} calls routed to the kernel, "
+             f"{delta(S.LARGE_LAUNCHES)} launches of spectrum_large, not 2 and 2")
+    k1 = time_eager(lambda: spectrum(x, 15, out=table))
+    p1 = time_eager(lambda: S.spectrum_hist_plain(x, 15, False, want), 5)
+    p2 = time_eager(lambda: S.spectrum_hist_plain(x, 15, False, want), 5)
+    k2 = time_eager(lambda: spectrum(x, 15, out=table))
+    idx = window_indices(x, 15, False).reshape(-1)
+    idx = idx[idx >= 0]
+    sectors = int(torch.unique(idx >> 3).numel())
+    bound = table_bound(x.numel(), idx.numel(), sectors)
+    launches = delta(S.LARGE_LAUNCHES)
+    del table, want, idx
+    log(f"spectrum_large k=15 [125000, 150] into a running 4**15 table: "
+        f"array-equal to plain forward and canonical; {launches} launches; kernel "
+        f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms a call; {sectors} sectors "
+        f"touched, bound {bound[0]:.4f} ms ({card})")
+    return {"launches": launches, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound": bound}
+
+
 def time_spectrum_routes(seed: int, card: str) -> dict:
     """Phase 8, spectrum: ms per 8192-read batch (150 bp padded to 256)
     of the histogram kernel at k = 7, 8, 9, 10 on the random and the
@@ -2765,6 +2829,11 @@ def main() -> int:
                     for k, canonical in ((8, False), (31, True))]
     log("rowsort_other_shapes: " + json.dumps({"card": card, "times": other_shapes}))
     log("sort_yardstick: " + json.dumps({"card": card, **time_torch_sort(args.seed)}))
+    large = check_and_time_spectrum_large(args.seed, card)
+    launches["spectrum_large"] = large["launches"]
+    errs["spectrum_large"] = 0
+    times["spectrum_large"] = (large["ms"], large["plain_ms"])
+    bounds["spectrum_large"] = large["bound"]
     spec_times = time_spectrum_routes(args.seed, card)
     times["spectrum_hist"] = spec_times.pop("spectrum_hist")
     log("spectrum_routes: " + json.dumps({"card": card, **spec_times}))
@@ -2847,6 +2916,8 @@ def main() -> int:
         ("rowsort_rle", "rowsort.cu", "cfrk_tpu/ops/pallas/rowsort.py:569"),
         ("rowsort_rle_large", "rowsort.cu", "cfrk_tpu/ops/pallas/rowsort.py:655"),
         ("spectrum_hist", "spectrum.cu", "cfrk_tpu/ops/pallas/spectrum.py:62"),
+        # No TPU kernel: the JAX package's scatter route above k = 10.
+        ("spectrum_large", "spectrum.cu", "cfrk_tpu/ops/spectrum.py:51"),
         ("perread_hist", "perread.cu", "cfrk_tpu/ops/pallas/perread.py:166"),
         ("rowsort_probe", "rowsort.cu", "tools/rowsort_probe.py:173"),
     ):
