@@ -42,7 +42,9 @@
 //    and no barrier, so a block of 256 threads serves 8 or 16 rows and
 //    a batch of 8192 reads is a grid of 1024 or 512 blocks.  Rows above
 //    4096 keys keep one block a row and the bitonic network in shared
-//    memory, up to the ceilings below.
+//    memory, up to the ceilings below.  Rows of up to 256 uint64 keys
+//    (k > 15) sort 32-bit prefix-and-position words instead, then
+//    gather their full keys (rowsort_rle_prefix, below).
 // 4. Run lengths and emit.  The sorted keys go to shared memory once;
 //    each run start looks at the next key and, only if that repeats
 //    it, finds its run end by binary search for the first larger key;
@@ -91,6 +93,8 @@
 // production kernel; its 16-bit cells hold 0xFFFF for padding, so the
 // sorted variants read the cells from n_valid on, and the unsorted ones
 // the cells of invalid windows, as the sentinel 4**k.
+//   kFallbacks (the prefix path only) one flag a row: whether its
+//              gathered keys were repaired (register_rows).
 // kEmit is the production kernel.  The searches run over the first
 // n = 2**ceil(log2 W) keys of the row whatever width the sort takes, so
 // kRleOnly's checksum on unsorted keys does not depend on the path;
@@ -162,7 +166,8 @@ enum Variant : int {
   kFull = 1,
   kSortOnly = 2,
   kRleOnly = 3,
-  kNoop = 4
+  kNoop = 4,
+  kFallbacks = 5
 };
 
 __host__ __device__ constexpr bool sorts(int variant) {
@@ -456,17 +461,276 @@ __device__ __forceinline__ int64_t finish_row(
   return acc;
 }
 
-// Rows of up to kMaxRegWidth keys: `width` (a power of two in
-// [kMinWidth, kRegThreads * kKeys], >= n) keys a row, width / kKeys
-// threads a row, kRegThreads * kKeys / width rows a block.
-template <bool kLarge, int kVariant, int kKeys, bool kChecksum = false>
-__global__ void __launch_bounds__(kRegThreads)
-    rowsort_rle_regs(const int8_t* __restrict__ codes,
-                     int32_t* __restrict__ key_out,
-                     int32_t* __restrict__ lo_out,
-                     int32_t* __restrict__ cnt_out, int64_t* __restrict__ chk,
-                     int B, int L, int W, int n, int width, int k,
-                     bool canonical) {
+// ---- the flip form of the bitonic network on 32-bit words -----------
+//
+// Every pair of the flip form ascends, so no compare-exchange needs a
+// direction: it is one min and one max.  Two users: the two-keys-a-
+// register path (k <= 8), where a word holds two 16-bit keys and
+// Hopper's min.u16x2 / max.u16x2 order both lanes at once (kPacked), and
+// the prefix-and-position words of the uint64 path (k > 15, rows within
+// a warp), whole-word min.u32 / max.u32.
+
+__device__ __forceinline__ uint32_t min_u16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("min.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t max_u16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// The smaller and the larger of a and b: of each 16-bit lane with
+// kPacked, else of the whole word.
+template <bool kPacked>
+__device__ __forceinline__ uint32_t lower(uint32_t a, uint32_t b) {
+  if constexpr (kPacked) {
+    return min_u16x2(a, b);
+  } else {
+    return min(a, b);
+  }
+}
+
+template <bool kPacked>
+__device__ __forceinline__ uint32_t upper(uint32_t a, uint32_t b) {
+  if constexpr (kPacked) {
+    return max_u16x2(a, b);
+  } else {
+    return max(a, b);
+  }
+}
+
+// Order a and b ascending (both 16-bit lanes with kPacked): no
+// direction, no select.
+template <bool kPacked>
+__device__ __forceinline__ void exchange_words(uint32_t& a, uint32_t& b) {
+  const uint32_t lo = lower<kPacked>(a, b);
+  b = upper<kPacked>(a, b);
+  a = lo;
+}
+
+// One stage of the flip-form network on a row's words in shared memory:
+// pairs (i, i + span), or with `mirror` (i, i ^ (2 span - 1)), for the
+// words' pairs t, t + step, ... of `pairs`.
+template <bool kPacked>
+__device__ __forceinline__ void shared_words(uint32_t* s, int span,
+                                             bool mirror, int t, int step,
+                                             int pairs) {
+  for (int q = t; q < pairs; q += step) {
+    const int i = 2 * q - (q & (span - 1));
+    const int j = mirror ? i ^ (2 * span - 1) : i + span;
+    uint32_t a = s[i];
+    uint32_t b = s[j];
+    exchange_words<kPacked>(a, b);
+    s[i] = a;
+    s[j] = b;
+  }
+}
+
+// The cleaner strides below kWords: both words of a pair are the
+// thread's own.
+template <bool kPacked, int kWords>
+__device__ __forceinline__ void register_words(uint32_t (&v)[kWords]) {
+#pragma unroll
+  for (int stride = kWords >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+    for (int e = 0; e < kWords; ++e) {
+      if ((e & stride) == 0) exchange_words<kPacked>(v[e], v[e | stride]);
+    }
+  }
+}
+
+// The stages of one merge from word stride `stride` (>= kWords) down to
+// 1, over `n` words a row held by n / kWords threads: the first is the
+// flip form's mirror stage when `mirror` (word i against the merge's
+// last word minus its offset), the rest are cleaners.  Strides that pair
+// two warps go through shared memory at `srow` with block barriers
+// (every thread of the block calls this with the same `n`; rows of up to
+// 32 kWords words never take them), then strides of a warp are shuffles,
+// where each thread keeps the smaller or the larger of a pair of words
+// as a whole; the last are the thread's own.
+template <bool kPacked, int kWords>
+__device__ __forceinline__ void merge_words(uint32_t (&v)[kWords],
+                                            uint32_t* srow, int t, int n,
+                                            int stride, bool mirror) {
+  constexpr int kWarpSpan = 32 * kWords;
+  if (stride >= kWarpSpan) {
+    store_keys(srow + t * kWords, v);
+    __syncthreads();
+    for (; stride >= kWarpSpan; stride >>= 1, mirror = false) {
+      shared_words<kPacked>(srow, stride, mirror, t, n / kWords, n >> 1);
+      __syncthreads();
+    }
+    load_keys(v, srow + t * kWords);
+  } else if (mirror) {
+    // Word e's partner is word kWords - 1 - e of lane t ^ lane_mask.
+    const int lane_mask = 2 * stride / kWords - 1;
+    const bool keep_low = (t & (stride / kWords)) == 0;
+    uint32_t other[kWords];
+#pragma unroll
+    for (int e = 0; e < kWords; ++e) {
+      other[e] = __shfl_xor_sync(kFullWarp, v[kWords - 1 - e], lane_mask);
+    }
+#pragma unroll
+    for (int e = 0; e < kWords; ++e) {
+      v[e] = keep_low ? lower<kPacked>(v[e], other[e])
+                      : upper<kPacked>(v[e], other[e]);
+    }
+    stride >>= 1;
+  }
+  for (; stride >= kWords; stride >>= 1) {
+    const int lane_mask = stride / kWords;
+    const bool keep_low = (t & lane_mask) == 0;
+#pragma unroll
+    for (int e = 0; e < kWords; ++e) {
+      const uint32_t other = __shfl_xor_sync(kFullWarp, v[e], lane_mask);
+      v[e] = keep_low ? lower<kPacked>(v[e], other) : upper<kPacked>(v[e], other);
+    }
+  }
+  register_words<kPacked>(v);
+}
+
+// Ascending sort of a row of `n` words (of each 16-bit lane on its own
+// with kPacked), thread t the words [t * kWords, (t + 1) * kWords), by
+// the flip form: a merge of `size` pairs word i first with
+// i ^ (size - 1), then cleans at size / 4, ..., 1.  `srow` as for
+// merge_words.
+template <bool kPacked, int kWords>
+__device__ __forceinline__ void flip_sort(uint32_t (&v)[kWords],
+                                          uint32_t* srow, int t, int n) {
+  // Merges of up to kWords words lie inside one thread.
+#pragma unroll
+  for (int size = 2; size <= kWords; size <<= 1) {
+#pragma unroll
+    for (int e = 0; e < kWords; ++e) {
+      if ((e & (size >> 1)) == 0) exchange_words<kPacked>(v[e], v[e ^ (size - 1)]);
+    }
+#pragma unroll
+    for (int stride = size >> 2; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int e = 0; e < kWords; ++e) {
+        if ((e & stride) == 0) exchange_words<kPacked>(v[e], v[e | stride]);
+      }
+    }
+  }
+  for (int size = 2 * kWords; size <= n; size <<= 1) {
+    merge_words<kPacked>(v, srow, t, n, size >> 1, true);
+  }
+}
+
+// ---- prefix-and-position words (k > 15, rows within a warp) ---------
+//
+// A uint64 key costs the select form of the network: a two-word compare,
+// a direction and four selects a compare-exchange, two shuffles a key.
+// Rows of up to kMaxPrefixWidth keys (one warp's threads, kKeys keys
+// each) sort 32-bit words instead, with the flip form's min.u32 /
+// max.u32 and one shuffle a word: bit 31 marks the sentinel (an invalid
+// window or padding), the next 31 - log2(width) bits are the key's top
+// bits, the low log2(width) bits its position.  The sentinel's words sort
+// after every real key's, and no real prefix can tie with them.  Each
+// thread then gathers the full keys of its sorted words from shared
+// memory, where the build left them by position, and checks them: two
+// distinct keys that share a prefix are ordered by position, which may
+// be wrong.  Equal keys need no order among themselves.  Canonical keys
+// share a prefix at every even reverse-complement palindrome of 12
+// bases (the reverse complement of the window that ends on it and the
+// forward window that starts on it), about 1 % of the rows of 152 bp
+// reads at k = 31; such ties come in pairs, adjacent after the sort.  So
+// a warp whose gathered keys are out of order first runs up to
+// kRepairRounds rounds of odd-even transposition on them, each a few
+// instructions a key, and only a warp still out of order then sorts its
+// rows' keys again with the uint64 network.  A row lies within a warp:
+// neither needs a block barrier.  Wider rows would give the position
+// more bits and make ties common: they keep the uint64 network.
+// Measured at [100000, 152], k = 31 canonical (PERF.md): the repair
+// takes the probe's sort from 0.0565 ms, with the network for every such
+// warp, to 0.0508, the time with no repair at all.
+constexpr int kMaxPrefixWidth = 32 << kLogKeys;
+constexpr int kRepairRounds = 2;
+constexpr uint32_t kSentinelWord = 0x80000000u;
+
+// Whether a thread's keys, or its last key and the next thread's first,
+// are out of order, in a row held kKeys keys a thread by `threads`
+// threads of one warp.
+template <int kKeys>
+__device__ __forceinline__ bool out_of_order(const uint64_t (&v)[kKeys], int t,
+                                             int threads) {
+  const uint64_t next = __shfl_down_sync(kFullWarp, v[0], 1);
+  bool descent = t + 1 < threads && next < v[kKeys - 1];
+#pragma unroll
+  for (int e = 0; e + 1 < kKeys; ++e) descent |= v[e + 1] < v[e];
+  return descent;
+}
+
+// One round of odd-even transposition over such a row: the pairs of
+// cells (2i, 2i + 1), then (2i + 1, 2i + 2), of which one pairs a
+// thread's last key with the next thread's first.
+template <int kKeys>
+__device__ __forceinline__ void transposition_round(uint64_t (&v)[kKeys],
+                                                    int t, int threads) {
+#pragma unroll
+  for (int e = 0; e + 1 < kKeys; e += 2) compare_exchange(v[e], v[e + 1], true);
+#pragma unroll
+  for (int e = 1; e + 1 < kKeys; e += 2) compare_exchange(v[e], v[e + 1], true);
+  const uint64_t next = __shfl_down_sync(kFullWarp, v[0], 1);
+  const uint64_t prev = __shfl_up_sync(kFullWarp, v[kKeys - 1], 1);
+  if (t + 1 < threads && next < v[kKeys - 1]) v[kKeys - 1] = next;
+  if (t > 0 && v[0] < prev) v[0] = prev;
+}
+
+// Stage 3 of the prefix path for one thread's keys v, cells
+// [t * kKeys, (t + 1) * kKeys) of a row of `width` cells (a power of two
+// up to 32 kKeys) held by `threads` threads of one warp, at `srow`:
+// sorts the row ascending into v and into srow.  Returns the warp's
+// ballot of the threads whose gathered keys were out of order: nonzero
+// iff the warp repaired its rows.
+template <int kKeys>
+__device__ __forceinline__ unsigned sort_prefix_words(uint64_t (&v)[kKeys],
+                                                      uint64_t* srow, int t,
+                                                      int threads, int width,
+                                                      int k) {
+  const int p0 = t * kKeys;
+  store_keys(srow + p0, v);
+  const int log_width = __ffs(width) - 1;
+  const int shift = max(0, 2 * k - (31 - log_width));
+  uint32_t word[kKeys];
+#pragma unroll
+  for (int e = 0; e < kKeys; ++e) {
+    word[e] = (v[e] == ~uint64_t(0) ? kSentinelWord
+                                    : uint32_t(v[e] >> shift) << log_width) |
+              uint32_t(p0 + e);
+  }
+  flip_sort<false>(word, nullptr, t, width);
+  __syncwarp();
+#pragma unroll
+  for (int e = 0; e < kKeys; ++e) v[e] = srow[word[e] & (width - 1)];
+  const unsigned ballot = __ballot_sync(kFullWarp, out_of_order(v, t, threads));
+  unsigned left = ballot;
+  for (int round = 0; left && round < kRepairRounds; ++round) {
+    transposition_round(v, t, threads);
+    left = __ballot_sync(kFullWarp, out_of_order(v, t, threads));
+  }
+  if (left) sort_in_registers(v, srow, t, width);
+  __syncwarp();
+  store_keys(srow + p0, v);
+  return ballot;
+}
+
+// The register path, rows of up to kMaxRegWidth keys: `width` (a power
+// of two in [kMinWidth, kRegThreads * kKeys], >= n) keys a row,
+// width / kKeys threads a row, kRegThreads * kKeys / width rows a block.
+// kPrefix sorts prefix-and-position words (uint64 keys, width up to
+// kMaxPrefixWidth); its kFallbacks variant writes chk[row] = 1 where the
+// row's own words left its keys out of order, 2 where only another row
+// of its warp's did (the warp repairs both), else 0, and nothing else.
+template <bool kLarge, int kVariant, int kKeys, bool kChecksum, bool kPrefix>
+__device__ __forceinline__ void register_rows(
+    const int8_t* __restrict__ codes, int32_t* __restrict__ key_out,
+    int32_t* __restrict__ lo_out, int32_t* __restrict__ cnt_out,
+    int64_t* __restrict__ chk, int B, int L, int W, int n, int width, int k,
+    bool canonical) {
   using Key = KeyOf<kLarge>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ unsigned long long row_sum[kRegThreads * kKeys / kMinWidth];
@@ -508,8 +772,21 @@ __global__ void __launch_bounds__(kRegThreads)
                  : sentinel;
     }
   }
-  if constexpr (sorts(kVariant)) sort_in_registers(v, srow, t, width);
-  store_keys(srow + p0, v);
+  if constexpr (kPrefix && (sorts(kVariant) || kVariant == kFallbacks)) {
+    const unsigned ballot = sort_prefix_words(v, srow, t, threads, width, k);
+    if constexpr (kVariant == kFallbacks) {
+      const int lane0 = int(threadIdx.x) & 31 & ~(threads - 1);
+      const unsigned row_lanes =
+          (threads == 32 ? kFullWarp : (1u << threads) - 1u) << lane0;
+      if (t == 0 && live) {
+        chk[row0 + r] = (ballot & row_lanes) ? 1 : (ballot ? 2 : 0);
+      }
+      return;
+    }
+  } else {
+    if constexpr (sorts(kVariant)) sort_in_registers(v, srow, t, width);
+    store_keys(srow + p0, v);
+  }
   __syncthreads();
 
   int64_t acc = 0;
@@ -538,146 +815,53 @@ __global__ void __launch_bounds__(kRegThreads)
   }
 }
 
+template <bool kLarge, int kVariant, int kKeys, bool kChecksum = false>
+__global__ void __launch_bounds__(kRegThreads)
+    rowsort_rle_regs(const int8_t* __restrict__ codes,
+                     int32_t* __restrict__ key_out,
+                     int32_t* __restrict__ lo_out,
+                     int32_t* __restrict__ cnt_out, int64_t* __restrict__ chk,
+                     int B, int L, int W, int n, int width, int k,
+                     bool canonical) {
+  register_rows<kLarge, kVariant, kKeys, kChecksum, false>(
+      codes, key_out, lo_out, cnt_out, chk, B, L, W, n, width, k, canonical);
+}
+
+template <int kVariant, int kKeys, bool kChecksum = false>
+__global__ void __launch_bounds__(kRegThreads)
+    rowsort_rle_prefix(const int8_t* __restrict__ codes,
+                       int32_t* __restrict__ key_out,
+                       int32_t* __restrict__ lo_out,
+                       int32_t* __restrict__ cnt_out,
+                       int64_t* __restrict__ chk, int B, int L, int W, int n,
+                       int width, int k, bool canonical) {
+  static_assert(32 * kKeys >= kMaxPrefixWidth, "a row lies within a warp");
+  register_rows<true, kVariant, kKeys, kChecksum, true>(
+      codes, key_out, lo_out, cnt_out, chk, B, L, W, n, width, k, canonical);
+}
+
 // ---- two keys a register (k <= 8) -----------------------------------
-
-__device__ __forceinline__ uint32_t min_u16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("min.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t max_u16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("max.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-// Order both 16-bit lanes of a and b ascending: two compare-exchanges,
-// no direction, no select.
-__device__ __forceinline__ void exchange_pairs(uint32_t& a, uint32_t& b) {
-  const uint32_t lo = min_u16x2(a, b);
-  b = max_u16x2(a, b);
-  a = lo;
-}
-
-// One stage of the flip-form network on a row's words in shared memory:
-// pairs (i, i + span), or with `mirror` (i, i ^ (2 span - 1)), for the
-// words' pairs t, t + step, ... of `pairs`.
-__device__ __forceinline__ void shared_pairs(uint32_t* s, int span,
-                                             bool mirror, int t, int step,
-                                             int pairs) {
-  for (int q = t; q < pairs; q += step) {
-    const int i = 2 * q - (q & (span - 1));
-    const int j = mirror ? i ^ (2 * span - 1) : i + span;
-    uint32_t a = s[i];
-    uint32_t b = s[j];
-    exchange_pairs(a, b);
-    s[i] = a;
-    s[j] = b;
-  }
-}
-
-// The cleaner strides below kWords: both words of a pair are the
-// thread's own.
-template <int kWords>
-__device__ __forceinline__ void register_pairs(uint32_t (&v)[kWords]) {
-#pragma unroll
-  for (int stride = kWords >> 1; stride > 0; stride >>= 1) {
-#pragma unroll
-    for (int e = 0; e < kWords; ++e) {
-      if ((e & stride) == 0) exchange_pairs(v[e], v[e | stride]);
-    }
-  }
-}
-
-// The stages of one merge from word stride `stride` (>= kWords) down to
-// 1, over `half` words a row held by half / kWords threads: the first is
-// the flip form's mirror stage when `mirror` (word i against the
-// merge's last word minus its offset), the rest are cleaners.  Strides
-// that pair two warps go through shared memory at `srow` with block
-// barriers (every thread of the block calls this with the same `half`),
-// then strides of a warp are shuffles, where each thread keeps the
-// smaller or the larger keys of a pair of words as a whole; the last
-// are the thread's own.
-template <int kWords>
-__device__ __forceinline__ void merge_pairs(uint32_t (&v)[kWords],
-                                            uint32_t* srow, int t, int half,
-                                            int stride, bool mirror) {
-  constexpr int kWarpSpan = 32 * kWords;
-  if (stride >= kWarpSpan) {
-    store_keys(srow + t * kWords, v);
-    __syncthreads();
-    for (; stride >= kWarpSpan; stride >>= 1, mirror = false) {
-      shared_pairs(srow, stride, mirror, t, half / kWords, half >> 1);
-      __syncthreads();
-    }
-    load_keys(v, srow + t * kWords);
-  } else if (mirror) {
-    // Word e's partner is word kWords - 1 - e of lane t ^ lane_mask.
-    const int lane_mask = 2 * stride / kWords - 1;
-    const bool keep_low = (t & (stride / kWords)) == 0;
-    uint32_t other[kWords];
-#pragma unroll
-    for (int e = 0; e < kWords; ++e) {
-      other[e] = __shfl_xor_sync(kFullWarp, v[kWords - 1 - e], lane_mask);
-    }
-#pragma unroll
-    for (int e = 0; e < kWords; ++e) {
-      v[e] = keep_low ? min_u16x2(v[e], other[e]) : max_u16x2(v[e], other[e]);
-    }
-    stride >>= 1;
-  }
-  for (; stride >= kWords; stride >>= 1) {
-    const int lane_mask = stride / kWords;
-    const bool keep_low = (t & lane_mask) == 0;
-#pragma unroll
-    for (int e = 0; e < kWords; ++e) {
-      const uint32_t other = __shfl_xor_sync(kFullWarp, v[e], lane_mask);
-      v[e] = keep_low ? min_u16x2(v[e], other) : max_u16x2(v[e], other);
-    }
-  }
-  register_pairs(v);
-}
 
 // Ascending sort of a row of 2 * half 16-bit keys held as `half` words,
 // word j keys j (low lane) and j + half (high lane), thread t the words
 // [t * kWords, (t + 1) * kWords).  Each lane's half sorts with the flip
-// form of the bitonic network (every pair ascends: a merge of `size`
-// pairs word i first with i ^ (size - 1), then cleans at size / 4, ...,
-// 1), the high lane complemented so that it ends descending; then the
+// form, the high lane complemented so that it ends descending; then the
 // row is bitonic, and one stage inside each word (key j against key
 // j + half) and the cleaners from half / 2 down merge it.  `srow` as
-// for merge_pairs.
+// for merge_words.
 template <int kWords>
 __device__ __forceinline__ void sort_pairs(uint32_t (&v)[kWords],
                                            uint32_t* srow, int t, int half) {
 #pragma unroll
   for (int e = 0; e < kWords; ++e) v[e] ^= 0xFFFF0000u;
-  // Merges of up to kWords words lie inside one thread.
-#pragma unroll
-  for (int size = 2; size <= kWords; size <<= 1) {
-#pragma unroll
-    for (int e = 0; e < kWords; ++e) {
-      if ((e & (size >> 1)) == 0) exchange_pairs(v[e], v[e ^ (size - 1)]);
-    }
-#pragma unroll
-    for (int stride = size >> 2; stride > 0; stride >>= 1) {
-#pragma unroll
-      for (int e = 0; e < kWords; ++e) {
-        if ((e & stride) == 0) exchange_pairs(v[e], v[e | stride]);
-      }
-    }
-  }
-  for (int size = 2 * kWords; size <= half; size <<= 1) {
-    merge_pairs(v, srow, t, half, size >> 1, true);
-  }
+  flip_sort<true>(v, srow, t, half);
 #pragma unroll
   for (int e = 0; e < kWords; ++e) {
     const uint32_t w = v[e] ^ 0xFFFF0000u;
     const uint32_t swapped = __byte_perm(w, 0, 0x1032);
     v[e] = __byte_perm(min_u16x2(w, swapped), max_u16x2(w, swapped), 0x7610);
   }
-  merge_pairs(v, srow, t, half, half >> 1, false);
+  merge_words<true>(v, srow, t, half, half >> 1, false);
 }
 
 // Whether window j of a packed row is real: none of its k codes is < 0
@@ -916,15 +1100,47 @@ __global__ void rowsort_rle_wide(const int8_t* __restrict__ codes,
   }
 }
 
+// The power of two n >= W over which a row's searches run, and the
+// register path's row width for it.
+int search_width(int W) {
+  int n = 1;
+  while (n < W) n <<= 1;
+  return n;
+}
+
+int row_width(int n) { return n < kMinWidth ? kMinWidth : n; }
+
+// The prefix path's launch: rows of `width` <= kMaxPrefixWidth uint64
+// keys, kRegThreads * kKeys / width rows a block.
+template <int kVariant, bool kChecksum = false>
+int launch_prefix(const int8_t* codes, int32_t* key_out, int32_t* lo_out,
+                  int32_t* cnt_out, int64_t* chk, int B, int L, int W, int n,
+                  int width, int k, int canonical, cudaStream_t stream) {
+  const int rows = (kRegThreads << kLogKeys) / width;
+  const size_t smem = size_t(rows) * width * sizeof(uint64_t) +
+                      size_t(rows) * units_of(width) * 6;
+  rowsort_rle_prefix<kVariant, 1 << kLogKeys, kChecksum>
+      <<<(B + rows - 1) / rows, kRegThreads, smem, stream>>>(
+          codes, key_out, lo_out, cnt_out, chk, B, L, W, n, width, k,
+          canonical != 0);
+  return int(cudaGetLastError());
+}
+
 template <bool kLarge, int kVariant, bool kChecksum = false>
 int launch(const int8_t* codes, int32_t* key_out, int32_t* lo_out,
            int32_t* cnt_out, int64_t* chk, int B, int L, int W, int k,
            int canonical, cudaStream_t stream) {
   using Key = KeyOf<kLarge>;
-  int n = 1;
-  while (n < W) n <<= 1;
+  const int n = search_width(W);
   if (n <= kMaxRegWidth) {
-    const int width = n < kMinWidth ? kMinWidth : n;
+    const int width = row_width(n);
+    if constexpr (kLarge) {
+      if (width <= kMaxPrefixWidth) {
+        return launch_prefix<kVariant, kChecksum>(codes, key_out, lo_out,
+                                                  cnt_out, chk, B, L, W, n,
+                                                  width, k, canonical, stream);
+      }
+    }
     const bool wide_keys = width > (kRegThreads << kLogKeys) ||
                            (!kLarge && width >= kWideFrom32);
     const int rows = (kRegThreads << (wide_keys ? kLogKeysWide : kLogKeys)) / width;
@@ -978,6 +1194,18 @@ int launch_probe(const void* codes, void* chk, int B, int L, int W, int k,
                                           B, L, W, k, canonical, s);
 }
 
+// The probe's kFallbacks variant: uint64 keys on the prefix path only.
+int launch_fallbacks(const void* codes, void* chk, int B, int L, int W, int k,
+                     int canonical, int keys64, void* stream) {
+  const int n = search_width(W);
+  const int width = row_width(n);
+  if (!keys64 || width > kMaxPrefixWidth) return int(cudaErrorInvalidValue);
+  return launch_prefix<kFallbacks>(
+      static_cast<const int8_t*>(codes), nullptr, nullptr, nullptr,
+      static_cast<int64_t*>(chk), B, L, W, n, width, k, canonical,
+      static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -1018,6 +1246,8 @@ int cfrk_rowsort_rle_large(const void* codes, void* hi_out, void* lo_out,
 // Probe variant `variant` (1 full, 2 sortonly, 3 rleonly, 4 noop) of the
 // kernel: codes [B, L] int8 → chk [B] int64, one checksum per row.
 // keys64 = 0 sorts uint32 keys (k <= 15), 1 uint64 keys (k > 15).
+// Variant 5 (kFallbacks, keys64 = 1 and rows of up to kMaxPrefixWidth
+// keys) writes each row's repair flag instead (register_rows).
 int cfrk_rowsort_probe(const void* codes, void* chk, int B, int L, int W,
                        int k, int canonical, int keys64, int variant,
                        void* stream) {
@@ -1034,6 +1264,9 @@ int cfrk_rowsort_probe(const void* codes, void* chk, int B, int L, int W,
     case kNoop:
       return launch_probe<kNoop>(codes, chk, B, L, W, k, canonical, keys64,
                                  stream);
+    case kFallbacks:
+      return launch_fallbacks(codes, chk, B, L, W, k, canonical, keys64,
+                              stream);
     default:
       return int(cudaErrorInvalidValue);
   }

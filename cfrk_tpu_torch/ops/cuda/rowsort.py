@@ -25,7 +25,13 @@ sort two 16-bit keys a register (``rowsort_rle_pairs``;
 :func:`key16_path` mirrors the launch rule, and launches on that path
 also count under ``KEY16_LAUNCHES``): :func:`pair_keys_model`,
 :func:`sort_pairs_model` and :func:`finish_pairs_model` model its key
-build, its network and its emit.  The kernels' output is array-equal to
+build, its network and its emit.  Above k = 15, rows of up to 256 keys
+sort 32-bit prefix-and-position words, gather the full keys and repair
+a warp's rows where two distinct keys shared a prefix
+(``rowsort_rle_prefix``; :func:`prefix_path` mirrors the launch rule,
+``PREFIX_LAUNCHES`` counts its launches, :func:`sort_prefix_model`
+models it, and :func:`rowsort_fallbacks` / :func:`rowsort_fallbacks_plain`
+read which rows were repaired).  The kernels' output is array-equal to
 the plain twins
 :func:`rowsort_rle_plain` / :func:`rowsort_rle_large_plain`, which sort
 with ``torch.sort`` on any device; ``ops/perread_sparse.py`` exports them
@@ -89,6 +95,12 @@ __all__ = [
     "pair_keys_model",
     "sort_pairs_model",
     "finish_pairs_model",
+    "PREFIX_LAUNCHES",
+    "prefix_path",
+    "prefix_words_model",
+    "sort_prefix_model",
+    "rowsort_fallbacks",
+    "rowsort_fallbacks_plain",
 ]
 
 MAX_SPARSE_PERREAD_K = 15
@@ -114,6 +126,9 @@ ROWSORT_MAX_WINDOWS_LARGE = 16384
 #             checksum;
 #   noop      build; sortonly's checksum.
 PROBE_VARIANTS = {"full": 1, "sortonly": 2, "rleonly": 3, "noop": 4}
+# The probe kernel's readout of the prefix path (rowsort_fallbacks), not a
+# timed variant.
+_FALLBACK_VARIANT = 5
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -165,6 +180,10 @@ _MAX_PAIR_K = 8
 
 # Launches of rowsort_rle that took the two-keys-a-register path.
 KEY16_LAUNCHES = "cfrk.rowsort_rle.key16_launches"
+# Launches of rowsort_rle_large that took the prefix path, whose rows of
+# up to _MAX_PREFIX_WIDTH keys lie within a warp.
+PREFIX_LAUNCHES = "cfrk.rowsort_rle.prefix_launches"
+_MAX_PREFIX_WIDTH = 32 << _LOG_KEYS
 
 
 def _sort_width(w: int) -> int:
@@ -178,6 +197,14 @@ def key16_path(w: int, k: int) -> bool:
     """Whether the kernel sorts rows of ``w`` windows at this k two keys
     a register (16-bit keys): k <= 8 and rows of up to 4096 keys."""
     return k <= _MAX_PAIR_K and _sort_width(w) <= _REG_THREADS << _LOG_KEYS_WIDE
+
+
+def prefix_path(w: int, k: int) -> bool:
+    """Whether the kernel sorts rows of ``w`` windows at this k as 32-bit
+    prefix-and-position words: the uint64 keys (k > 15, which take
+    ``rowsort_rle_large`` and the probe's uint64 kernel) in rows of up
+    to 256 keys, one warp's threads."""
+    return k > MAX_SPARSE_PERREAD_K and _sort_width(w) <= _MAX_PREFIX_WIDTH
 
 
 def keys_per_thread(width: int, large: bool) -> int:
@@ -512,6 +539,89 @@ def pair_keys_model(bases, invalid, width: int, k: int, canonical: bool,
     return keys, int(is_real.sum())
 
 
+def _exchange_words(v, e, f, lower, upper):
+    """``exchange_words``: words e and f of every thread's ``v`` in
+    ascending order, by the ``lower`` / ``upper`` of the word type."""
+    a, b = v[:, e].copy(), v[:, f].copy()
+    v[:, e] = lower(a, b)
+    v[:, f] = upper(a, b)
+
+
+def _register_words(v, lower, upper):
+    """``register_words``: the cleaner strides below K, inside each
+    thread."""
+    kw = v.shape[1]
+    stride = kw >> 1
+    while stride:
+        for e in range(kw):
+            if e & stride == 0:
+                _exchange_words(v, e, e | stride, lower, upper)
+        stride >>= 1
+
+
+def _merge_words(v, n, stride, mirror, lower, upper):
+    """numpy model of ``merge_words`` of ``csrc/rowsort.cu`` over the
+    ``[n / K, K]`` words ``v`` of one row (thread t the row ``v[t]``):
+    from word stride ``stride`` down to 1, the first the mirror stage
+    when ``mirror``.  Strides of 32 K and more pair words in shared
+    memory (``shared_words``), strides from K a thread's words with those
+    of lane ``t ^ mask`` (the shuffle), the rest a thread's own.
+    Returns the words."""
+    threads, kw = v.shape
+    t = np.arange(threads)
+    if stride >= 32 * kw:  # pairs of two warps: shared memory
+        s = v.reshape(-1)
+        while stride >= 32 * kw:
+            q = np.arange(n >> 1)
+            i = 2 * q - (q & (stride - 1))
+            j = i ^ (2 * stride - 1) if mirror else i + stride
+            a, b = s[i].copy(), s[j].copy()
+            s[i] = lower(a, b)
+            s[j] = upper(a, b)
+            stride >>= 1
+            mirror = False
+        v = s.reshape(threads, kw)
+    elif mirror:  # word e against word K-1-e of lane t ^ mask
+        keep_low = (t & (stride // kw)) == 0
+        other = v[t ^ (2 * stride // kw - 1)][:, ::-1]
+        v = np.where(keep_low[:, None], lower(v, other), upper(v, other))
+        stride >>= 1
+    while stride >= kw:  # warp shuffles
+        lane_mask = stride // kw
+        keep_low = (t & lane_mask) == 0
+        other = v[t ^ lane_mask]
+        v = np.where(keep_low[:, None], lower(v, other), upper(v, other))
+        stride >>= 1
+    _register_words(v, lower, upper)
+    return v
+
+
+def _flip_sort(v, lower, upper):
+    """numpy model of ``flip_sort``: the ``[n / K, K]`` words ``v`` of one
+    row sorted ascending by the flip form of the bitonic network, every
+    pair ascending (a merge of ``size`` pairs word i first with
+    ``i ^ (size - 1)``, then cleans at size/4, ..., 1).  Returns the
+    words."""
+    threads, kw = v.shape
+    n = threads * kw
+    size = 2
+    while size <= kw:  # merges of up to K words lie inside one thread
+        for e in range(kw):
+            if e & (size >> 1) == 0:
+                _exchange_words(v, e, e ^ (size - 1), lower, upper)
+        stride = size >> 2
+        while stride:
+            for e in range(kw):
+                if e & stride == 0:
+                    _exchange_words(v, e, e | stride, lower, upper)
+            stride >>= 1
+        size <<= 1
+    while size <= n:
+        v = _merge_words(v, n, size >> 1, True, lower, upper)
+        size <<= 1
+    return v
+
+
 def sort_pairs_model(keys: np.ndarray, words_per_thread: int) -> np.ndarray:
     """numpy model of ``sort_pairs`` of ``csrc/rowsort.cu``: one row of
     ``width`` 16-bit keys (a power of two) as ``width/2`` words, word j
@@ -522,78 +632,88 @@ def sort_pairs_model(keys: np.ndarray, words_per_thread: int) -> np.ndarray:
     word and the cleaners from width/4 down.  Strides below K exchange a
     thread's own words, strides up to 16 K a thread's words with those
     of lane ``t ^ mask`` (the shuffle), wider strides pairs of words in
-    shared memory (``shared_pairs``).  Returns the row's cells as the
+    shared memory (``shared_words``).  Returns the row's cells as the
     kernel stores them: sorted ascending."""
     kw = words_per_thread
-    width = keys.size
-    half = width // 2
-    threads = half // kw
+    half = keys.size // 2
     keys = np.asarray(keys, np.uint32)
-    v = (keys[:half] | (keys[half:] << np.uint32(16))).reshape(threads, kw)
-    t = np.arange(threads)
-
-    def exchange(e, f):
-        a, b = v[:, e].copy(), v[:, f].copy()
-        v[:, e] = _min_u16x2(a, b)
-        v[:, f] = _max_u16x2(a, b)
-
-    def register_pairs():
-        stride = kw >> 1
-        while stride:
-            for e in range(kw):
-                if e & stride == 0:
-                    exchange(e, e | stride)
-            stride >>= 1
-
-    def merge_pairs(stride, mirror):
-        nonlocal v
-        if stride >= 32 * kw:  # pairs of two warps: shared memory
-            s = v.reshape(-1)
-            while stride >= 32 * kw:
-                q = np.arange(half >> 1)
-                i = 2 * q - (q & (stride - 1))
-                j = i ^ (2 * stride - 1) if mirror else i + stride
-                a, b = s[i].copy(), s[j].copy()
-                s[i] = _min_u16x2(a, b)
-                s[j] = _max_u16x2(a, b)
-                stride >>= 1
-                mirror = False
-            v = s.reshape(threads, kw)
-        elif mirror:  # word e against word K-1-e of lane t ^ mask
-            keep_low = (t & (stride // kw)) == 0
-            other = v[t ^ (2 * stride // kw - 1)][:, ::-1]
-            v = np.where(keep_low[:, None], _min_u16x2(v, other), _max_u16x2(v, other))
-            stride >>= 1
-        while stride >= kw:  # warp shuffles
-            lane_mask = stride // kw
-            keep_low = (t & lane_mask) == 0
-            other = v[t ^ lane_mask]
-            v = np.where(keep_low[:, None], _min_u16x2(v, other), _max_u16x2(v, other))
-            stride >>= 1
-        register_pairs()
-
-    v ^= _HIGH16
-    size = 2
-    while size <= kw:  # merges of up to K words lie inside one thread
-        for e in range(kw):
-            if e & (size >> 1) == 0:
-                exchange(e, e ^ (size - 1))
-        stride = size >> 2
-        while stride:
-            for e in range(kw):
-                if e & stride == 0:
-                    exchange(e, e | stride)
-            stride >>= 1
-        size <<= 1
-    while size <= half:
-        merge_pairs(size >> 1, True)
-        size <<= 1
+    v = (keys[:half] | (keys[half:] << np.uint32(16))).reshape(half // kw, kw)
+    v = _flip_sort(v ^ _HIGH16, _min_u16x2, _max_u16x2)
     w = v ^ _HIGH16
     swapped = ((w & _LOW16) << np.uint32(16)) | (w >> np.uint32(16))
     v = (_min_u16x2(w, swapped) & _LOW16) | (_max_u16x2(w, swapped) & _HIGH16)
-    merge_pairs(half >> 1, False)
-    words = v.reshape(-1)
+    words = _merge_words(v, half, half >> 1, False, _min_u16x2, _max_u16x2).reshape(-1)
     return np.concatenate([words & _LOW16, words >> np.uint32(16)])
+
+
+_SENTINEL_WORD = 1 << 31  # kSentinelWord: the bit of an invalid window's word
+_REPAIR_ROUNDS = 2  # kRepairRounds: odd-even transposition rounds before the network
+_KEY64_ALL_ONES = np.uint64((1 << 64) - 1)  # the kernel's uint64 sentinel
+
+
+def prefix_words_model(keys: np.ndarray, k: int) -> np.ndarray:
+    """numpy model of the word build of ``sort_prefix_words`` in
+    ``csrc/rowsort.cu`` over one row of ``width`` uint64 keys (a power
+    of two, the kernel's all-ones sentinel at invalid windows and
+    padding): the word of the key at position p is bit 31 for the
+    sentinel, else the key's top ``31 - log2(width)`` bits, above the
+    ``log2(width)`` bits of p.  Returns uint32 words."""
+    keys = np.asarray(keys, np.uint64)
+    width = keys.size
+    log_width = width.bit_length() - 1
+    shift = np.uint64(max(0, 2 * k - (31 - log_width)))
+    p = np.arange(width, dtype=np.uint64)
+    prefix = (keys >> shift) << np.uint64(log_width)
+    words = np.where(keys == _KEY64_ALL_ONES, np.uint64(_SENTINEL_WORD), prefix) | p
+    return words.astype(np.uint32)
+
+
+def _transposition_round(keys: np.ndarray) -> np.ndarray:
+    """``transposition_round``: one round of odd-even transposition over
+    a row, the pairs (2i, 2i + 1), then (2i + 1, 2i + 2)."""
+    keys = keys.copy()
+    for start in (0, 1):
+        i = np.arange(start, keys.size - 1, 2)
+        lo, hi = np.minimum(keys[i], keys[i + 1]), np.maximum(keys[i], keys[i + 1])
+        keys[i], keys[i + 1] = lo, hi
+    return keys
+
+
+def _descends(keys: np.ndarray) -> bool:
+    """``out_of_order`` over a whole row."""
+    return bool((keys[1:] < keys[:-1]).any())
+
+
+def sort_prefix_model(keys: np.ndarray, k: int, keys_per_thread: int):
+    """numpy model of ``sort_prefix_words`` of ``csrc/rowsort.cu`` over
+    one row of ``width`` uint64 keys (up to 32 K, one warp's threads, K =
+    ``keys_per_thread``; the all-ones sentinel at invalid windows and
+    padding): the words of :func:`prefix_words_model` sorted by the flip
+    form with whole-word min / max, the full keys gathered by the
+    words' positions; where two distinct keys that share a prefix came
+    out of order, up to ``kRepairRounds`` rounds of odd-even
+    transposition, and if the keys are still out of order the uint64
+    network (:func:`sort_in_registers_model`).  Returns ``(sorted keys,
+    out_of_order, network)``: whether the row's own words left its keys
+    out of order, and whether the network sorted them again.  (The
+    kernel repairs a warp's rows together; a row in order is left as it
+    is by either step.)"""
+    keys = np.asarray(keys, np.uint64)
+    width = keys.size
+    if width > _MAX_PREFIX_WIDTH or width % keys_per_thread:
+        raise ValueError(f"a row of {width} keys does not lie within a warp")
+    words = prefix_words_model(keys, k).reshape(width // keys_per_thread, keys_per_thread)
+    words = _flip_sort(words, np.minimum, np.maximum).reshape(-1)
+    got = keys[words & np.uint32(width - 1)]
+    out_of_order = left = _descends(got)
+    for _ in range(_REPAIR_ROUNDS):
+        if not left:
+            break
+        got = _transposition_round(got)
+        left = _descends(got)
+    if left:
+        got = sort_in_registers_model(got, keys_per_thread)
+    return got, out_of_order, left
 
 
 def finish_pairs_model(s: np.ndarray, n_valid: int, w: int, k: int):
@@ -717,7 +837,7 @@ def rowsort_rle_large(codes: torch.Tensor, k: int, canonical: bool = False, *,
     if codes.shape[0]:
         _launch("rowsort_rle_large", _library().cfrk_rowsort_rle_large, codes,
                 (hi, lo, cnt), chk, k, w, canonical)
-        rowsort_rle_large.launches += 1
+        _count_large_launch(w, k)
     return count_out((hi, lo, cnt) if chk is None else (hi, lo, cnt, chk))
 
 
@@ -727,6 +847,14 @@ def _count_launch(w: int, k: int) -> None:
     rowsort_rle.launches += 1
     if key16_path(w, k):
         count(KEY16_LAUNCHES)
+
+
+def _count_large_launch(w: int, k: int) -> None:
+    """Count one launch of :func:`rowsort_rle_large`, and under
+    ``PREFIX_LAUNCHES`` those that took the prefix path."""
+    rowsort_rle_large.launches += 1
+    if prefix_path(w, k):
+        count(PREFIX_LAUNCHES)
 
 
 rowsort_rle.launches = 0
@@ -758,12 +886,21 @@ def rowsort_probe(codes: torch.Tensor, k: int, variant: str,
                   canonical: bool = False) -> torch.Tensor:
     """One probe variant of the rowsort kernel (16-bit keys two a
     register for k <= 8 and rows of up to 4096 keys, uint32 keys for
-    k <= 15, uint64 above): codes [B, L] int8 → [B] int64 checksums, equal to
+    k <= 15, uint64 above, as prefix-and-position words in rows of up to
+    256 keys): codes [B, L] int8 → [B] int64 checksums, equal to
     :func:`rowsort_probe_plain`'s."""
     if codes.device.type == "cpu":
         with span("cfrk.rowsort_probe.plain"):
             return count_out(rowsort_probe_plain(codes, k, variant, canonical))
     w = _probe_check(codes, k, variant)
+    return count_out(_launch_probe(codes, k, w, canonical, PROBE_VARIANTS[variant]))
+
+
+def _launch_probe(codes: torch.Tensor, k: int, w: int, canonical: bool,
+                  variant: int) -> torch.Tensor:
+    """One launch of the probe kernel's ``variant`` (its number) on a
+    CUDA batch; returns its [B] int64 output.  Counts under
+    ``rowsort_probe.launches``."""
     if codes.device.type != "cuda":
         raise ValueError(f"codes on {codes.device}: the kernel needs CUDA")
     codes = codes.contiguous()
@@ -775,14 +912,73 @@ def rowsort_probe(codes: torch.Tensor, k: int, variant: str,
             err = launch(
                 "rowsort_probe", _library().cfrk_rowsort_probe,
                 codes.data_ptr(), chk.data_ptr(), b, length, w, k,
-                int(canonical), int(k > MAX_SPARSE_PERREAD_K),
-                PROBE_VARIANTS[variant], stream,
+                int(canonical), int(k > MAX_SPARSE_PERREAD_K), variant, stream,
             )
         if err != 0:
             raise RuntimeError(f"cfrk_rowsort_probe launch failed: CUDA error {err}")
         rowsort_probe.launches += 1
-    return count_out(chk)
+    return chk
 
 
 rowsort_probe.launches = 0
+
+
+def _fallbacks_check(codes: torch.Tensor, k: int) -> int:
+    """Validate a :func:`rowsort_fallbacks` call; returns W = L-k+1."""
+    if codes.ndim != 2 or codes.dtype != torch.int8:
+        raise ValueError(
+            f"codes must be a [B, L] int8 tensor, got {tuple(codes.shape)} "
+            f"{codes.dtype}"
+        )
+    w = codes.shape[1] - k + 1
+    if not (16 <= k <= 31 and w > 0 and prefix_path(w, k)):
+        raise ValueError(f"k={k} and {w} windows a row do not take the prefix path "
+                         f"(16 <= k <= 31, up to {_MAX_PREFIX_WIDTH} windows)")
+    return w
+
+
+def rowsort_fallbacks_plain(codes: torch.Tensor, k: int,
+                            canonical: bool = False) -> torch.Tensor:
+    """Which rows the prefix path repairs, plain route on any
+    device: [B] int64, 1 where the row's own prefix-and-position words
+    leave its keys out of order (two distinct keys share a prefix, the
+    larger at the lower position), 2 where only another row of its
+    warp's did, 0 elsewhere.  The words, their order and the warps are
+    those of :func:`sort_prefix_model` and the kernel's launch."""
+    w = _fallbacks_check(codes, k)
+    b = codes.shape[0]
+    width = _sort_width(w)
+    hi, lo = kmer_keys(codes, k, canonical)
+    real = lo != INVALID_SENTINEL
+    keys = torch.full((b, width), -1, dtype=torch.int64, device=codes.device)
+    keys[:, :w] = torch.where(real, (hi << (2 * LO_BASES)) | lo, -1)
+    log_width = width.bit_length() - 1
+    pos = torch.arange(width, device=codes.device)
+    prefix = (keys >> max(0, 2 * k - (31 - log_width))) << log_width
+    words = torch.where(keys < 0, _SENTINEL_WORD, prefix) | pos
+    got = torch.gather(keys, 1, torch.sort(words, dim=-1).values & (width - 1))
+    # The sentinel, -1 here, is the largest key (all ones in the kernel).
+    got = torch.where(got < 0, KEY64_SENTINEL, got)
+    own = (got[:, 1:] < got[:, :-1]).any(1)
+    per_warp = 32 * keys_per_thread(width, True) // width
+    warps = torch.zeros(-(-b // per_warp) * per_warp, dtype=torch.bool,
+                        device=codes.device)
+    warps[:b] = own
+    warp = warps.view(-1, per_warp).any(1).repeat_interleave(per_warp)[:b]
+    return torch.where(own, 1, torch.where(warp, 2, 0)).to(torch.int64)
+
+
+def rowsort_fallbacks(codes: torch.Tensor, k: int,
+                      canonical: bool = False) -> torch.Tensor:
+    """The probe kernel's readout of the prefix path (16 <= k <= 31, rows
+    of up to 256 windows): [B] int64, equal to
+    :func:`rowsort_fallbacks_plain`'s.  The sum of ``> 0`` over a batch
+    is the rows that ``rowsort_rle_large`` repairs after the word sort."""
+    if codes.device.type == "cpu":
+        with span("cfrk.rowsort_probe.plain"):
+            return count_out(rowsort_fallbacks_plain(codes, k, canonical))
+    w = _fallbacks_check(codes, k)
+    return count_out(_launch_probe(codes, k, w, canonical, _FALLBACK_VARIANT))
+
+
 register_launches(rowsort_rle, rowsort_rle_large, rowsort_probe)

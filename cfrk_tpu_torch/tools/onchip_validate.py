@@ -36,6 +36,15 @@ The checks, each named for what it holds on the card:
   poly-T (the 16-bit padding value's key at k = 8), poly-A, all-N,
   N-heavy and half-padded rows, and with its checksum; the probe's four
   variants at k = 8 against ``rowsort_probe_plain``;
+* ``rowsort_prefix_parity``: ``rowsort_rle_large``'s prefix path (k > 15,
+  rows of up to 256 keys sorted as 32-bit prefix-and-position words)
+  against its twin at k = 16, 20, 30 and 31, canonical or not, on rows
+  of 20 to 256 windows: random, poly-A, poly-T, all-N, N-heavy,
+  half-padded rows and rows with a run of 30 T, and rows in which two
+  distinct k-mers share every
+  prefix bit, the larger first, which the kernel must repair; with its
+  checksum; the probe's readout of the rows repaired
+  (``rowsort_fallbacks``) against its twin, 1 on every such row;
 * ``rowsort_kernel_parity``: ``rowsort_rle`` / ``rowsort_rle_large``
   against their twins at k = 8, 15 and 31 canonical on 150, 200, 500 and
   70 bp rows and on a row at the kernel ceiling; 64 kb and 128 kb contigs
@@ -70,6 +79,8 @@ from ..format import format_file_bytes
 from ..io.fasta import read_fasta_encoded
 from ..ops.cuda.perread import perread_hist, perread_hist_plain, unpack_counts
 from ..ops.cuda.rowsort import (
+    rowsort_fallbacks,
+    rowsort_fallbacks_plain,
     rowsort_max_windows,
     rowsort_probe,
     rowsort_probe_plain,
@@ -283,6 +294,64 @@ def rowsort_key16_parity(device: torch.device) -> dict:
     return {"cases": cases, "probe_checksums": variants}
 
 
+def prefix_tie_row(rng, length: int, k: int) -> np.ndarray:
+    """A random row of int8 codes with two distinct k-mers that share
+    their first 13 bases (every prefix bit of a row of up to 256 keys),
+    the larger at the lower position: X = P T R C at 3, Y = P A R C near
+    the end, P and R random.  P starts with AA and both end in C, so
+    each is its own canonical key.  Needs length >= 2k + 5 (the two
+    apart)."""
+    row = rng.integers(0, 4, length).astype(np.int8)
+    p = np.concatenate([[0, 0], rng.integers(0, 4, 11)]).astype(np.int8)
+    rest = np.concatenate([rng.integers(0, 4, k - 15), [1]]).astype(np.int8)
+    a, b = 3, length - k - 2
+    if b < a + k:
+        raise ValueError(f"a row of {length} codes cannot hold two {k}-mers apart")
+    row[a:a + k] = np.concatenate([p, [3], rest])
+    row[b:b + k] = np.concatenate([p, [0], rest])
+    return row
+
+
+def rowsort_prefix_parity(device: torch.device) -> dict:
+    """``rowsort_rle_large`` on its prefix path against its twin, on
+    rows built so that distinct keys share a prefix, and which rows it
+    repairs against the plain readout."""
+    rng = np.random.default_rng(8)
+    cases, tie_rows, repaired = 0, 0, 0
+    for k in (16, 20, 30, 31):
+        for w, b in ((20, 40), (32, 64), (64, 64), (122, 200), (200, 64), (256, 64)):
+            length = w + k - 1
+            codes = _codes(rng, (b, length), p_n=0.01)
+            codes[0] = 3  # poly-T
+            codes[1] = 0  # poly-A: one long run
+            codes[2] = -1  # all N: no real window
+            codes[3][rng.random(length) < 0.3] = -1
+            codes[4, length // 2:] = -1
+            codes[6, 2:32] = 3  # a T run: forward keys of one prefix, descending
+            ties = list(range(5, b, 3)) if length >= 2 * k + 5 else []
+            for r in ties:
+                codes[r] = prefix_tie_row(rng, length, k)
+            x = torch.from_numpy(codes).to(device)
+            for canonical in (False, True):
+                what = f"k={k} canonical={canonical} {w} windows"
+                _rows_vs_plain(x, k, canonical, what)
+                got = rowsort_fallbacks(x, k, canonical)
+                assert_equal(got, rowsort_fallbacks_plain(x, k, canonical),
+                             f"{what}: rows repaired")
+                if ties and not bool((got[ties] == 1).all()):
+                    raise AssertionError(f"{what}: a tie row was not repaired")
+                tie_rows += len(ties)
+                repaired += int((got > 0).sum())
+                cases += 1
+            if w == 122:
+                assert_equal(rowsort_rle_large(x, k, True, checksum=True),
+                             rowsort_rle_large_plain(x, k, True, checksum=True),
+                             f"k={k} {w} windows with checksum")
+    if not tie_rows:
+        raise AssertionError("no row shared a prefix out of order")
+    return {"cases": cases, "tie_rows": tie_rows, "rows_repaired": repaired}
+
+
 def rowsort_kernel_parity(device: torch.device) -> dict:
     """The row-sort kernels against their plain twins: k=8, 15, 31
     canonical, rows of 150, 200, 500 and 70 bp and at the kernel
@@ -377,6 +446,7 @@ CHECKS = {fn.__name__: fn for fn in (
     spectrum_k15_parity,
     sorted_spectrum_parity,
     rowsort_key16_parity,
+    rowsort_prefix_parity,
     rowsort_kernel_parity,
     mesh_kernel_probes,
     auto_batch_capacity,

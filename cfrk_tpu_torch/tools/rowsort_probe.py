@@ -13,7 +13,11 @@ design; only times compare.
 
 ``--keys 1`` drives the uint32-key kernel (k <= 15, forward keys),
 ``--keys 2`` the uint64-key kernel (16 <= k <= 31, canonical keys, as
-the JAX tool's ``kmer_keys(codes, k, True)``).  Inputs are 4 distinct
+the JAX tool's ``kmer_keys(codes, k, True)``).  Where ``--keys 2`` takes
+the prefix path (rows of up to 256 keys), the line also holds its
+readout over the 4 batches (``rowsort_fallbacks``): ``rows``,
+``rows_repaired`` (their warp repaired the gathered keys) and
+``fallback_share``, their ratio.  Inputs are 4 distinct
 seeded batches of random bases, cycled, so no launch sees the input of
 the one before.  The ``--steps`` launches are captured once in a CUDA
 graph and its replay is timed with CUDA events, after a warm-up
@@ -35,7 +39,7 @@ import sys
 import numpy as np
 import torch
 
-from ..ops.cuda.rowsort import PROBE_VARIANTS, rowsort_probe
+from ..ops.cuda.rowsort import PROBE_VARIANTS, prefix_path, rowsort_fallbacks, rowsort_probe
 
 __all__ = ["probe", "probe_batches"]
 
@@ -77,7 +81,7 @@ def probe(variant: str, *, keys: int = 1, k: int | None = None,
     torch.cuda.synchronize()
     ms = e0.elapsed_time(e1) / steps
     w = length - k + 1
-    return {
+    record = {
         "variant": variant,
         "k": k,
         "n": 1 << max(w - 1, 0).bit_length(),
@@ -86,6 +90,11 @@ def probe(variant: str, *, keys: int = 1, k: int | None = None,
         "chk": int(torch.stack(outs).sum()),
         "device": torch.cuda.get_device_name(0),
     }
+    if keys == 2 and prefix_path(w, k):
+        repaired = sum(int((rowsort_fallbacks(x, k, canonical) > 0).sum()) for x in xs)
+        record.update(rows=4 * batch, rows_repaired=repaired,
+                      fallback_share=repaired / (4 * batch))
+    return record
 
 
 def main(argv=None) -> int:

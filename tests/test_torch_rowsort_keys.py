@@ -16,8 +16,15 @@ palindromic repeats (canonical ties).  At k <= 8 the kernel sorts two
 with the padding value 0xFFFF and the count of real windows, the packed
 network, the emit cut at that count -- is held against ``np.sort`` and
 against the plain rows (``rowsort_rle_plain``, ``rle_rows``), poly-T
-rows included, whose key TTTTTTTT is 0xFFFF at k = 8.  Inputs from a
-numpy seed.  Tolerance: none, every value is an integer.
+rows included, whose key TTTTTTTT is 0xFFFF at k = 8.  Above k = 15,
+rows of up to 256 keys sort 32-bit prefix-and-position words
+(``rowsort_rle_prefix``): the model of the word build, the flip-form
+sort, the gather of the full keys and the warp's repair is held
+against ``np.sort`` and the plain rows (``rowsort_rle_large_plain``),
+on rows in which distinct keys share a prefix in reverse position order
+(the repair must fire), and its flags against the plain readout
+(``rowsort_fallbacks_plain``).  Inputs from a numpy seed.  Tolerance:
+none, every value is an integer.
 """
 
 import functools
@@ -32,6 +39,7 @@ from cfrk_tpu.ops.sparse import kmer_keys as jax_kmer_keys
 from cfrk_tpu_torch.ops.cuda import rowsort as R
 from cfrk_tpu_torch.ops.encode import window_indices
 from cfrk_tpu_torch.ops.sparse import INVALID_SENTINEL, LO_BASES, kmer_keys
+from cfrk_tpu_torch.tools.onchip_validate import prefix_tie_row
 
 KS = (1, 2, 8, 15, 16, 17, 31)
 FULL = 257  # the longest row; shorter rows are its prefixes
@@ -309,3 +317,169 @@ def test_key16_launches_is_a_counter(monkeypatch):
     assert R.KEY16_LAUNCHES == "cfrk.rowsort_rle.key16_launches"
     assert c[R.KEY16_LAUNCHES] - before == 1
     assert c["cfrk.rowsort_rle.launches"] == 3
+
+
+# ------------------------- prefix-and-position words (k > 15, rows <= 256)
+
+PREFIX_KS = (16, 20, 30, 31)
+PREFIX_WINDOWS = (20, 32, 50, 64, 122, 128, 200, 256)  # widths 32 .. 256
+
+
+def _prefix_rows(k, length):
+    """[R, length] int8 rows for the prefix path: random, N-heavy,
+    poly-A, poly-T, all-N, half padded, a run of 30 T (forward keys of
+    one prefix in descending order: more than the transposition rounds
+    repair), and (where two windows fit apart) rows with distinct keys
+    that share a prefix in reverse position order.  Returns the rows and
+    the indices of the tie rows."""
+    rng = np.random.default_rng(k * 1000 + length)
+    rows = rng.integers(0, 4, size=(9, length)).astype(np.int8)
+    rows[8, 2:32] = 3
+    rows[1][rng.random(length) < 0.1] = -1
+    rows[2] = 0
+    rows[3] = 3
+    rows[4] = -1
+    rows[5, length // 2:] = -1
+    ties = []
+    if length >= 2 * k + 5:
+        rows[6] = prefix_tie_row(rng, length, k)
+        rows[7] = prefix_tie_row(rng, length, k)
+        rows[7][rng.random(length) < 0.02] = -1  # an N may cut X or Y
+        ties = [6]
+    return rows, ties
+
+
+def _emit64(s, w):
+    """``finish_row`` at k > 15 over one sorted row of uint64 keys: hi,
+    lo and counts at run starts, -1, -1 and 0 elsewhere (int32)."""
+    s = np.asarray(s, np.uint64)
+    key = s[:w]
+    first = key != np.uint64(SENTINEL64)
+    first[1:] &= key[1:] != key[:-1]
+    counts = np.where(first, np.searchsorted(s, key, side="right") - np.arange(w), 0)
+    hi = np.where(first, key >> np.uint64(2 * LO_BASES), 0xFFFFFFFF).astype(np.uint32)
+    lo = np.where(first, key & np.uint64(R.LO_MASK), 0xFFFFFFFF).astype(np.uint32)
+    return hi.view(np.int32), lo.view(np.int32), counts.astype(np.int32)
+
+
+PREFIX_CASES = [(k, canonical, w) for k in PREFIX_KS for canonical in (False, True)
+                for w in PREFIX_WINDOWS]
+
+
+@pytest.mark.parametrize("k,canonical,w", PREFIX_CASES)
+def test_prefix_rows_equal_plain(k, canonical, w):
+    """The model of the prefix path (key build, words, flip-form sort,
+    gather, repair) gives np.sort's keys and the plain rows, and repairs
+    exactly the rows the plain readout names: the tie rows always, by
+    transposition rounds alone."""
+    length = w + k - 1
+    rows, ties = _prefix_rows(k, length)
+    assert R.prefix_path(w, k)
+    width = R._sort_width(w)
+    kpt = R.keys_per_thread(width, True)
+    codes = torch.from_numpy(rows)
+    want = [t.numpy() for t in R.rowsort_rle_large_plain(codes, k, canonical)]
+    flags = []
+    for r, row in enumerate(rows):
+        bases, invalid = R.pack_units_model(row, R.packed_units(w))
+        keys = np.full(width, SENTINEL64, np.uint64)
+        keys[:w] = R.packed_window_keys_model(bases, invalid, np.arange(w), k, canonical,
+                                              64, SENTINEL64)
+        got, out_of_order, network = R.sort_prefix_model(keys, k, kpt)
+        np.testing.assert_array_equal(got, np.sort(keys))
+        for g, x in zip(_emit64(got, w), want):
+            np.testing.assert_array_equal(g, x[r])
+        flags.append(out_of_order)
+        if r in ties:
+            assert out_of_order and not network, f"row {r}: a tie pair is one round's repair"
+    own = R.rowsort_fallbacks_plain(codes, k, canonical) == 1
+    assert own.tolist() == flags
+
+
+@pytest.mark.parametrize("width", [32, 64, 128, 256])
+def test_prefix_sort_network_sorts(width):
+    """The word network and its repair, as a numpy model, sort rows of
+    every width the prefix path serves: distinct keys, many duplicates
+    of 7 small keys (one prefix: repaired), the sentinel among them, the
+    largest real key (all T) beside the sentinel (no two distinct keys
+    share a prefix), and distinct keys of one prefix in descending
+    position order, which takes the uint64 network."""
+    rng = np.random.default_rng(width)
+    k = 31
+    top = np.uint64(4**k - 1)
+    shared = np.uint64(12345) << np.uint64(40)
+    rows = [rng.integers(0, 4**k, width, dtype=np.uint64),
+            rng.integers(0, 7, width).astype(np.uint64),
+            np.where(rng.random(width) < 0.5, np.uint64(SENTINEL64),
+                     rng.integers(0, 4**k, width, dtype=np.uint64)),
+            np.where(rng.random(width) < 0.5, np.uint64(SENTINEL64), top),
+            shared + np.arange(width, 0, -1, dtype=np.uint64)]
+    for i, row in enumerate(rows):
+        got, out_of_order, network = R.sort_prefix_model(row, k, 8)
+        np.testing.assert_array_equal(got, np.sort(row))
+        if i >= 3:
+            assert out_of_order == network == (i == 4)
+
+
+def test_prefix_words_put_the_sentinel_last():
+    """Bit 31 marks the sentinel: its words sort after every real key's,
+    the all-T key's included, and each word keeps its position in the
+    low log2(width) bits."""
+    keys = np.array([4**31 - 1, SENTINEL64, 0, 4**31 - 1] + [SENTINEL64] * 28, np.uint64)
+    words = R.prefix_words_model(keys, 31)
+    assert (words & 31).tolist() == list(range(32))
+    real = keys != np.uint64(SENTINEL64)
+    assert words[real].max() < words[~real].min()
+    assert words[0] >> 5 == (1 << 26) - 1  # the all-T prefix: 26 bits of ones
+
+
+def test_prefix_fallbacks_mark_the_warp():
+    """A row whose own words left it out of order reads 1; the other
+    rows of its warp (4 of 16 threads at 122 windows: 2 rows a warp) are
+    repaired with it and read 2; other rows 0."""
+    rng = np.random.default_rng(3)
+    rows = rng.integers(0, 4, size=(6, 152)).astype(np.int8)
+    rows[3] = prefix_tie_row(rng, 152, 31)
+    got = R.rowsort_fallbacks_plain(torch.from_numpy(rows), 31, True)
+    assert got.tolist() == [0, 0, 2, 1, 0, 0]
+    assert R.rowsort_fallbacks(torch.from_numpy(rows), 31, True).tolist() == got.tolist()
+
+
+@pytest.mark.parametrize("k,length", [(15, 150), (31, 300), (16, 272)])
+def test_prefix_fallbacks_refuse_other_paths(k, length):
+    """The readout exists on the prefix path only: k <= 15 and rows of
+    more than 256 windows are refused."""
+    with pytest.raises(ValueError, match="prefix path"):
+        R.rowsort_fallbacks_plain(torch.zeros((2, length), dtype=torch.int8), k)
+
+
+def test_prefix_path_follows_the_launch_rule():
+    """k > 15 and rows of up to 256 keys take the prefix path
+    (csrc/rowsort.cu ``launch``): every k of rowsort_rle_large in rows
+    of one warp's threads, 8 keys each; wider rows and k <= 15 keep
+    their kernels.  The rows a block, and the checksum's layout, are the
+    uint64 path's."""
+    for k in range(1, 32):
+        for w in (1, 31, 32, 122, 143, 256, 257, 512, 4096, 16384):
+            assert R.prefix_path(w, k) == (k >= 16 and w <= 256), (w, k)
+    for width in (32, 64, 128, 256):
+        keys = R.keys_per_thread(width, True)
+        assert width // keys <= 32
+        assert R.checksum_rows_per_block(width, True) == 256 * keys // width
+
+
+def test_prefix_launches_is_a_counter(monkeypatch):
+    """A launch on the prefix path counts under PREFIX_LAUNCHES beside
+    the wrapper's launches; other launches count only there."""
+    from cfrk_tpu_torch.runtime import metrics as M
+
+    monkeypatch.setattr(R.rowsort_rle_large, "launches", 0)
+    before = M.counters().get(R.PREFIX_LAUNCHES, 0)
+    R._count_large_launch(122, 31)
+    R._count_large_launch(256, 16)
+    R._count_large_launch(257, 31)
+    R._count_large_launch(8000, 24)
+    c = M.counters()
+    assert R.PREFIX_LAUNCHES == "cfrk.rowsort_rle.prefix_launches"
+    assert c[R.PREFIX_LAUNCHES] - before == 2
+    assert c["cfrk.rowsort_rle_large.launches"] == 4
