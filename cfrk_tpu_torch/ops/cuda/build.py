@@ -12,6 +12,11 @@ built when a module is imported: the first call builds, and
 :func:`build_libraries` builds several sources at once, one compiler
 each.  A missing compiler, an unwritable build directory or a failed
 build raises; nothing falls back to another route.
+
+The kernel wrappers of ``ops/cuda`` share one seam: :func:`check_codes`
+validates a code batch and :func:`launch_kernel` launches a kernel on
+the current stream and counts the launch under ``cfrk.<kernel>.launches``
+(``KERNELS`` names every kernel so counted).
 """
 
 from __future__ import annotations
@@ -28,10 +33,12 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from ...runtime.metrics import once_span
+import torch
 
-__all__ = ["NVCC_FLAGS", "CXX_FLAGS", "build_library", "build_libraries",
-           "host_compiler", "load_library", "once"]
+from ...runtime.metrics import count, launch, once_span
+
+__all__ = ["NVCC_FLAGS", "CXX_FLAGS", "KERNELS", "build_library", "build_libraries",
+           "check_codes", "host_compiler", "launch_kernel", "load_library", "once"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -176,3 +183,44 @@ def load_library(name: str) -> ctypes.CDLL:
     ``cfrk.library.build.<name>`` when the compiler runs)."""
     with once_span(f"cfrk.library.load.{name}"):
         return ctypes.CDLL(str(build_library(name)))
+
+
+# Every kernel the wrappers launch, by the name of its launch counter.
+KERNELS = ("rowsort_rle", "rowsort_rle_large", "spectrum_hist", "perread_hist",
+           "rowsort_probe")
+
+
+def check_codes(codes: torch.Tensor, k: int, k_lo: int | None, k_hi: int | None,
+                ceiling: int | None = None) -> int:
+    """Validate a kernel's code batch; returns W = L-k+1.
+
+    Raises ValueError, in this order, for a tensor that is not ``[B, L]``
+    int8, rows shorter than k, k outside ``[k_lo, k_hi]`` (``None``: the
+    caller refuses k in its own words), a tensor on neither CUDA nor the
+    CPU (where the plain twins run) and more than ``ceiling`` windows a
+    row."""
+    if codes.ndim != 2 or codes.dtype != torch.int8:
+        raise ValueError(
+            f"codes must be [B, L] int8, got {tuple(codes.shape)} {codes.dtype}")
+    w = codes.shape[1] - k + 1
+    if w <= 0:
+        raise ValueError(f"read length {codes.shape[1]} < k={k}")
+    if k_lo is not None and not k_lo <= k <= k_hi:
+        raise ValueError(f"the kernel supports {k_lo} <= k <= {k_hi}, got k={k}")
+    if codes.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"codes on {codes.device}: the kernel needs CUDA")
+    if ceiling is not None and w > ceiling:
+        raise ValueError(f"{w} windows/read exceeds the kernel ceiling {ceiling}")
+    return w
+
+
+def launch_kernel(kernel: str, fn, device: torch.device, *args) -> None:
+    """``fn(*args, stream)``: one launch of ``kernel`` on ``device``'s
+    current stream, inside the span of ``runtime.metrics.launch``.  A
+    non-zero return (a CUDA error) raises RuntimeError; a launch that
+    returns 0 counts one under ``cfrk.<kernel>.launches``."""
+    with torch.cuda.device(device):
+        err = launch(kernel, fn, *args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cfrk_{kernel} launch failed: CUDA error {err}")
+    count(f"cfrk.{kernel}.launches")

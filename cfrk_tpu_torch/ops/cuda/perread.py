@@ -28,8 +28,8 @@ defines the packed and checksum shapes.
 As in ``ops/cuda/rowsort.py``, the wrapper takes its plain twin only for
 a tensor on the CPU.  For a CUDA tensor it launches the kernel or
 raises; a build or launch failure is never replaced by the plain route.
-``perread_hist.launches`` counts the kernel's launches; its spans and its
-``cfrk.out_bytes`` count are those of ``ops/cuda/rowsort.py``'s wrappers.
+Its validation, launch counter, spans and ``cfrk.out_bytes`` count are
+those of ``ops/cuda/rowsort.py``'s wrappers.
 """
 
 from __future__ import annotations
@@ -39,9 +39,9 @@ import ctypes
 import numpy as np
 import torch
 
-from ...runtime.metrics import count_out, launch, register_launches, span
+from ...runtime.metrics import count_out, span
 from ..encode import split_k, window_indices
-from .build import load_library, once
+from .build import check_codes, launch_kernel, load_library, once
 
 __all__ = [
     "DEFAULT_READ_BLOCK",
@@ -131,15 +131,11 @@ def unpack_counts(packed, n_reads: int, mode: str = "fh"):
 
 
 def _plan(codes: torch.Tensor, k: int, packed, read_block: int):
-    """Validate a call; returns (w, kl, packing, rb, b_pad)."""
-    if codes.ndim != 2:
-        raise ValueError(f"codes must be [B, L], got {tuple(codes.shape)}")
-    if codes.dtype != torch.int8:
-        raise ValueError(f"codes must be int8, got {codes.dtype}")
-    b, length = codes.shape
-    w = length - k + 1
-    if w <= 0:
-        raise ValueError(f"read length {length} < k={k}")
+    """Validate a call; returns (w, kl, packing, rb, b_pad).  k is
+    refused in ``count_perread_pallas``'s words and order: above 8 after
+    the window count, below 1 after the packing."""
+    w = check_codes(codes, k, None, None)
+    b = codes.shape[0]
     if k > MAX_PERREAD_K:
         raise ValueError("per-read dense counting supports k <= 8")
     packing = resolve_packed(packed, w)
@@ -174,7 +170,7 @@ def _pack(counts: torch.Tensor, k: int, packing, b_pad: int) -> torch.Tensor:
 def perread_hist_plain(codes: torch.Tensor, k: int, canonical: bool = False, *,
                        packed=False, read_block: int = DEFAULT_READ_BLOCK,
                        checksum: bool = False):
-    """Dense per-read histograms, plain route on any device.
+    """Dense per-read histograms, plain route on the CPU or CUDA.
 
     The ``scatter`` route: each valid window adds one at ``row * 4**k +
     index`` of a flat zeroed int32 ``[B * 4**k]`` table; then the packing
@@ -297,8 +293,6 @@ def perread_hist(codes: torch.Tensor, k: int, canonical: bool = False, *,
             return count_out(perread_hist_plain(codes, k, canonical, packed=packed,
                                                 read_block=read_block, checksum=checksum))
     w, kl, packing, rb, b_pad = _plan(codes, k, packed, read_block)
-    if codes.device.type != "cuda":
-        raise ValueError(f"codes on {codes.device}: the kernel needs CUDA")
     codes = codes.contiguous()
     b, length = codes.shape
     kh = k - kl
@@ -311,20 +305,8 @@ def perread_hist(codes: torch.Tensor, k: int, canonical: bool = False, *,
     chk = (torch.zeros(b_pad // rb, dtype=torch.int32, device=codes.device)
            if checksum else None)
     if rows:
-        with torch.cuda.device(codes.device):
-            stream = torch.cuda.current_stream(codes.device).cuda_stream
-            err = launch(
-                "perread_hist", _library().cfrk_perread_hist,
-                codes.data_ptr(), out.data_ptr(),
-                chk.data_ptr() if checksum else None,
-                rows, b, length, w, k, kl, int(canonical), _PACKINGS[packing],
-                rb, stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"cfrk_perread_hist launch failed: CUDA error {err}")
-        perread_hist.launches += 1
+        launch_kernel("perread_hist", _library().cfrk_perread_hist, codes.device,
+                      codes.data_ptr(), out.data_ptr(),
+                      chk.data_ptr() if checksum else None,
+                      rows, b, length, w, k, kl, int(canonical), _PACKINGS[packing], rb)
     return count_out((out, chk) if checksum else out)
-
-
-perread_hist.launches = 0
-register_launches(perread_hist)

@@ -22,15 +22,13 @@ shift out of them.  :func:`pack_units_model` and
 against the plain key functions; :func:`sort_in_registers_model` models
 the uint32 and uint64 sort network.  At k <= 8, rows of up to 4096 keys
 sort two 16-bit keys a register (``rowsort_rle_pairs``;
-:func:`key16_path` mirrors the launch rule, and launches on that path
-also count under ``KEY16_LAUNCHES``): :func:`pair_keys_model`,
+:func:`key16_path` mirrors the launch rule): :func:`pair_keys_model`,
 :func:`sort_pairs_model` and :func:`finish_pairs_model` model its key
 build, its network and its emit.  Above k = 15, rows of up to 256 keys
 sort 32-bit prefix-and-position words, gather the full keys and repair
 a warp's rows where two distinct keys shared a prefix
 (``rowsort_rle_prefix``; :func:`prefix_path` mirrors the launch rule,
-``PREFIX_LAUNCHES`` counts its launches, :func:`sort_prefix_model`
-models it, and :func:`rowsort_fallbacks` / :func:`rowsort_fallbacks_plain`
+:func:`sort_prefix_model` models it, and :func:`rowsort_fallbacks` / :func:`rowsort_fallbacks_plain`
 read which rows were repaired).  The kernels' output is array-equal to
 the plain twins
 :func:`rowsort_rle_plain` / :func:`rowsort_rle_large_plain`, which sort
@@ -48,11 +46,13 @@ only the sum ``chk.sum()`` is the same in both packages.
 This module owns the device decision: a wrapper takes its plain twin
 only for a tensor on the CPU.  For a CUDA tensor it launches its kernel
 or raises; a build or launch failure is never replaced by the plain
-route.  Each wrapper counts its launches in its ``launches`` attribute,
-so a run can show it went through the kernel, and the bytes it returns
-under the counter ``cfrk.out_bytes``; its launch is the span
-``cfrk.<wrapper>.launch`` (``.first_launch`` the first time), its plain
-twin ``cfrk.<wrapper>.plain`` (``runtime/metrics.py``).
+route.  Each wrapper validates with ``build.check_codes`` and launches
+with ``build.launch_kernel``, which counts its launches under
+``cfrk.<wrapper>.launches``, so a run can show it went through the
+kernel; it counts the bytes it returns under ``cfrk.out_bytes``.  Its
+launch is the span ``cfrk.<wrapper>.launch`` (``.first_launch`` the
+first time), its plain twin ``cfrk.<wrapper>.plain``
+(``runtime/metrics.py``).
 """
 
 from __future__ import annotations
@@ -62,10 +62,10 @@ import ctypes
 import numpy as np
 import torch
 
-from ...runtime.metrics import count, count_out, launch, register_launches, span
+from ...runtime.metrics import count_out, span
 from ..encode import window_indices
 from ..sparse import INVALID_SENTINEL, LO_BASES, kmer_keys
-from .build import load_library, once
+from .build import check_codes, launch_kernel, load_library, once
 
 __all__ = [
     "PROBE_VARIANTS",
@@ -88,14 +88,12 @@ __all__ = [
     "pack_units_model",
     "packed_window_keys_model",
     "sort_in_registers_model",
-    "KEY16_LAUNCHES",
     "key16_path",
     "keys_per_thread",
     "PAD16",
     "pair_keys_model",
     "sort_pairs_model",
     "finish_pairs_model",
-    "PREFIX_LAUNCHES",
     "prefix_path",
     "prefix_words_model",
     "sort_prefix_model",
@@ -178,11 +176,7 @@ def rle_rows(keys: torch.Tensor, is_real: torch.Tensor, sentinel: int):
 _REG_THREADS, _LOG_KEYS, _LOG_KEYS_WIDE, _WIDE_FROM_32, _MIN_WIDTH = 256, 3, 4, 256, 32
 _MAX_PAIR_K = 8
 
-# Launches of rowsort_rle that took the two-keys-a-register path.
-KEY16_LAUNCHES = "cfrk.rowsort_rle.key16_launches"
-# Launches of rowsort_rle_large that took the prefix path, whose rows of
-# up to _MAX_PREFIX_WIDTH keys lie within a warp.
-PREFIX_LAUNCHES = "cfrk.rowsort_rle.prefix_launches"
+# The widest row of the prefix path: one warp's threads.
 _MAX_PREFIX_WIDTH = 32 << _LOG_KEYS
 
 
@@ -303,10 +297,11 @@ def _upper_bound(s: torch.Tensor, key: torch.Tensor, lo: torch.Tensor,
 
 def rowsort_probe_plain(codes: torch.Tensor, k: int, variant: str,
                         canonical: bool = False) -> torch.Tensor:
-    """The probe's per-row checksums ([B] int64), plain route on any
-    device: keys built, padded with the sentinel to the kernel's power
+    """The probe's per-row checksums ([B] int64), plain route on the
+    CPU or CUDA: keys built, padded with the sentinel to the kernel's power
     of two, then the stages of ``variant`` (see ``PROBE_VARIANTS``)."""
-    w = _probe_check(codes, k, variant)
+    _probe_variant(variant)
+    w = check_codes(codes, k, 1, 31, rowsort_max_windows(k))
     b = codes.shape[0]
     if k <= MAX_SPARSE_PERREAD_K:
         sent = 4**k
@@ -748,42 +743,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(codes: torch.Tensor, k: int, lo: int, hi: int) -> int:
-    """Validate a code batch; returns W = L-k+1."""
-    if codes.ndim != 2 or codes.dtype != torch.int8:
-        raise ValueError(
-            f"codes must be a [B, L] int8 tensor, got {tuple(codes.shape)} "
-            f"{codes.dtype}"
-        )
-    if not lo <= k <= hi:
-        raise ValueError(f"k={k} outside [{lo}, {hi}]")
-    w = codes.shape[1] - k + 1
-    if w <= 0:
-        raise ValueError(f"read length {codes.shape[1]} < k={k}")
-    if codes.device.type != "cuda":
-        raise ValueError(f"codes on {codes.device}: the kernel needs CUDA")
-    if w > rowsort_max_windows(k):
-        raise ValueError(
-            f"{w} windows/read exceeds the kernel ceiling "
-            f"{rowsort_max_windows(k)}; use count_perread_rows_tiled"
-        )
-    return w
-
-
-def _launch(kernel: str, fn, codes: torch.Tensor, outs, chk, k: int, w: int,
-            canonical: bool) -> None:
-    b, length = codes.shape
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = launch(
-            kernel, fn, codes.data_ptr(), *(o.data_ptr() for o in outs),
-            None if chk is None else chk.data_ptr(),
-            b, length, w, k, int(canonical), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
-
-
 def _checksum_out(codes: torch.Tensor, w: int, large: bool, checksum: bool):
     if not checksum:
         return None
@@ -803,15 +762,17 @@ def rowsort_rle(codes: torch.Tensor, k: int, canonical: bool = False, *,
     if codes.device.type == "cpu":
         with span("cfrk.rowsort_rle.plain"):
             return count_out(rowsort_rle_plain(codes, k, canonical, checksum=checksum))
-    w = _check(codes, k, 1, MAX_SPARSE_PERREAD_K)
+    w = check_codes(codes, k, 1, MAX_SPARSE_PERREAD_K, ROWSORT_MAX_WINDOWS)
     codes = codes.contiguous()
-    idx = torch.empty((codes.shape[0], w), dtype=torch.int32, device=codes.device)
+    b, length = codes.shape
+    idx = torch.empty((b, w), dtype=torch.int32, device=codes.device)
     cnt = torch.empty_like(idx)
     chk = _checksum_out(codes, w, False, checksum)
-    if codes.shape[0]:
-        _launch("rowsort_rle", _library().cfrk_rowsort_rle, codes, (idx, cnt), chk, k, w,
-                canonical)
-        _count_launch(w, k)
+    if b:
+        launch_kernel("rowsort_rle", _library().cfrk_rowsort_rle, codes.device,
+                      codes.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
+                      None if chk is None else chk.data_ptr(),
+                      b, length, w, k, int(canonical))
     return count_out((idx, cnt) if chk is None else (idx, cnt, chk))
 
 
@@ -828,58 +789,27 @@ def rowsort_rle_large(codes: torch.Tensor, k: int, canonical: bool = False, *,
         with span("cfrk.rowsort_rle_large.plain"):
             return count_out(rowsort_rle_large_plain(codes, k, canonical,
                                                      checksum=checksum))
-    w = _check(codes, k, 16, 31)
+    w = check_codes(codes, k, 16, 31, ROWSORT_MAX_WINDOWS_LARGE)
     codes = codes.contiguous()
-    hi = torch.empty((codes.shape[0], w), dtype=torch.int32, device=codes.device)
+    b, length = codes.shape
+    hi = torch.empty((b, w), dtype=torch.int32, device=codes.device)
     lo = torch.empty_like(hi)
     cnt = torch.empty_like(hi)
     chk = _checksum_out(codes, w, True, checksum)
-    if codes.shape[0]:
-        _launch("rowsort_rle_large", _library().cfrk_rowsort_rle_large, codes,
-                (hi, lo, cnt), chk, k, w, canonical)
-        _count_large_launch(w, k)
+    if b:
+        launch_kernel("rowsort_rle_large", _library().cfrk_rowsort_rle_large, codes.device,
+                      codes.data_ptr(), hi.data_ptr(), lo.data_ptr(), cnt.data_ptr(),
+                      None if chk is None else chk.data_ptr(),
+                      b, length, w, k, int(canonical))
     return count_out((hi, lo, cnt) if chk is None else (hi, lo, cnt, chk))
 
 
-def _count_launch(w: int, k: int) -> None:
-    """Count one launch of :func:`rowsort_rle`, and under
-    ``KEY16_LAUNCHES`` those that took the 16-bit path."""
-    rowsort_rle.launches += 1
-    if key16_path(w, k):
-        count(KEY16_LAUNCHES)
-
-
-def _count_large_launch(w: int, k: int) -> None:
-    """Count one launch of :func:`rowsort_rle_large`, and under
-    ``PREFIX_LAUNCHES`` those that took the prefix path."""
-    rowsort_rle_large.launches += 1
-    if prefix_path(w, k):
-        count(PREFIX_LAUNCHES)
-
-
-rowsort_rle.launches = 0
-rowsort_rle_large.launches = 0
-
-
-def _probe_check(codes: torch.Tensor, k: int, variant: str) -> int:
-    """Validate a probe call; returns W = L-k+1."""
+def _probe_variant(variant: str) -> int:
+    """The probe variant's number (``PROBE_VARIANTS``)."""
     if variant not in PROBE_VARIANTS:
         raise ValueError(f"unknown probe variant {variant!r}; "
                          f"choose from {sorted(PROBE_VARIANTS)}")
-    if codes.ndim != 2 or codes.dtype != torch.int8:
-        raise ValueError(
-            f"codes must be a [B, L] int8 tensor, got {tuple(codes.shape)} "
-            f"{codes.dtype}"
-        )
-    if not 1 <= k <= 31:
-        raise ValueError(f"k={k} outside [1, 31]")
-    w = codes.shape[1] - k + 1
-    if w <= 0:
-        raise ValueError(f"read length {codes.shape[1]} < k={k}")
-    if w > rowsort_max_windows(k):
-        raise ValueError(f"{w} windows/read exceeds the kernel ceiling "
-                         f"{rowsort_max_windows(k)}")
-    return w
+    return PROBE_VARIANTS[variant]
 
 
 def rowsort_probe(codes: torch.Tensor, k: int, variant: str,
@@ -892,46 +822,30 @@ def rowsort_probe(codes: torch.Tensor, k: int, variant: str,
     if codes.device.type == "cpu":
         with span("cfrk.rowsort_probe.plain"):
             return count_out(rowsort_probe_plain(codes, k, variant, canonical))
-    w = _probe_check(codes, k, variant)
-    return count_out(_launch_probe(codes, k, w, canonical, PROBE_VARIANTS[variant]))
+    number = _probe_variant(variant)
+    w = check_codes(codes, k, 1, 31, rowsort_max_windows(k))
+    return count_out(_probe_kernel(codes, k, w, canonical, number))
 
 
-def _launch_probe(codes: torch.Tensor, k: int, w: int, canonical: bool,
+def _probe_kernel(codes: torch.Tensor, k: int, w: int, canonical: bool,
                   variant: int) -> torch.Tensor:
     """One launch of the probe kernel's ``variant`` (its number) on a
-    CUDA batch; returns its [B] int64 output.  Counts under
-    ``rowsort_probe.launches``."""
-    if codes.device.type != "cuda":
-        raise ValueError(f"codes on {codes.device}: the kernel needs CUDA")
+    validated CUDA batch; returns its [B] int64 output."""
     codes = codes.contiguous()
     b, length = codes.shape
     chk = torch.empty(b, dtype=torch.int64, device=codes.device)
     if b:
-        with torch.cuda.device(codes.device):
-            stream = torch.cuda.current_stream(codes.device).cuda_stream
-            err = launch(
-                "rowsort_probe", _library().cfrk_rowsort_probe,
-                codes.data_ptr(), chk.data_ptr(), b, length, w, k,
-                int(canonical), int(k > MAX_SPARSE_PERREAD_K), variant, stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"cfrk_rowsort_probe launch failed: CUDA error {err}")
-        rowsort_probe.launches += 1
+        launch_kernel("rowsort_probe", _library().cfrk_rowsort_probe, codes.device,
+                      codes.data_ptr(), chk.data_ptr(), b, length, w, k,
+                      int(canonical), int(k > MAX_SPARSE_PERREAD_K), variant)
     return chk
 
 
-rowsort_probe.launches = 0
-
-
-def _fallbacks_check(codes: torch.Tensor, k: int) -> int:
-    """Validate a :func:`rowsort_fallbacks` call; returns W = L-k+1."""
-    if codes.ndim != 2 or codes.dtype != torch.int8:
-        raise ValueError(
-            f"codes must be a [B, L] int8 tensor, got {tuple(codes.shape)} "
-            f"{codes.dtype}"
-        )
-    w = codes.shape[1] - k + 1
-    if not (16 <= k <= 31 and w > 0 and prefix_path(w, k)):
+def _prefix_windows(codes: torch.Tensor, k: int) -> int:
+    """W = L-k+1 of a batch whose rows take the prefix path, else a
+    ValueError."""
+    w = check_codes(codes, k, 1, 31)
+    if not prefix_path(w, k):
         raise ValueError(f"k={k} and {w} windows a row do not take the prefix path "
                          f"(16 <= k <= 31, up to {_MAX_PREFIX_WIDTH} windows)")
     return w
@@ -939,13 +853,13 @@ def _fallbacks_check(codes: torch.Tensor, k: int) -> int:
 
 def rowsort_fallbacks_plain(codes: torch.Tensor, k: int,
                             canonical: bool = False) -> torch.Tensor:
-    """Which rows the prefix path repairs, plain route on any
-    device: [B] int64, 1 where the row's own prefix-and-position words
+    """Which rows the prefix path repairs, plain route on the CPU or
+    CUDA: [B] int64, 1 where the row's own prefix-and-position words
     leave its keys out of order (two distinct keys share a prefix, the
     larger at the lower position), 2 where only another row of its
     warp's did, 0 elsewhere.  The words, their order and the warps are
     those of :func:`sort_prefix_model` and the kernel's launch."""
-    w = _fallbacks_check(codes, k)
+    w = _prefix_windows(codes, k)
     b = codes.shape[0]
     width = _sort_width(w)
     hi, lo = kmer_keys(codes, k, canonical)
@@ -977,8 +891,5 @@ def rowsort_fallbacks(codes: torch.Tensor, k: int,
     if codes.device.type == "cpu":
         with span("cfrk.rowsort_probe.plain"):
             return count_out(rowsort_fallbacks_plain(codes, k, canonical))
-    w = _fallbacks_check(codes, k)
-    return count_out(_launch_probe(codes, k, w, canonical, _FALLBACK_VARIANT))
-
-
-register_launches(rowsort_rle, rowsort_rle_large, rowsort_probe)
+    w = _prefix_windows(codes, k)
+    return count_out(_probe_kernel(codes, k, w, canonical, _FALLBACK_VARIANT))

@@ -24,8 +24,8 @@ a fresh ``4**k`` table; without ``out`` they start from a zeroed table.
 As in ``ops/cuda/rowsort.py``, the wrapper takes its plain twin only for
 a tensor on the CPU.  For a CUDA tensor it launches the kernel or
 raises; a build or launch failure is never replaced by the plain route.
-``spectrum_hist.launches`` counts the kernel's launches; its spans and its
-``cfrk.out_bytes`` count are those of ``ops/cuda/rowsort.py``'s wrappers.
+Its validation, launch counter, spans and ``cfrk.out_bytes`` count are
+those of ``ops/cuda/rowsort.py``'s wrappers.
 """
 
 from __future__ import annotations
@@ -36,9 +36,9 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from ...runtime.metrics import count, count_out, launch, register_launches, span
+from ...runtime.metrics import count, count_out, span
 from ..encode import window_indices
-from .build import load_library, once
+from .build import check_codes, launch_kernel, load_library, once
 from .rowsort import UNIT_BASES, pack_units_model, packed_window_keys_model
 
 __all__ = ["HIST_MAX_K", "LARGE_LAUNCHES", "SPECTRUM_MAX_K", "spectrum_hist",
@@ -181,40 +181,17 @@ def spectrum_hist(codes: torch.Tensor, k: int, canonical: bool = False,
     codes is < 0.  Above k = 10 the launch runs ``spectrum_large``, for
     tables larger than the L2, and counts under ``LARGE_LAUNCHES``.
     """
-    if not 1 <= k <= HIST_MAX_K:
-        raise ValueError(f"the dense spectrum kernel supports 1 <= k <= "
-                         f"{HIST_MAX_K}, got k={k}")
-    if codes.ndim != 2 or codes.dtype != torch.int8:
-        raise ValueError(
-            f"codes must be a [B, L] int8 tensor, got {tuple(codes.shape)} "
-            f"{codes.dtype}"
-        )
+    w = check_codes(codes, k, 1, HIST_MAX_K)
     if codes.device.type == "cpu":
         with span("cfrk.spectrum_hist.plain"):
             return count_out(spectrum_hist_plain(codes, k, canonical, out))
-    b, length = codes.shape
-    w = length - k + 1
-    if w <= 0:
-        raise ValueError(f"read length {length} < k={k}")
-    if codes.device.type != "cuda":
-        raise ValueError(f"codes on {codes.device}: the kernel needs CUDA")
     codes = codes.contiguous()
+    b, length = codes.shape
     table = _table(out, k, codes.device)
     if b:
-        with torch.cuda.device(codes.device):
-            stream = torch.cuda.current_stream(codes.device).cuda_stream
-            err = launch(
-                "spectrum_hist", _library().cfrk_spectrum_hist,
-                codes.data_ptr(), table.data_ptr(), b, length, w, k,
-                int(canonical), stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"cfrk_spectrum_hist launch failed: CUDA error {err}")
-        spectrum_hist.launches += 1
+        launch_kernel("spectrum_hist", _library().cfrk_spectrum_hist, codes.device,
+                      codes.data_ptr(), table.data_ptr(), b, length, w, k,
+                      int(canonical))
         if k > SPECTRUM_MAX_K:
             count(LARGE_LAUNCHES)
     return count_out(table)
-
-
-spectrum_hist.launches = 0
-register_launches(spectrum_hist)

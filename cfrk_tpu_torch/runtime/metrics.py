@@ -33,10 +33,12 @@ first launch) and records whether or not a profiler runs.  At most
 few more); the rest are counted under ``cfrk.spans.dropped``.
 
 :func:`count` adds to a named counter, always: each thread adds to its
-own table, so no add is lost and none takes a lock.  :func:`counters`
-sums them, with the kernel wrappers' ``launches`` attributes; :func:`spans`, :func:`counters` and :func:`reset` are for
-tests and the benchmark's readers, and :func:`trace_us` places a record
-on an exported Chrome trace's clock.
+own table, so no add is lost and none takes a lock.  The kernels'
+launches are counters too, ``cfrk.<kernel>.launches``, counted by
+``ops/cuda/build.launch_kernel``.  :func:`counters` sums the tables;
+:func:`spans`, :func:`counters` and :func:`reset` are for tests, tools
+and the benchmark's readers, and :func:`trace_us` places a record on an
+exported Chrome trace's clock.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ import torch.autograd.profiler as _profiler
 
 __all__ = ["RunMetrics", "SpanRecord", "count", "count_out", "counters", "launch",
            "malloc_trim", "once_span", "pin_malloc_for_streaming", "record_once",
-           "register_launches", "reset", "span", "spans", "trace_us", "traced"]
+           "reset", "span", "spans", "trace_us", "traced"]
 
 
 @dataclasses.dataclass
@@ -180,7 +182,6 @@ class SpanRecord(NamedTuple):
 _lock = threading.Lock()
 _records: list = []  # SpanRecord fields as plain tuples, cheaper to make
 _thread_counts: list = []  # every thread's counter table
-_wrappers: list = []  # kernel wrappers whose ``launches`` counters() lists
 _launched: set = set()
 _local = threading.local()
 _ids = itertools.count(1)
@@ -311,22 +312,14 @@ def count_out(out):
     return out
 
 
-def register_launches(*wrappers) -> None:
-    """List each wrapper's ``launches`` attribute in :func:`counters` as
-    ``cfrk.<wrapper name>.launches``."""
-    _wrappers.extend(wrappers)
-
-
 def counters() -> dict:
-    """Every counter by name, summed over the threads, the wrappers'
-    launches included."""
+    """Every counter by name, summed over the threads."""
     with _lock:
         tables = list(_thread_counts)
     out: dict = {}
     for table in tables:
         for name, n in list(table.items()):
             out[name] = out.get(name, 0) + n
-    out.update({f"cfrk.{f.__name__}.launches": f.launches for f in _wrappers})
     return out
 
 
@@ -336,8 +329,9 @@ def spans() -> list:
 
 
 def reset() -> None:
-    """Forget the kept records and the counters (not the wrappers'
-    ``launches``, nor which kernels have launched)."""
+    """Forget the kept records and the counters, the kernels' launch
+    counts among them (not which kernels have launched: a later launch
+    is no ``first_launch``)."""
     with _lock:
         _records.clear()
         for table in _thread_counts:

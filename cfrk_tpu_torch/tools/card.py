@@ -1,5 +1,5 @@
 """What the counting tools share: the device they run on, the record
-that names it, and the kernels' launch counters.
+that names it, and the kernels' launch counts.
 
 ``onchip_validate``, ``onchip_fuzz``, ``fuzz_cli`` and ``scale_demo`` run
 on the card unless the caller passes ``--device cpu``; with no visible
@@ -13,16 +13,8 @@ import subprocess
 import torch
 
 from ..cli import _resolve_device
-from ..ops.cuda import perread, rowsort, spectrum
-
-# Every kernel wrapper of the port, by the name its launch counter goes by.
-KERNELS = {
-    "rowsort_rle": rowsort.rowsort_rle,
-    "rowsort_rle_large": rowsort.rowsort_rle_large,
-    "spectrum_hist": spectrum.spectrum_hist,
-    "perread_hist": perread.perread_hist,
-    "rowsort_probe": rowsort.rowsort_probe,
-}
+from ..ops.cuda.build import KERNELS
+from ..runtime.metrics import counters
 
 resolve_device = _resolve_device
 
@@ -63,9 +55,12 @@ def device_record(device: torch.device) -> dict:
 
 
 def launches() -> dict:
-    """Each kernel's launch count so far in this process."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Each kernel's launch count so far in this process (since the last
+    ``runtime.metrics.reset()``)."""
+    c = counters()
+    return {name: c.get(f"cfrk.{name}.launches", 0) for name in KERNELS}
 
 
 def launches_since(before: dict) -> dict:
+    """Each kernel's launches since ``before``, a :func:`launches`."""
     return {name: n - before[name] for name, n in launches().items()}

@@ -46,9 +46,10 @@ Phases, each of which exits non-zero on failure:
    "b4" packed kernel; the first batch of reads) and ``4 --impl
    pallas`` (dense rows, the unpacked kernel; all 100k), each also
    byte-equal to the auto route (per-read sort + RLE) on the same
-   reads.  Each must launch its kernel, call the host library (its
-   counters are set to 0 just before the leg and read just after, in
-   every leg of phases 5-7),
+   reads.  Each must launch its kernel (the launch counts read just
+   before the leg and just after, in every leg of phases 5-7), call the
+   host library (its counters set to 0 just before the leg and read just
+   after),
    write the same bytes as ``--device cpu`` and agree on sampled rows
    with string-slicing ground truth;
 6. spectrum legs at real size (BASELINE.json configs 3 and 4): 1M
@@ -59,10 +60,10 @@ Phases, each of which exits non-zero on failure:
    valid windows), and the 100k x
    152 bp reads through ``-k 31 --canonical --mode sparse`` (tsv equal
    to an independent numpy spectrum on sampled lines).  Each leg's
-   counts are set to 0 just before it, must show its kernel launched,
+   counts, read just before it and just after, must show its kernel launched,
    and its bytes must equal ``--device cpu``;
 7. streamed legs (``--stream`` / ``--resume`` / ``--packed``), each
-   with every kernel count set to 0 just before it and read just after:
+   with every kernel count read just before it and just after:
    the 100k x 150 bp file through ``8 --nonzero --stream --stats``
    (sha256 of the k=8 leg of phase 5, no checkpoint left, its
    ``stages_s`` logged); the same command as a subprocess killed by
@@ -132,8 +133,8 @@ Phases, each of which exits non-zero on failure:
    name ``rowsort_rle`` with device time); ``list_devices`` (one line,
    an H100 with its memory);
 10. the user and validation tools of ``cfrk_tpu_torch/tools``, each in
-   this process with every kernel count set to 0 before it and read
-   after it: ``onchip_validate`` (its ``GPU_VALID.json`` under
+   this process with every kernel count read before it and after
+   it: ``onchip_validate`` (its ``GPU_VALID.json`` under
    ``build/chip_smoke``, every check ok, all five kernels launched; its
    ``mesh_kernel_probes`` check run once more alone, launching
    ``perread_hist`` and ``rowsort_rle`` on one-device meshes);
@@ -172,8 +173,8 @@ Phases, each of which exits non-zero on failure:
    to the 2 ranks (rank 0 runs two as a workflow, rank 1 one), each
    output equal to its shard's single-process sha256;
 12. the mesh on one card, in this process: the library drivers over
-   meshes of ``cuda:0`` repeated, with every kernel count set to 0 just
-   before each leg and read just after (the exact launches a leg's
+   meshes of ``cuda:0`` repeated, with every kernel count read just
+   before each leg and just after (the exact launches a leg's
    devices make are required): the 100k x 150 bp file's k=8 rows over
    4 devices (``count_file_sparse_rows``; sha256 of ``k8_nonzero``); the
    packed "b4" emit over 2 devices on the dense-API leg's 8192 reads
@@ -788,6 +789,20 @@ def native_calls(label: str, calls: dict | None = None) -> dict:
     return {name: n for name, n in calls.items() if n}
 
 
+def launch_counts() -> dict:
+    """Each kernel's launches so far in this process (``tools/card``)."""
+    from cfrk_tpu_torch.tools import card as tcard
+
+    return tcard.launches()
+
+
+def launched(before: dict, kernels) -> dict:
+    """The launches of each of ``kernels`` (names) since ``before``, a
+    :func:`launch_counts`."""
+    now = launch_counts()
+    return {name: now[name] - before[name] for name in kernels}
+
+
 def check_goldens() -> None:
     """Phase 4: the reference positional form through the module entry."""
     data = ROOT / "tests" / "data"
@@ -805,7 +820,7 @@ def check_goldens() -> None:
         log(f"golden {name} k={manifest['k']}: sha256 matches")
 
 
-def run_main_path(label: str, fasta: Path, reads, flags: list, kernel,
+def run_main_path(label: str, fasta: Path, reads, flags: list, kernel: str,
                   k: int, canonical: bool, same_as: str | None = None) -> dict:
     """Phase 5, one leg: the CLI on the GPU (counting its kernel's
     launches), the same CLI on the CPU route, byte comparison (and with
@@ -817,16 +832,16 @@ def run_main_path(label: str, fasta: Path, reads, flags: list, kernel,
 
     out_gpu = WORK / f"{label}.cuda.cfrk"
     out_cpu = WORK / f"{label}.cpu.cfrk"
-    before = kernel.launches
+    before = launch_counts()
     reset_native()
     t0 = time.perf_counter()
     if main([str(fasta), str(out_gpu), *flags]) != 0:
         fail(f"{label}: CLI exit")
     wall = time.perf_counter() - t0
-    launches = kernel.launches - before
+    launches = launched(before, (kernel,))[kernel]
     native = native_calls(label)
     if launches <= 0:
-        fail(f"{label}: {kernel.__name__} was not launched")
+        fail(f"{label}: {kernel} was not launched")
     t0 = time.perf_counter()
     if main([str(fasta), str(out_cpu), *flags, "--device", "cpu"]) != 0:
         fail(f"{label}: CPU CLI exit")
@@ -889,9 +904,9 @@ def numpy_kmer_keys(reads, k: int, canonical: bool):
 
 
 def run_spectrum_leg(label: str, fasta: Path, reads, flags: list,
-                     kernels: dict, check, keep: bool = False) -> dict:
-    """Phase 6, one leg: every kernel count set to 0 just before the CLI
-    runs on the GPU and read just after (the leg's own kernel must have
+                     kernels: tuple, check, keep: bool = False) -> dict:
+    """Phase 6, one leg: the launches of ``kernels`` while the CLI
+    runs on the GPU, read just before and just after (the leg's own kernel must have
     launched), the same CLI on ``--device cpu``, byte comparison, then
     ``check(output bytes)``.  Returns the leg's numbers; with ``keep``,
     the GPU's output stays at ``WORK/<label>.cfrk`` (its ``output``)."""
@@ -899,14 +914,13 @@ def run_spectrum_leg(label: str, fasta: Path, reads, flags: list,
 
     out_gpu = WORK / f"{label}.cuda.out"
     out_cpu = WORK / f"{label}.cpu.out"
-    for fn in kernels.values():
-        fn.launches = 0
+    before = launch_counts()
     reset_native()
     t0 = time.perf_counter()
     if main([str(fasta), "-o", str(out_gpu), *flags]) != 0:
         fail(f"{label}: CLI exit")
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = launched(before, kernels)
     native = native_calls(label)
     t0 = time.perf_counter()
     if main([str(fasta), "-o", str(out_cpu), *flags, "--device", "cpu"]) != 0:
@@ -940,13 +954,9 @@ def spectrum_legs(seed: int, r152, fa152: Path, fa1m: Path) -> list:
     spectrum."""
     import numpy as np
 
-    from cfrk_tpu_torch.ops.cuda import rowsort as R
-    from cfrk_tpu_torch.ops.cuda import spectrum as S
     from cfrk_tpu_torch.ops.reference import spectrum_np
 
-    kernels = {"rowsort_rle": R.rowsort_rle,
-               "rowsort_rle_large": R.rowsort_rle_large,
-               "spectrum_hist": S.spectrum_hist}
+    kernels = ("rowsort_rle", "rowsort_rle_large", "spectrum_hist")
     r1m = synthetic_reads(seed + 3, SPECTRUM_READS, 150)
     write_fasta(fa1m, r1m)
 
@@ -1011,11 +1021,10 @@ _CLI_CHILD = (
     "import json, sys\n"
     "from cfrk_tpu_torch.cli import main\n"
     "from cfrk_tpu_torch.io import native\n"
-    "from cfrk_tpu_torch.ops.cuda import perread, rowsort, spectrum\n"
+    "from cfrk_tpu_torch.tools import card\n"
     "rc = main(sys.argv[1:])\n"
-    "print(json.dumps({'launches': {f.__name__: f.launches for f in ("
-    "rowsort.rowsort_rle, rowsort.rowsort_rle_large, spectrum.spectrum_hist, "
-    "perread.perread_hist)}, "
+    "print(json.dumps({'launches': {name: n for name, n in card.launches().items() "
+    "if name != 'rowsort_probe'}, "
     "'native_calls': {f.__name__: f.calls for f in native.COUNTED}}))\n"
     "sys.exit(rc)\n"
 )
@@ -1062,15 +1071,15 @@ def stats_metrics(stderr: str) -> dict:
     fail(f"no metrics line on stderr: {stderr[-400:]}")
 
 
-def run_cli_here(label: str, argv: list, kernels: dict) -> dict:
-    """The CLI in this process with every kernel count and host library
-    counter set to 0 just before and read just after; returns the
-    launches, the library calls, the wall seconds, what it wrote to
-    stderr and, with ``--stats``, its metrics line."""
+def run_cli_here(label: str, argv: list, kernels: tuple) -> dict:
+    """The CLI in this process with the launches of ``kernels`` read just
+    before and just after, and every host library counter set to 0 just
+    before and read just after; returns the launches, the library calls,
+    the wall seconds, what it wrote to stderr and, with ``--stats``, its
+    metrics line."""
     from cfrk_tpu_torch.cli import main
 
-    for fn in kernels.values():
-        fn.launches = 0
+    before = launch_counts()
     reset_native()
     err = io.StringIO()
     t0 = time.perf_counter()
@@ -1079,7 +1088,7 @@ def run_cli_here(label: str, argv: list, kernels: dict) -> dict:
     wall = time.perf_counter() - t0
     if rc != 0:
         fail(f"{label}: CLI exit {rc}: {err.getvalue()[-400:]}")
-    res = {"launches": {name: fn.launches for name, fn in kernels.items()},
+    res = {"launches": launched(before, kernels),
            "native_calls": native_calls(label), "wall_s": wall,
            "stderr": err.getvalue()}
     if "--stats" in argv:
@@ -1092,7 +1101,7 @@ def sha256_of(path: Path) -> str:
 
 
 def killed_then_resumed(label: str, fasta: Path, flags: list, fault: str,
-                        kernels: dict, kernel: str, fresh_launches: int,
+                        kernels: tuple, kernel: str, fresh_launches: int,
                         want_sha: str) -> dict:
     """One streamed run as a child killed at ``fault`` (it must exit
     non-zero and leave an output and a checkpoint), then ``--resume`` in
@@ -1143,12 +1152,8 @@ def streamed_legs(fa150: Path, fa152: Path, fa_half: Path, fa1m: Path,
     Returns (legs, launches by kernel over the runs made in this process
     and the children that report theirs)."""
     from cfrk_tpu_torch.io.bgzf import is_bgzf, write_bgzf
-    from cfrk_tpu_torch.ops.cuda import perread as P
-    from cfrk_tpu_torch.ops.cuda import rowsort as R
-    from cfrk_tpu_torch.ops.cuda import spectrum as S
 
-    kernels = {"rowsort_rle": R.rowsort_rle, "rowsort_rle_large": R.rowsort_rle_large,
-               "spectrum_hist": S.spectrum_hist, "perread_hist": P.perread_hist}
+    kernels = ("rowsort_rle", "rowsort_rle_large", "spectrum_hist", "perread_hist")
     legs, total = [], dict.fromkeys(kernels, 0)
 
     def whole_run(label, fasta, flags, kernel, want_sha, bases):
@@ -1249,15 +1254,15 @@ def spill_state(out: Path) -> tuple:
     return ckpt, Path(str(ckpt) + ".spill")
 
 
-def sparse_streamed_legs(fa152: Path, fa1m: Path, sha: dict, kernels: dict,
+def sparse_streamed_legs(fa152: Path, fa1m: Path, sha: dict, kernels: tuple,
                          seed: int) -> list:
     """Phase 7, the sparse streaming driver and the sorted hand-over:
     the 100k x 152 bp k=31 canonical sparse spectrum streamed; the same
     at 600k reads under a memory budget, killed at its third checkpoint,
     resumed and held to an unbudgeted child; the k=15 dense spectrum
-    streamed through the sorted route.  Each leg's counts are set to 0
-    just before it and read just after (``run_cli_here``; a child
-    reports its own)."""
+    streamed through the sorted route.  Each leg's counts are read just
+    before it and just after (``run_cli_here``; a child reports its
+    own)."""
     legs = []
     sparse = ["-k", "31", "--canonical", "--mode", "sparse", "--stream"]
 
@@ -1416,10 +1421,9 @@ def workflow_legs(seed: int, fa150: Path, sha: dict, work: Path, total: dict) ->
     shards) and ``workflow_retry_resume``."""
     import numpy as np
 
-    from cfrk_tpu_torch.ops.cuda import rowsort as R
     from cfrk_tpu_torch.tools import merge_outputs
 
-    kernels = {"rowsort_rle": R.rowsort_rle}
+    kernels = ("rowsort_rle",)
     shards, reads = [fa150], [synthetic_reads(seed, READS, 150)]
     t0 = time.perf_counter()
     for i in range(1, ENTRY_SHARDS):
@@ -1701,7 +1705,7 @@ def _tool_main(label: str, fn, argv: list) -> list:
 
 def tool_legs(seed: int, spectrum_k8: dict) -> tuple:
     """Phase 10: the port's user and validation tools on the card, every
-    kernel count set to 0 before a tool and read after it.  Returns (the
+    kernel count read before a tool and after it.  Returns (the
     tools' records, the launches of the one tool that drives the main
     path, ``fuzz_cli``: the others compare kernels with their twins)."""
     import shutil
@@ -1722,19 +1726,16 @@ def tool_legs(seed: int, spectrum_k8: dict) -> tuple:
         scale_demo,
     )
 
-    def zero():
-        for fn in card.KERNELS.values():
-            fn.launches = 0
-
     gpu = torch.device("cuda", 0)
     records = {}
-    zero()
+    before = card.launches()
     artifact = WORK / "GPU_VALID.json"
     _tool_main("onchip_validate", onchip_validate.main, ["--out", str(artifact)])
     valid = json.loads(artifact.read_text())
     if not valid["ok"] or set(valid["checks"]) != set(onchip_validate.CHECKS):
         fail(f"onchip_validate: {valid['checks']}")
-    for name, n in card.launches().items():
+    valid_launches = card.launches_since(before)
+    for name, n in valid_launches.items():
         if n <= 0:
             fail(f"onchip_validate never launched {name}")
     probes = valid["checks"]["mesh_kernel_probes"]
@@ -1742,18 +1743,17 @@ def tool_legs(seed: int, spectrum_k8: dict) -> tuple:
                                 "seqpar_sorted"]:
         fail(f"onchip_validate mesh_kernel_probes: {probes}")
     records["onchip_validate"] = {
-        "launches": card.launches(), "wall_s": valid["wall_s"],
+        "launches": valid_launches, "wall_s": valid["wall_s"],
         "checks_wall_s": {name: c["wall_s"] for name, c in valid["checks"].items()}}
     # The mesh check alone, for the launches its one-device meshes make.
-    zero()
+    before = card.launches()
     onchip_validate.mesh_kernel_probes(gpu)
     torch.cuda.synchronize()
-    mesh_probe = {name: n for name, n in card.launches().items() if n}
+    mesh_probe = {name: n for name, n in card.launches_since(before).items() if n}
     if mesh_probe.get("perread_hist", 0) <= 0 or mesh_probe.get("rowsort_rle", 0) <= 0:
         fail(f"mesh_kernel_probes never launched perread_hist and rowsort_rle: {mesh_probe}")
     records["onchip_validate"]["mesh_kernel_probes_launches"] = mesh_probe
 
-    zero()
     fuzz = json.loads(_tool_main("onchip_fuzz", onchip_fuzz.main,
                                  ["--trials", "40", "--seed", str(seed)])[-1])
     if not fuzz["ok"] or fuzz["routes"]["tiled"] < 1:
@@ -1762,7 +1762,6 @@ def tool_legs(seed: int, spectrum_k8: dict) -> tuple:
 
     # fuzz_cli --devices 8: the card repeated 8 times, so that the seed
     # also draws mesh and seqpar trials.
-    zero()
     prev = repeat_devices(8)
     try:
         campaign = fuzz_cli.run_campaign(24, seed, "cuda", use_mesh=True)
@@ -1782,7 +1781,6 @@ def tool_legs(seed: int, spectrum_k8: dict) -> tuple:
 
     # The golden round trip: phase 4's k=2 .cfrk of seq2 rebuilt into a
     # FASTA, counted again on the card.
-    zero()
     data = ROOT / "tests" / "data"
     golden = json.loads((data / "goldens.json").read_text())["files"]["seq2.fasta.gz"]
     rebuilt, recount = WORK / "seq2_rebuilt.fa", WORK / "seq2_rebuilt.cfrk"
@@ -1815,7 +1813,6 @@ def tool_legs(seed: int, spectrum_k8: dict) -> tuple:
     records["query_spectrum"] = stats
     spectrum_k8["output"].unlink()
 
-    zero()
     doc_path = work / "GPU_SCALE.json"
     _tool_main("scale_demo", scale_demo.main, [
         "--reads", str(TOOL_READS), "--skip", "sparse", "--scale-check-reads", "0",
@@ -2067,9 +2064,6 @@ def mesh_legs(seed: int, r150, fa150: Path, fa152: Path, fa1m: Path, sha: dict,
     import torch
 
     from cfrk_tpu_torch.cli import _write_sparse, _write_spectrum
-    from cfrk_tpu_torch.ops.cuda import perread as P
-    from cfrk_tpu_torch.ops.cuda import rowsort as R
-    from cfrk_tpu_torch.ops.cuda import spectrum as S
     from cfrk_tpu_torch.parallel import make_mesh, make_seq_mesh
     from cfrk_tpu_torch.parallel.bucket import sparse_spectrum_sharded_retry
     from cfrk_tpu_torch.pipeline import count as C
@@ -2077,8 +2071,7 @@ def mesh_legs(seed: int, r150, fa150: Path, fa152: Path, fa1m: Path, sha: dict,
     from cfrk_tpu_torch.runtime import faults
 
     gpu = torch.device("cuda", 0) if gpu is None else gpu
-    kernels = {"rowsort_rle": R.rowsort_rle, "rowsort_rle_large": R.rowsort_rle_large,
-               "spectrum_hist": S.spectrum_hist, "perread_hist": P.perread_hist}
+    kernels = ("rowsort_rle", "rowsort_rle_large", "spectrum_hist", "perread_hist")
     total = dict.fromkeys(kernels, 0)
     legs = []
 
@@ -2086,18 +2079,17 @@ def mesh_legs(seed: int, r150, fa150: Path, fa152: Path, fa1m: Path, sha: dict,
         return -(-n // BATCH)
 
     def leg(label, mesh, run, check, want_launches, **extra):
-        """``run()`` on the mesh with every count at 0 just before it and
-        read just after; ``check(result)`` holds its output to the one
+        """``run()`` on the mesh with every count read just before it and
+        just after; ``check(result)`` holds its output to the one
         device's; each kernel of ``want_launches`` must have launched
         exactly that often."""
-        for fn in kernels.values():
-            fn.launches = 0
+        before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in kernels.items() if fn.launches}
+        launches = {name: n for name, n in launched(before, kernels).items() if n}
         if launches != want_launches:
             fail(f"{label}: launches {launches}, expected {want_launches}")
         check(result)
@@ -2229,8 +2221,8 @@ def scaling_and_defaults(r150, fa150: Path, fa256: Path, card: str, gpu=None,
     through the CPU route; then the library's entry points with no
     device (``count_file``, ``spectrum_file``, ``count_perread`` on a
     numpy array), each launching its kernel on the card and equal to its
-    ``device="cpu"`` result.  Every kernel count is set to 0 just before
-    each run and read just after.  Returns (records, launches)."""
+    ``device="cpu"`` result.  Every kernel count is read just before
+    each run and just after.  Returns (records, launches)."""
     import numpy as np
     import torch
 
@@ -2245,12 +2237,11 @@ def scaling_and_defaults(r150, fa150: Path, fa256: Path, card: str, gpu=None,
     records = {}
 
     def counted(label, kernel, run):
-        for fn in tcard.KERNELS.values():
-            fn.launches = 0
+        before = tcard.launches()
         t0 = time.perf_counter()
         result = run()
         wall = time.perf_counter() - t0
-        launches = {name: n for name, n in tcard.launches().items() if n}
+        launches = {name: n for name, n in tcard.launches_since(before).items() if n}
         if launches.get(kernel, 0) <= 0:
             fail(f"{label}: never launched {kernel}: {launches}")
         for name, n in launches.items():
@@ -2440,7 +2431,6 @@ def dense_api_legs(r150, fa150: Path) -> list:
     kernel) on all 100k.  Each is also held to the bytes of the auto
     route (per-read sort + RLE), run here first on the same reads."""
     from cfrk_tpu_torch.cli import main
-    from cfrk_tpu_torch.ops.cuda import perread as P
 
     def auto_sha(fasta: Path, flags: list) -> str:
         out = WORK / "auto.cuda.cfrk"
@@ -2455,13 +2445,12 @@ def dense_api_legs(r150, fa150: Path) -> list:
     write_fasta(fa_half, r_half)
     k8_auto_sha = auto_sha(fa_half, ["8", "--nonzero"])
     k4_auto_sha = auto_sha(fa150, ["4"])
-    P.perread_hist.launches = 0
     legs = [
         run_main_path("k8_dense_api_nonzero", fa_half, r_half,
-                      ["8", "--nonzero", "--impl", "pallas"], P.perread_hist, 8, False,
+                      ["8", "--nonzero", "--impl", "pallas"], "perread_hist", 8, False,
                       same_as=k8_auto_sha),
         run_main_path("k4_dense_api", fa150, r150, ["4", "--impl", "pallas"],
-                      P.perread_hist, 4, False, same_as=k4_auto_sha),
+                      "perread_hist", 4, False, same_as=k4_auto_sha),
     ]
     return legs
 
@@ -2503,8 +2492,8 @@ def time_perread(seed: int, card: str) -> dict:
 def run_probe(card: str) -> dict:
     """Phase 8, the rowsort probe tool: every variant at k = 8 (uint32
     keys) and k = 31 (uint64 canonical keys), through its command-line
-    entry, with the probe kernel's count set to 0 just before and read
-    just after.  Each run's checksum must equal the plain twin's over
+    entry, with the probe kernel's count read just before and just
+    after.  Each run's checksum must equal the plain twin's over
     the same cycled batches."""
     import torch
 
@@ -2514,7 +2503,7 @@ def run_probe(card: str) -> dict:
 
     steps, batch, length = 64, BATCH, 150
     xs = [torch.from_numpy(x).cuda() for x in probe_batches(batch, length)]
-    R.rowsort_probe.launches = 0
+    before = launch_counts()
     records, err = {}, 0
     for keys, k in ((1, 8), (2, 31)):
         for variant in R.PROBE_VARIANTS:
@@ -2534,7 +2523,7 @@ def run_probe(card: str) -> dict:
                 fail(f"rowsort_probe {variant} k={k}: chk {rec['chk']} != plain {want}")
             records[f"{variant}_k{k}"] = rec
             log(f"probe {variant} k={k}: " + json.dumps(rec))
-    launches = R.rowsort_probe.launches
+    launches = launched(before, ("rowsort_probe",))["rowsort_probe"]
     if launches <= 0:
         fail("the probe tool never launched rowsort_probe")
     plain = functools.partial(R.rowsort_probe_plain, variant="full")
@@ -2752,24 +2741,22 @@ def main() -> int:
     clock.lap("4 goldens")
 
     # 5. main path at real size
-    R.rowsort_rle.launches = 0
-    R.rowsort_rle_large.launches = 0
+    before = launch_counts()
     legs = [
         run_main_path("k8_nonzero", fa150, r150, ["8", "--nonzero"],
-                      R.rowsort_rle, 8, False),
+                      "rowsort_rle", 8, False),
         run_main_path("k31_canonical_nonzero", fa152, r152,
                       ["31", "--canonical", "--nonzero"],
-                      R.rowsort_rle_large, 31, True),
+                      "rowsort_rle_large", 31, True),
         run_main_path("k8_dense_256", fa256, r150[:256], ["8"],
-                      R.rowsort_rle, 8, False),
+                      "rowsort_rle", 8, False),
     ]
-    launches = {"rowsort_rle": R.rowsort_rle.launches,
-                "rowsort_rle_large": R.rowsort_rle_large.launches}
+    launches = launched(before, ("rowsort_rle", "rowsort_rle_large"))
     for name, n in launches.items():
         if n <= 0:
             fail(f"main path never launched {name}")
     dense_legs = dense_api_legs(r150, fa150)
-    launches["perread_hist"] = P.perread_hist.launches
+    launches["perread_hist"] = sum(leg["launches"] for leg in dense_legs)
     if launches["perread_hist"] <= 0:
         fail("the dense per-read legs never launched perread_hist")
     legs += dense_legs

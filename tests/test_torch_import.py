@@ -78,6 +78,7 @@ _MODULES = [
     "cfrk_tpu_torch.bench",
     "cfrk_tpu_torch.tools.bench_suite",
     "cfrk_tpu_torch.tools.bench_format",
+    "cfrk_tpu_torch.tools.sweep",
 ]
 
 
@@ -123,14 +124,14 @@ def test_kernel_module_needs_no_nvcc_until_launch():
     got = _run(
         "import json, torch\n"
         "from cfrk_tpu_torch.ops.cuda import rowsort, spectrum, build\n"
+        "from cfrk_tpu_torch.runtime.metrics import counters\n"
         "c = torch.zeros((2, 40), dtype=torch.int8)\n"
         "rowsort.rowsort_rle(c, 8)\n"
         "rowsort.rowsort_rle_large(c, 31)\n"
         "spectrum.spectrum_hist(c, 8)\n"
         "print(json.dumps({'loaded': build.load_library.cache_info().currsize,"
-        " 'launches': [rowsort.rowsort_rle.launches,"
-        " rowsort.rowsort_rle_large.launches,"
-        " spectrum.spectrum_hist.launches]}))\n",
+        " 'launches': [counters().get(f'cfrk.{name}.launches', 0) for name in"
+        " ('rowsort_rle', 'rowsort_rle_large', 'spectrum_hist')]}))\n",
         {"PATH": os.path.dirname(sys.executable)},
     )
     assert got == {"loaded": 0, "launches": [0, 0, 0]}
@@ -140,13 +141,14 @@ def test_wrapper_off_cpu_launches_or_raises():
     """A tensor that is not on the CPU never takes the plain route: off
     CUDA the wrapper raises instead of computing."""
     from cfrk_tpu_torch.ops.cuda.rowsort import rowsort_rle, rowsort_rle_large
+    from cfrk_tpu_torch.tools.card import launches
 
     codes = torch.zeros((2, 40), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="needs CUDA"):
         rowsort_rle(codes, 8)
     with pytest.raises(ValueError, match="needs CUDA"):
         rowsort_rle_large(codes, 31)
-    assert rowsort_rle.launches == 0 and rowsort_rle_large.launches == 0
+    assert launches()["rowsort_rle"] == 0 and launches()["rowsort_rle_large"] == 0
 
 
 def test_spectrum_wrapper_off_cpu_launches_or_raises():
@@ -155,13 +157,14 @@ def test_spectrum_wrapper_off_cpu_launches_or_raises():
     ``pallas`` and ``auto`` routes reach the same wrapper."""
     from cfrk_tpu_torch.ops.cuda.spectrum import spectrum_hist
     from cfrk_tpu_torch.ops.spectrum import spectrum
+    from cfrk_tpu_torch.tools.card import launches
 
     codes = torch.zeros((2, 40), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="needs CUDA"):
         spectrum_hist(codes, 8)
     with pytest.raises(ValueError, match="needs CUDA"):
         spectrum(codes, 5, impl="pallas")
-    assert spectrum_hist.launches == 0
+    assert launches()["spectrum_hist"] == 0
 
 
 def test_perread_kernel_needs_no_nvcc_until_launch():
@@ -170,12 +173,13 @@ def test_perread_kernel_needs_no_nvcc_until_launch():
     got = _run(
         "import json, torch\n"
         "from cfrk_tpu_torch.ops.cuda import perread, rowsort, build\n"
+        "from cfrk_tpu_torch.runtime.metrics import counters\n"
         "c = torch.zeros((2, 40), dtype=torch.int8)\n"
         "perread.perread_hist(c, 8, packed='b4', checksum=True)\n"
         "rowsort.rowsort_probe(c, 8, 'full')\n"
         "print(json.dumps({'loaded': build.load_library.cache_info().currsize,"
-        " 'launches': [perread.perread_hist.launches,"
-        " rowsort.rowsort_probe.launches]}))\n",
+        " 'launches': [counters().get(f'cfrk.{name}.launches', 0) for name in"
+        " ('perread_hist', 'rowsort_probe')]}))\n",
         {"PATH": os.path.dirname(sys.executable)},
     )
     assert got == {"loaded": 0, "launches": [0, 0]}
@@ -187,6 +191,7 @@ def test_perread_wrapper_off_cpu_launches_or_raises():
     the packed route of pipeline/count.py reach the same wrapper."""
     from cfrk_tpu_torch.ops.cuda.perread import perread_hist
     from cfrk_tpu_torch.ops.perread import count_perread
+    from cfrk_tpu_torch.tools.card import launches
 
     codes = torch.zeros((2, 40), dtype=torch.int8, device="meta")
     for packed in (False, "fh", "b4"):
@@ -194,7 +199,7 @@ def test_perread_wrapper_off_cpu_launches_or_raises():
             perread_hist(codes, 8, packed=packed, checksum=True)
     with pytest.raises(ValueError, match="needs CUDA"):
         count_perread(codes, 5, impl="pallas")
-    assert perread_hist.launches == 0
+    assert launches()["perread_hist"] == 0
 
 
 def test_perread_slab_fits_shared_memory():

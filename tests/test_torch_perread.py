@@ -35,6 +35,7 @@ from cfrk_tpu_torch.ops.cuda import perread as P
 from cfrk_tpu_torch.ops.cuda import rowsort as R
 from cfrk_tpu_torch.ops.perread import count_perread
 from cfrk_tpu_torch.pipeline import count as tcount
+from cfrk_tpu_torch.tools.card import launches
 
 ROOT = Path(__file__).resolve().parent.parent
 DATA = Path(__file__).parent / "data"
@@ -419,7 +420,7 @@ def test_probe_errors():
     meta = torch.zeros((2, 40), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="needs CUDA"):
         R.rowsort_probe(meta, 8, "full")
-    assert R.rowsort_probe.launches == 0
+    assert launches()["rowsort_probe"] == 0
 
 
 def test_probe_tool_needs_cuda():

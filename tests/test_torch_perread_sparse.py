@@ -20,6 +20,7 @@ from cfrk_tpu.ops.pallas.rowsort import rowsort_rle_pallas, rowsort_rle_pallas_l
 from cfrk_tpu_torch.ops import perread_sparse as tps
 from cfrk_tpu_torch.ops.cuda.rowsort import rowsort_rle, rowsort_rle_large
 from cfrk_tpu_torch.ops.reference import count_perread_np
+from cfrk_tpu_torch.tools.card import launches
 
 
 def _batch(seed, b, length, p_invalid=0.03):
@@ -129,7 +130,7 @@ def test_dispatcher_on_cpu_is_plain_route(k):
     )
     _assert_rows_equal(got, _torch_rows(codes, k, True))
     _assert_rows_equal(wrap, _torch_rows(codes, k, True))
-    assert rowsort_rle.launches == 0 and rowsort_rle_large.launches == 0
+    assert launches()["rowsort_rle"] == 0 and launches()["rowsort_rle_large"] == 0
 
 
 @pytest.mark.parametrize("k", [8, 31])

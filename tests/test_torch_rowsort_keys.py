@@ -303,22 +303,6 @@ def test_key16_path_follows_the_launch_rule():
         assert R.checksum_rows_per_block(width, False) == 256 * keys // width
 
 
-def test_key16_launches_is_a_counter(monkeypatch):
-    """A launch on the 16-bit path counts under KEY16_LAUNCHES beside
-    the wrapper's launches; other launches count only there."""
-    from cfrk_tpu_torch.runtime import metrics as M
-
-    monkeypatch.setattr(R.rowsort_rle, "launches", 0)
-    before = M.counters().get(R.KEY16_LAUNCHES, 0)
-    R._count_launch(143, 8)
-    R._count_launch(143, 12)
-    R._count_launch(8000, 8)
-    c = M.counters()
-    assert R.KEY16_LAUNCHES == "cfrk.rowsort_rle.key16_launches"
-    assert c[R.KEY16_LAUNCHES] - before == 1
-    assert c["cfrk.rowsort_rle.launches"] == 3
-
-
 # ------------------------- prefix-and-position words (k > 15, rows <= 256)
 
 PREFIX_KS = (16, 20, 30, 31)
@@ -466,20 +450,3 @@ def test_prefix_path_follows_the_launch_rule():
         keys = R.keys_per_thread(width, True)
         assert width // keys <= 32
         assert R.checksum_rows_per_block(width, True) == 256 * keys // width
-
-
-def test_prefix_launches_is_a_counter(monkeypatch):
-    """A launch on the prefix path counts under PREFIX_LAUNCHES beside
-    the wrapper's launches; other launches count only there."""
-    from cfrk_tpu_torch.runtime import metrics as M
-
-    monkeypatch.setattr(R.rowsort_rle_large, "launches", 0)
-    before = M.counters().get(R.PREFIX_LAUNCHES, 0)
-    R._count_large_launch(122, 31)
-    R._count_large_launch(256, 16)
-    R._count_large_launch(257, 31)
-    R._count_large_launch(8000, 24)
-    c = M.counters()
-    assert R.PREFIX_LAUNCHES == "cfrk.rowsort_rle.prefix_launches"
-    assert c[R.PREFIX_LAUNCHES] - before == 2
-    assert c["cfrk.rowsort_rle_large.launches"] == 4

@@ -13,6 +13,7 @@ must write their records, every check ok.  Each test runs in its own
 empty working directory, so that no ``cfrk.json`` supplies CLI flags.
 """
 
+import argparse
 import gzip
 import hashlib
 import importlib.util
@@ -35,6 +36,7 @@ from cfrk_tpu_torch.tools import (
     reconstruct_fasta,
     scale_demo,
     scaling_bench,
+    sweep,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -569,3 +571,29 @@ def test_counting_tools_refuse_cuda_without_a_card(tool, tmp_path):
         pytest.skip("this machine has a GPU")
     with pytest.raises(SystemExit, match="no CUDA device"):
         tool.main(["--workdir", str(tmp_path)] if tool is scale_demo else [])
+
+
+# ------------------------------------------------------------ the sweep tool
+
+
+def test_sweep_rewrites_only_the_named_constants_in_a_copy(tmp_path, monkeypatch):
+    """A variant is a copy of the package whose source differs from the
+    checkout's in the named constants alone; a name the source does not
+    hold once, or an item that is not NAME=value, is refused."""
+    monkeypatch.setattr(sweep, "WORK", tmp_path)
+    constants = sweep.parse_variant("kLogKeys=2,kRegThreads=128")
+    assert constants == {"kLogKeys": 2, "kRegThreads": 128}
+    root = sweep.make_variant("rowsort.cu", constants, "v1")
+    got = (root / "cfrk_tpu_torch" / "csrc" / "rowsort.cu").read_text().splitlines()
+    own = (sweep.PKG / "csrc" / "rowsort.cu").read_text().splitlines()
+    assert [(a, b) for a, b in zip(own, got) if a != b] == [
+        ("constexpr int kLogKeys = 3;", "constexpr int kLogKeys = 2;"),
+        ("constexpr int kRegThreads = 256;", "constexpr int kRegThreads = 128;"),
+    ]
+    assert len(got) == len(own)
+    assert (root / "cfrk_tpu_torch" / "tools" / "rowsort_times.py").is_file()
+    with pytest.raises(RuntimeError, match="kNoSuch not found once"):
+        sweep.make_variant("rowsort.cu", {"kNoSuch": 1}, "v2")
+    for bad in ("kLogKeys", "kLogKeys=x", "=3"):
+        with pytest.raises(argparse.ArgumentTypeError):
+            sweep.parse_variant(bad)

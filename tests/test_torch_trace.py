@@ -3,12 +3,14 @@ off without a profiler, recorded and on the Chrome trace's clock under
 one, nested per thread, bounded, and placed at the dispatcher, the
 kernel wrappers, the library build and load, and the drivers' stages."""
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -180,7 +182,8 @@ def test_out_bytes_and_calls_are_counted_on_the_cpu_route(k, canonical, arrays):
     c = M.counters()
     assert c["cfrk.rows.calls"] == 3
     assert c[M.OUT_BYTES] == 3 * arrays * 4 * 10 * (50 - k + 1)
-    assert c["cfrk.rowsort_rle.launches"] == 0 and c["cfrk.rowsort_rle_large.launches"] == 0
+    assert c.get("cfrk.rowsort_rle.launches", 0) == 0
+    assert c.get("cfrk.rowsort_rle_large.launches", 0) == 0
 
 
 def test_the_tiled_route_is_one_call_with_a_tiled_child(monkeypatch):
@@ -202,6 +205,34 @@ def test_a_first_launch_is_a_once_span_then_launches_are_off():
     assert first.name == f"cfrk.{name}.first_launch" and first.once
     assert _traced(lambda: M.launch(name, min, 2, 5)) == 2
     assert [r.name for r in M.spans()][1:] == [f"cfrk.{name}.launch"]
+
+
+@pytest.mark.parametrize("kernel", build.KERNELS)
+def test_launch_kernel_counts_each_launch_once(monkeypatch, kernel):
+    """The wrappers' one launch seam: the device's current stream goes
+    last, the first launch is a once span, a launch that returns 0
+    counts one under ``cfrk.<kernel>.launches`` and one that returns a
+    CUDA error raises, naming the kernel, and counts nothing."""
+    monkeypatch.setattr(M, "_launched", set())
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=77))
+    seen = []
+
+    def fn(*args):
+        seen.append(args)
+        return err
+
+    counter = f"cfrk.{kernel}.launches"
+    err = 0
+    build.launch_kernel(kernel, fn, torch.device("cuda", 0), 11, None, 3)
+    assert seen == [(11, None, 3, 77)]
+    assert M.counters()[counter] == 1
+    assert [(r.name, r.once) for r in M.spans()] == [(f"cfrk.{kernel}.first_launch", True)]
+    err = 700
+    with pytest.raises(RuntimeError, match=f"^cfrk_{kernel} launch failed: CUDA error 700$"):
+        build.launch_kernel(kernel, fn, torch.device("cuda", 0), 12)
+    assert len(seen) == 2 and M.counters()[counter] == 1
 
 
 def test_a_library_load_records_its_build_the_first_time_only(monkeypatch, tmp_path):
