@@ -44,7 +44,11 @@
 //    4096 keys keep one block a row and the bitonic network in shared
 //    memory, up to the ceilings below.  Rows of up to 256 uint64 keys
 //    (k > 15) sort 32-bit prefix-and-position words instead, then
-//    gather their full keys (rowsort_rle_prefix, below).
+//    gather their full keys (rowsort_rle_prefix, below).  At k <= 8, rows
+//    whose W lies just above a power of two P, in batches that fill the
+//    card, sort a head of P cells and a short tail apart, two reads a
+//    word, and merge each read's tail into its head in shared memory
+//    (rowsort_rle_split, below).
 // 4. Run lengths and emit.  The sorted keys go to shared memory once;
 //    each run start looks at the next key and, only if that repeats
 //    it, finds its run end by binary search for the first larger key;
@@ -65,6 +69,28 @@
 // since no padding value is below a real key.  The emit treats the cells
 // from n_valid on as sentinels and cuts the last run there; it writes
 // the same int32 words as the uint32 path.
+//
+// Two reads a word (k <= 8, P < W <= P + (P >> kSplitShift), P in
+// [kMinSplitHead, kMaxSplitHead], batches of at least kMinSplitBlocks
+// blocks of the split): the path above would sort 2P cells a row, most
+// of them padding (113 of 256 for 150 bp reads at k = 8).
+// rowsort_rle_split instead puts cells [0, P) of two reads in the two
+// lanes of one set of words, read a low and read b high, and sorts both
+// lanes ascending with one flip-form network of P words: half the
+// network a read, and no complemented lane or final merge.  Cells
+// [P, W), padded to a power of two T >= kMinTail, sort the same way, two
+// reads a word.  Each read's sorted head and tail then go to shared
+// memory, and every key goes straight to its cell of the merged row: a
+// head key's cell is its index plus the tail's keys < it, a tail key's
+// its index plus the head's keys <= it, both found by one search a
+// thread and a walk along the tail beside the thread's consecutive head
+// keys (merge_row).  A pair of rows lies within a warp, so nothing
+// between the staging and the emit waits on a block barrier.  The emit
+// reads the merged row as the path above reads its sorted row, with the
+// same n_valid cut.  Measured with the probe at [100000, 150], k = 8
+// (PERF.md): the kernel 0.118 -> 0.089 ms, the sort 0.052 -> 0.037 ms,
+// and the key build 0.053 -> 0.039 ms, since 144 windows a read are
+// built and packed where the 2P-cell row built 256.
 //
 // Keys: k <= 15 sorts uint32 with sentinel 4**k; k > 15 sorts one
 // uint64 `hi << 30 | lo` (< 4**31 for a real window) with sentinel
@@ -150,6 +176,29 @@ constexpr int kMaxRegWidth = kRegThreads << kLogKeysWide;
 // faster at any width.
 constexpr int kMaxPairK = 8;
 constexpr uint32_t kPad16 = 0xFFFFu;
+
+// The split of rows just above a power of two P (rowsort_rle_split): a
+// tail of at most P >> kSplitShift windows, heads of kMinSplitHead to
+// kMaxSplitHead cells (a pair of rows within one warp at kSplitWords
+// words a thread), tails padded to at least kMinTail cells (16 bytes),
+// in grids of at least kMinSplitBlocks blocks.  Measured on the H100
+// (PERF.md), the split is faster than the 2P-cell row up to W - P = P / 4
+// at P = 64, 128 and 256 in batches of 100 000 reads, and slower from
+// W - P = 3P / 8 at P = 128.  A pair of rows takes half the threads of
+// one 2P-cell row, so a batch too small to fill the card runs on fewer
+// threads: in grids of 128 blocks the split lost 18-35 %, of 256 blocks
+// -11 to +11 %, of 512 blocks and more it gained 7-22 % at every W
+// measured (129, 143, 160, 257, 320); at P = 64 it lost a third at
+// 8192 reads, so P = 64 keeps the 2P-cell row.
+constexpr int kSplitShift = 2;
+constexpr int kMinSplitHead = 128;
+constexpr int kMaxSplitHead = 256;
+constexpr int kSplitWords = 1 << (kLogKeysWide - 1);
+constexpr int kMinTail = 8;
+constexpr int kMinSplitBlocks = 512;
+static_assert(kMaxSplitHead / kSplitWords <= 32, "a pair of rows lies within a warp");
+static_assert(kSplitShift >= 2 && kMinTail <= kMinSplitHead / kSplitWords,
+              "a tail takes at most two words a thread");
 
 static_assert((1 << kLogKeysWide) <= cfrk::kUnitBases &&
                   kLogKeys <= kLogKeysWide,
@@ -903,25 +952,28 @@ __device__ __forceinline__ int build_pairs(const uint32_t* units,
   return __popc(real & ((1u << kWords) - 1u));
 }
 
-// The thread's words: key p0 + e in the low lane of v[e], key
-// half + p0 + e in its high lane.  Returns the number of real windows.
+// The thread's words: the key of window p_lo + e of one packed row in the
+// low lane of v[e], of window p_hi + e of a row (the same one or another)
+// in its high lane.  Returns the low lane's number of real windows in the
+// low 16 bits, the high lane's above.
 template <bool kCanonical, int kWords>
-__device__ __forceinline__ int build_words(const uint32_t* units,
-                                           const uint32_t* bad, int p0,
-                                           int half, int k,
-                                           uint32_t (&v)[kWords]) {
+__device__ __forceinline__ uint32_t build_words(
+    const uint32_t* units_lo, const uint32_t* bad_lo, int p_lo,
+    const uint32_t* units_hi, const uint32_t* bad_hi, int p_hi, int k,
+    uint32_t (&v)[kWords]) {
   uint32_t lo[kWords];
   uint32_t hi[kWords];
-  const int valid = build_pairs<kCanonical>(units, bad, p0, k, lo) +
-                    build_pairs<kCanonical>(units, bad, half + p0, k, hi);
+  const uint32_t valid =
+      uint32_t(build_pairs<kCanonical>(units_lo, bad_lo, p_lo, k, lo)) |
+      uint32_t(build_pairs<kCanonical>(units_hi, bad_hi, p_hi, k, hi)) << 16;
 #pragma unroll
   for (int e = 0; e < kWords; ++e) v[e] = lo[e] | (hi[e] << 16);
   return valid;
 }
 
-// Stage 4 for one row of 16-bit cells s[0..n): as finish_row, with the
-// cells from n_valid on (sorted variants) or of invalid windows
-// (unsorted) read as the sentinel 4**k.
+// Stage 4 for one row of 16-bit cells s[0..n), or at least its first W
+// cells: as finish_row, with the cells from n_valid on (sorted variants)
+// or of invalid windows (unsorted) read as the sentinel 4**k.
 template <int kVariant, bool kChecksum = false>
 __device__ __forceinline__ int64_t finish_pairs_row(
     const uint16_t* s, const uint32_t* bad, int n_valid, int n, int W, int k,
@@ -936,15 +988,16 @@ __device__ __forceinline__ int64_t finish_pairs_row(
           kVariant == kSortOnly ? i < n_valid : window_real(bad, i, k);
       acc += int(((real ? key : sentinel) ^ uint32_t(i)) & 3);
     } else if constexpr (kVariant == kRleOnly) {
-      // Unsorted cells: a search step treats an invalid window's cell as
-      // the sentinel, above every key.
+      // Unsorted cells: a search step treats an invalid window's cell, and
+      // every cell from W on (a row may hold fewer than n), as the
+      // sentinel, above every key.
       if (window_real(bad, i, k) &&
           (i == 0 || !window_real(bad, i - 1, k) || s[i - 1] != key)) {
         int lo = i + 1;
         int hi = n;
         while (lo < hi) {
           const int mid = (lo + hi) >> 1;
-          if (!window_real(bad, mid, k) || s[mid] > key) {
+          if (mid >= W || !window_real(bad, mid, k) || s[mid] > key) {
             hi = mid;
           } else {
             lo = mid + 1;
@@ -1011,8 +1064,10 @@ __global__ void __launch_bounds__(kRegThreads, 8)
   // the row's end, which packs as invalid: the invalid bits alone say
   // which windows are real.
   uint32_t v[kWords];
-  int valid = canonical ? build_words<true>(urow, bad, p0, half, k, v)
-                        : build_words<false>(urow, bad, p0, half, k, v);
+  const uint32_t both =
+      canonical ? build_words<true>(urow, bad, p0, urow, bad, half + p0, k, v)
+                : build_words<false>(urow, bad, p0, urow, bad, half + p0, k, v);
+  int valid = int((both & 0xFFFFu) + (both >> 16));
   // n_valid: the row's threads' counts, summed inside each warp and then
   // across the row's warps.
   const int span = threads < 32 ? threads : 32;
@@ -1064,6 +1119,179 @@ __global__ void __launch_bounds__(kRegThreads, 8)
   }
 }
 
+// ---- two reads a word (k <= 8, W just above a power of two) ---------
+
+// The number of keys of the sorted s[0..n) (n a power of two) below x:
+// log2(n) + 1 reads, no branch.
+__device__ __forceinline__ int count_below(const uint16_t* s, int n,
+                                           uint32_t x) {
+  int pos = 0;
+  for (int step = n >> 1; step > 0; step >>= 1) {
+    pos += uint32_t(s[pos + step - 1]) < x ? step : 0;
+  }
+  return pos + int(uint32_t(s[pos]) < x);
+}
+
+// One thread's share of the merge of one read: its sorted head s[0..head)
+// and its sorted tail s[head..head + tail) to the merged row `out`.  The
+// thread's head keys j in [p0, p0 + kWords) go to cell j + c, c the
+// tail's keys below key j: one search for the first, then a walk along
+// the tail.  A tail key the walk passes before head key j, or after the
+// last one and below the next thread's first (head key p0 + kWords, or
+// above every key on the last thread), has exactly j head keys at most
+// it, and goes to its index plus j.  The walk of thread 0 starts at the
+// tail's first key, so every tail key is placed once.
+template <int kWords>
+__device__ __forceinline__ void merge_row(const uint16_t* s, int head,
+                                          int tail, int p0, uint16_t* out) {
+  uint32_t two[kWords / 2];
+  load_keys(two, reinterpret_cast<const uint32_t*>(s + p0));
+  const uint16_t* tail_keys = s + head;
+  int c = p0 == 0 ? 0 : count_below(tail_keys, tail, two[0] & 0xFFFFu);
+  // Past the tail, a value above every key stops the walk.
+  uint32_t next = c < tail ? tail_keys[c] : 0x10000u;
+#pragma unroll
+  for (int e = 0; e < kWords; ++e) {
+    const uint32_t x = (two[e / 2] >> (16 * (e & 1))) & 0xFFFFu;
+    while (next < x) {
+      out[c + p0 + e] = uint16_t(next);
+      ++c;
+      next = c < tail ? tail_keys[c] : 0x10000u;
+    }
+    out[p0 + e + c] = uint16_t(x);
+  }
+  const uint32_t bound = p0 + kWords < head ? s[p0 + kWords] : 0x10000u;
+  while (next < bound) {
+    out[c + p0 + kWords] = uint16_t(next);
+    ++c;
+    next = c < tail ? tail_keys[c] : 0x10000u;
+  }
+}
+
+// Rows of W windows at k <= kMaxPairK with head < W <= head + tail, head
+// a power of two in [kMinSplitHead, kMaxSplitHead] and tail a power of
+// two, tail <= kTailWords * head / kSplitWords: reads 2g and 2g + 1 of a
+// block share threads [g * threads, (g + 1) * threads), threads =
+// head / kSplitWords, read 2g in the low lanes of their words, read
+// 2g + 1 in the high lanes; 2 * kRegThreads / threads reads a block.
+// Thread t holds head words [t * kSplitWords, (t + 1) * kSplitWords) and
+// tail words [t * kTailWords, (t + 1) * kTailWords) where these are
+// below `tail`.  Shared memory: each read's sorted head and tail
+// (`cells` = head + tail), then each read's merged row, then the packed
+// codes.  The variants are rowsort_rle_pairs'.
+template <int kVariant, int kTailWords, bool kChecksum = false>
+__global__ void __launch_bounds__(kRegThreads, 8)
+    rowsort_rle_split(const int8_t* __restrict__ codes,
+                      int32_t* __restrict__ key_out,
+                      int32_t* __restrict__ cnt_out,
+                      int64_t* __restrict__ chk, int B, int L, int W, int n,
+                      int head, int tail, int k, bool canonical) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int threads = head / kSplitWords;  // of one pair of reads
+  const int rows = 2 * kRegThreads / threads;
+  const int cells = head + tail;
+  const int upr = units_of((cells + 31) & ~31);
+  uint16_t* s = reinterpret_cast<uint16_t*>(smem_raw);
+  uint32_t* units = reinterpret_cast<uint32_t*>(s + 2 * rows * cells);
+  uint16_t* invalid = reinterpret_cast<uint16_t*>(units + rows * upr);
+  const int64_t row0 = int64_t(blockIdx.x) * rows;
+
+  // The staged codes lie where the sorted heads and tails will.
+  stage_rows(codes, B, L, row0, rows, upr, reinterpret_cast<int8_t*>(s),
+             units, invalid);
+
+  const int g = int(threadIdx.x) / threads;
+  const int t = int(threadIdx.x) - g * threads;
+  const int ra = 2 * g;  // the low lanes' read; ra + 1 the high lanes'
+  const uint32_t* ua = units + ra * upr;
+  const uint32_t* ub = ua + upr;
+  const uint32_t* bad_a = reinterpret_cast<const uint32_t*>(invalid + ra * upr);
+  const uint32_t* bad_b = reinterpret_cast<const uint32_t*>(invalid + (ra + 1) * upr);
+  uint16_t* sa = s + ra * cells;
+  uint16_t* sb = sa + cells;
+  uint16_t* oa = s + (rows + ra) * cells;
+  uint16_t* ob = oa + cells;
+  // Windows past W, and every window of a read past B, hold a code past
+  // the read's end, which packs as invalid.
+  const int p0 = t * kSplitWords;
+  const int q0 = t * kTailWords;  // of the tail
+  const bool tail_thread = q0 < tail;
+  // Sorted variants sort into sa / sb and merge into oa / ob; the others
+  // put the unsorted keys by window into oa / ob.  The head is built,
+  // sorted and stored before the tail is built, so that the two never
+  // hold registers at once.
+  uint16_t* da = sorts(kVariant) ? sa : oa;
+  uint16_t* db = sorts(kVariant) ? sb : ob;
+  uint32_t valid;
+  {
+    uint32_t v[kSplitWords];
+    valid = canonical ? build_words<true>(ua, bad_a, p0, ub, bad_b, p0, k, v)
+                      : build_words<false>(ua, bad_a, p0, ub, bad_b, p0, k, v);
+    if constexpr (sorts(kVariant)) flip_sort<true>(v, nullptr, t, head);
+    uint32_t low2[kSplitWords / 2];
+    uint32_t high2[kSplitWords / 2];
+#pragma unroll
+    for (int e = 0; e < kSplitWords; e += 2) {
+      low2[e / 2] = __byte_perm(v[e], v[e + 1], 0x5410);
+      high2[e / 2] = __byte_perm(v[e], v[e + 1], 0x7632);
+    }
+    store_keys(reinterpret_cast<uint32_t*>(da + p0), low2);
+    store_keys(reinterpret_cast<uint32_t*>(db + p0), high2);
+  }
+  uint32_t w[kTailWords];
+  if (tail_thread) {
+    valid += canonical ? build_words<true>(ua, bad_a, head + q0, ub, bad_b,
+                                           head + q0, k, w)
+                       : build_words<false>(ua, bad_a, head + q0, ub, bad_b,
+                                            head + q0, k, w);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kTailWords; ++e) w[e] = 0xFFFFFFFFu;
+  }
+  // Each lane's n_valid, summed over the pair's threads (one warp).
+  for (int o = threads >> 1; o > 0; o >>= 1) {
+    valid += __shfl_xor_sync(kFullWarp, valid, o);
+  }
+  if constexpr (sorts(kVariant)) flip_sort<true>(w, nullptr, t, tail);
+  if (tail_thread) {
+#pragma unroll
+    for (int e = 0; e < kTailWords; ++e) {
+      da[head + q0 + e] = uint16_t(w[e]);
+      db[head + q0 + e] = uint16_t(w[e] >> 16);
+    }
+  }
+  if constexpr (sorts(kVariant)) {
+    __syncwarp();
+    merge_row<kSplitWords>(sa, head, tail, p0, oa);
+    merge_row<kSplitWords>(sb, head, tail, p0, ob);
+  }
+  __syncwarp();
+
+  int64_t acc_a = 0;
+  int64_t acc_b = 0;
+  if (row0 + ra < B) {
+    acc_a = finish_pairs_row<kVariant, kChecksum>(
+        oa, bad_a, int(valid & 0xFFFFu), n, W, k, t, threads, (row0 + ra) * W,
+        key_out, cnt_out);
+  }
+  if (row0 + ra + 1 < B) {
+    acc_b = finish_pairs_row<kVariant, kChecksum>(
+        ob, bad_b, int(valid >> 16), n, W, k, t, threads, (row0 + ra + 1) * W,
+        key_out, cnt_out);
+  }
+  if constexpr (kVariant == kEmit && kChecksum) {
+    const int64_t acc = cfrk::block_sum(acc_a + acc_b);
+    if (threadIdx.x == 0) chk[blockIdx.x] = acc;
+  } else if constexpr (kVariant != kEmit) {
+    for (int o = threads >> 1; o > 0; o >>= 1) {
+      acc_a += __shfl_xor_sync(kFullWarp, acc_a, o);
+      acc_b += __shfl_xor_sync(kFullWarp, acc_b, o);
+    }
+    if (t == 0 && row0 + ra < B) chk[row0 + ra] = acc_a;
+    if (t == 0 && row0 + ra + 1 < B) chk[row0 + ra + 1] = acc_b;
+  }
+}
+
 // Rows above kMaxRegWidth keys: one block a row, the n keys and the
 // whole network in shared memory.
 template <bool kLarge, int kVariant, bool kChecksum = false>
@@ -1110,6 +1338,39 @@ int search_width(int W) {
 
 int row_width(int n) { return n < kMinWidth ? kMinWidth : n; }
 
+// The head of B rows of W windows split by rowsort_rle_split (the power
+// of two below W), or 0 where the rows are not split: the split's grid,
+// 2 * kRegThreads * kSplitWords / head reads a block, would hold fewer
+// than kMinSplitBlocks blocks.
+int split_head(int B, int W, int k) {
+  const int head = search_width(W) >> 1;
+  const bool split =
+      k <= kMaxPairK && head >= kMinSplitHead && head <= kMaxSplitHead &&
+      W - head <= (head >> kSplitShift) &&
+      B >= kMinSplitBlocks * (2 * kRegThreads * kSplitWords / head);
+  return split ? head : 0;
+}
+
+// The split's launch: the tail the power of two >= max(W - head,
+// kMinTail), held by the pair's threads one or two words each.
+template <int kVariant, bool kChecksum = false>
+int launch_split(const int8_t* codes, int32_t* key_out, int32_t* cnt_out,
+                 int64_t* chk, int B, int L, int W, int n, int head, int k,
+                 int canonical, cudaStream_t stream) {
+  int tail = kMinTail;
+  while (tail < W - head) tail <<= 1;
+  const int threads = head / kSplitWords;
+  const int rows = 2 * kRegThreads / threads;
+  const int cells = head + tail;
+  const size_t smem = size_t(rows) * (2 * cells * sizeof(uint16_t) +
+                                      units_of((cells + 31) & ~31) * 6);
+  const auto kernel = tail <= threads ? rowsort_rle_split<kVariant, 1, kChecksum>
+                                      : rowsort_rle_split<kVariant, 2, kChecksum>;
+  kernel<<<(B + rows - 1) / rows, kRegThreads, smem, stream>>>(
+      codes, key_out, cnt_out, chk, B, L, W, n, head, tail, k, canonical != 0);
+  return int(cudaGetLastError());
+}
+
 // The prefix path's launch: rows of `width` <= kMaxPrefixWidth uint64
 // keys, kRegThreads * kKeys / width rows a block.
 template <int kVariant, bool kChecksum = false>
@@ -1145,6 +1406,11 @@ int launch(const int8_t* codes, int32_t* key_out, int32_t* lo_out,
                            (!kLarge && width >= kWideFrom32);
     const int rows = (kRegThreads << (wide_keys ? kLogKeysWide : kLogKeys)) / width;
     if constexpr (!kLarge) {
+      if (const int head = split_head(B, W, k)) {
+        return launch_split<kVariant, kChecksum>(codes, key_out, cnt_out, chk,
+                                                 B, L, W, n, head, k,
+                                                 canonical, stream);
+      }
       if (k <= kMaxPairK) {
         const size_t smem = size_t(rows) * width * sizeof(uint16_t) +
                             size_t(rows) * units_of(width) * 6;

@@ -24,7 +24,11 @@ the uint32 and uint64 sort network.  At k <= 8, rows of up to 4096 keys
 sort two 16-bit keys a register (``rowsort_rle_pairs``;
 :func:`key16_path` mirrors the launch rule): :func:`pair_keys_model`,
 :func:`sort_pairs_model` and :func:`finish_pairs_model` model its key
-build, its network and its emit.  Above k = 15, rows of up to 256 keys
+build, its network and its emit.  Where W lies just above a power of two
+P and the batch fills the card, two reads share the words instead, a head of P cells and a short tail
+sorted apart and merged (``rowsort_rle_split``; :func:`split_path`
+mirrors the launch rule, :func:`split_keys_model` and
+:func:`sort_split_model` model it).  Above k = 15, rows of up to 256 keys
 sort 32-bit prefix-and-position words, gather the full keys and repair
 a warp's rows where two distinct keys shared a prefix
 (``rowsort_rle_prefix``; :func:`prefix_path` mirrors the launch rule,
@@ -89,10 +93,13 @@ __all__ = [
     "packed_window_keys_model",
     "sort_in_registers_model",
     "key16_path",
+    "split_path",
     "keys_per_thread",
     "PAD16",
     "pair_keys_model",
     "sort_pairs_model",
+    "split_keys_model",
+    "sort_split_model",
     "finish_pairs_model",
     "prefix_path",
     "prefix_words_model",
@@ -179,6 +186,12 @@ _MAX_PAIR_K = 8
 # The widest row of the prefix path: one warp's threads.
 _MAX_PREFIX_WIDTH = 32 << _LOG_KEYS
 
+# The split at k <= 8 (``rowsort_rle_split``): kSplitShift, kMinSplitHead,
+# kMaxSplitHead, kSplitWords (head words a thread), kMinTail and
+# kMinSplitBlocks (the least grid).
+_SPLIT_SHIFT, _MIN_SPLIT_HEAD, _MAX_SPLIT_HEAD, _SPLIT_WORDS, _MIN_TAIL = 2, 128, 256, 8, 8
+_MIN_SPLIT_BLOCKS = 512
+
 
 def _sort_width(w: int) -> int:
     """The register path's row width for ``w`` windows: the power of
@@ -191,6 +204,21 @@ def key16_path(w: int, k: int) -> bool:
     """Whether the kernel sorts rows of ``w`` windows at this k two keys
     a register (16-bit keys): k <= 8 and rows of up to 4096 keys."""
     return k <= _MAX_PAIR_K and _sort_width(w) <= _REG_THREADS << _LOG_KEYS_WIDE
+
+
+def split_path(w: int, k: int, b: int):
+    """``(head, tail)`` where the kernel sorts ``b`` rows of ``w``
+    windows at this k as a head and a tail, two reads a word
+    (``rowsort_rle_split``), else None: k <= 8, P < w <= P + P/4 for
+    the power of two P in [128, 256], and a grid of at least 512 blocks
+    of 4096 / P reads (b >= 16384 at P = 128, 8192 at P = 256); the tail
+    is the power of two >= max(w - P, 8)."""
+    head = _sort_width(w) >> 1
+    if not (k <= _MAX_PAIR_K and _MIN_SPLIT_HEAD <= head <= _MAX_SPLIT_HEAD
+            and w - head <= head >> _SPLIT_SHIFT
+            and b >= _MIN_SPLIT_BLOCKS * (2 * _REG_THREADS * _SPLIT_WORDS // head)):
+        return None
+    return head, max(_MIN_TAIL, 1 << (w - head - 1).bit_length())
 
 
 def prefix_path(w: int, k: int) -> bool:
@@ -209,24 +237,27 @@ def keys_per_thread(width: int, large: bool) -> int:
     return 1 << (_LOG_KEYS_WIDE if wide else _LOG_KEYS)
 
 
-def checksum_rows_per_block(w: int, large: bool) -> int:
-    """Reads in one thread block of the row-sort kernel for rows of
-    ``w`` windows (``large``: the uint64 keys above k = 15), so reads
-    per entry of its checksum: several rows a block up to 4096 keys a
-    row, one above."""
+def checksum_rows_per_block(w: int, k: int, b: int) -> int:
+    """Reads in one thread block of the row-sort kernel for ``b`` rows
+    of ``w`` windows at this k, so reads per entry of its checksum:
+    several rows a block up to 4096 keys a row, one above; a split row's
+    pair of reads shares head / 8 threads."""
+    split = split_path(w, k, b)
+    if split:
+        return 2 * _REG_THREADS * _SPLIT_WORDS // split[0]
     width = _sort_width(w)
     if width > _REG_THREADS << _LOG_KEYS_WIDE:
         return 1
-    return _REG_THREADS * keys_per_thread(width, large) // width
+    return _REG_THREADS * keys_per_thread(width, k > MAX_SPARSE_PERREAD_K) // width
 
 
-def _block_checksum(low_key: torch.Tensor, counts: torch.Tensor, large: bool) -> torch.Tensor:
+def _block_checksum(low_key: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tensor:
     """The kernel's ``chk`` from finished rows: a run start's count is
     at least 1 and every other cell's 0."""
     b, w = counts.shape
     start = counts > 0
     row = ((counts & 3) + torch.where(start, low_key & 3, 0)).sum(1, dtype=torch.int64)
-    rows = checksum_rows_per_block(w, large)
+    rows = checksum_rows_per_block(w, k, b)
     padded = torch.zeros(-(-b // rows) * rows, dtype=torch.int64, device=counts.device)
     padded[:b] = row
     return padded.view(-1, rows).sum(1)
@@ -248,7 +279,7 @@ def rowsort_rle_plain(codes: torch.Tensor, k: int, canonical: bool = False, *,
     x = torch.sort(x, dim=-1).values
     idx, counts = rle_rows(x, x != sent, sent)
     if checksum:
-        return idx, counts, _block_checksum(idx, counts, False)
+        return idx, counts, _block_checksum(idx, counts, k)
     return idx, counts
 
 
@@ -274,7 +305,7 @@ def rowsort_rle_large_plain(codes: torch.Tensor, k: int,
     hi = torch.where(real, key >> (2 * LO_BASES), INVALID_SENTINEL).to(torch.int32)
     lo = torch.where(real, key & LO_MASK, INVALID_SENTINEL).to(torch.int32)
     if checksum:
-        return hi, lo, counts, _block_checksum(lo, counts, True)
+        return hi, lo, counts, _block_checksum(lo, counts, k)
     return hi, lo, counts
 
 
@@ -505,17 +536,19 @@ def _max_u16x2(a, b):
 
 
 def pair_keys_model(bases, invalid, width: int, k: int, canonical: bool,
-                    words_per_thread: int):
+                    words_per_thread: int, start: int = 0):
     """numpy model of the key build of ``rowsort_rle_pairs`` in
     ``csrc/rowsort.cu`` (``real_windows``, ``build_pairs``) over one row
     packed by :func:`pack_units_model` into ``packed_units(width)``
     units: thread t builds the windows from ``t*K`` and from
     ``width/2 + t*K`` (K = ``words_per_thread``).  Returns ``(keys,
     n_valid)``: the row's ``width`` keys by window, uint32, ``PAD16``
-    where a window is not real, and the number of real windows."""
+    where a window is not real, and the number of real windows.  With
+    ``start``, the ``width`` windows from there (a multiple of K), as
+    ``rowsort_rle_split`` builds its tails."""
     kw = words_per_thread
     bad = invalid[0::2] | (invalid[1::2] << np.uint64(16))  # read as 32-bit
-    p = np.arange(0, width, kw)  # the first window of each run of K
+    p = start + np.arange(0, width, kw)  # the first window of each run of K
     # real_windows: the invalid bits from p on, each OR-ed with the k - 1
     # that follow it.
     any_ = _funnelshift_r(bad[p >> 5], bad[(p >> 5) + 1], (p & 31).astype(np.uint64))
@@ -528,8 +561,8 @@ def pair_keys_model(bases, invalid, width: int, k: int, canonical: bool,
     real = ~any_ & _U32
     e = np.arange(kw, dtype=np.uint64)
     is_real = ((real[:, None] >> e) & np.uint64(1)).astype(bool).reshape(-1)
-    key = packed_window_keys_model(bases, np.zeros_like(invalid), np.arange(width), k,
-                                   canonical, 32, 0)
+    key = packed_window_keys_model(bases, np.zeros_like(invalid),
+                                   np.arange(start, start + width), k, canonical, 32, 0)
     keys = np.where(is_real, key, PAD16).astype(np.uint32)
     return keys, int(is_real.sum())
 
@@ -641,6 +674,105 @@ def sort_pairs_model(keys: np.ndarray, words_per_thread: int) -> np.ndarray:
     return np.concatenate([words & _LOW16, words >> np.uint32(16)])
 
 
+def _tail_words_per_thread(head: int, tail: int) -> int:
+    """kTailWords of the split's launch: 1 or 2 tail words for each of
+    the head / 8 threads of a pair of reads."""
+    threads = head // _SPLIT_WORDS
+    assert tail <= 2 * threads, "a tail takes at most two words a thread"
+    return 1 if tail <= threads else 2
+
+
+def split_keys_model(packed_a, packed_b, head: int, tail: int, k: int, canonical: bool):
+    """numpy model of the key build of ``rowsort_rle_split`` in
+    ``csrc/rowsort.cu`` (``build_words`` over two reads) for two reads
+    packed by :func:`pack_units_model` (``packed_*`` = ``(bases,
+    invalid)``; a read past the batch packs as all invalid): thread t
+    builds head windows ``[8t, 8t + 8)`` and tail windows ``head +
+    [t*K, (t+1)*K)`` (K of :func:`_tail_words_per_thread`), read a's key
+    in the low lane, read b's in the high lane.  Returns ``(head_words,
+    tail_words, n_valid)``: uint32 words by window, ``PAD16`` in a lane
+    whose window is not real, and the two reads' real windows."""
+    words, n_valid = [], [0, 0]
+    for start, width, kw in ((0, head, _SPLIT_WORDS),
+                             (head, tail, _tail_words_per_thread(head, tail))):
+        lanes = []
+        for lane, (bases, invalid) in enumerate((packed_a, packed_b)):
+            keys, nv = pair_keys_model(bases, invalid, width, k, canonical, kw, start)
+            lanes.append(keys)
+            n_valid[lane] += nv
+        words.append(lanes[0] | (lanes[1] << np.uint32(16)))
+    return words[0], words[1], tuple(n_valid)
+
+
+def _count_below(s: np.ndarray, x):
+    """``count_below``: the keys of the sorted ``s`` (a power of two of
+    them) below each x, by the kernel's branchless search."""
+    pos = np.zeros(np.shape(x), np.int64)
+    step = s.size >> 1
+    while step:
+        pos += np.where(s[pos + step - 1] < x, step, 0)
+        step >>= 1
+    return pos + (s[pos] < x)
+
+
+def _merge_row(s: np.ndarray, head: int, tail: int, out: np.ndarray) -> None:
+    """``merge_row`` for every thread of one read, the threads side by
+    side: thread t's head keys j in ``[8t, 8t + 8)`` to ``out[j + c]``, c
+    the tail's keys below key j (one search for the first, thread 0
+    from the tail's start, then a walk); a tail key the walk passes
+    before head key j, or after the thread's last and below the next
+    thread's first (above every key on the last thread), to its index
+    plus j."""
+    keys = s[:head].reshape(-1, _SPLIT_WORDS)
+    tail_keys = s[head:]
+    p0 = np.arange(0, head, _SPLIT_WORDS)
+
+    def at(c):  # past the tail, a value above every key
+        return np.where(c < tail, tail_keys[np.minimum(c, tail - 1)], 0x10000)
+
+    def walk(c, nxt, x, j):  # place the tail keys below x at index + j
+        while (nxt < x).any():
+            step = nxt < x
+            out[(c + j)[step]] = nxt[step]
+            c = c + step
+            nxt = at(c)
+        return c, nxt
+
+    c = np.where(p0 == 0, 0, _count_below(tail_keys, keys[:, 0]))
+    nxt = at(c)
+    for e in range(_SPLIT_WORDS):
+        x = keys[:, e]
+        c, nxt = walk(c, nxt, x, p0 + e)
+        out[p0 + e + c] = x
+    bound = np.append(keys[1:, 0], 0x10000)
+    walk(c, nxt, bound, p0 + _SPLIT_WORDS)
+
+
+def sort_split_model(head_words: np.ndarray, tail_words: np.ndarray):
+    """numpy model of the sort and merge of ``rowsort_rle_split`` in
+    ``csrc/rowsort.cu`` over the words of :func:`split_keys_model`: the
+    head's ``head`` words sorted by one flip-form network, both 16-bit
+    lanes ascending, 8 words a thread; the tail's words the same way,
+    K a thread; then for each read (lane) its sorted head and tail,
+    merged (:func:`_merge_row`): a head key to its index plus the tail's
+    keys below it, a tail key to its index plus the head's keys at most
+    it.  Returns the two reads' merged rows of ``head + tail`` cells
+    (uint32): sorted ascending."""
+    head, tail = head_words.size, tail_words.size
+    kt = _tail_words_per_thread(head, tail)
+    v = _flip_sort(np.array(head_words, np.uint32).reshape(-1, _SPLIT_WORDS),
+                   _min_u16x2, _max_u16x2).reshape(-1)
+    w = _flip_sort(np.array(tail_words, np.uint32).reshape(-1, kt),
+                   _min_u16x2, _max_u16x2).reshape(-1)
+    rows = []
+    for shift in (np.uint32(0), np.uint32(16)):
+        s = np.concatenate([(v >> shift) & _LOW16, (w >> shift) & _LOW16])
+        out = np.full(head + tail, -1, np.int64)
+        _merge_row(s, head, tail, out)
+        rows.append(out.astype(np.uint32))
+    return rows
+
+
 _SENTINEL_WORD = 1 << 31  # kSentinelWord: the bit of an invalid window's word
 _REPAIR_ROUNDS = 2  # kRepairRounds: odd-even transposition rounds before the network
 _KEY64_ALL_ONES = np.uint64((1 << 64) - 1)  # the kernel's uint64 sentinel
@@ -743,10 +875,10 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _checksum_out(codes: torch.Tensor, w: int, large: bool, checksum: bool):
+def _checksum_out(codes: torch.Tensor, w: int, k: int, checksum: bool):
     if not checksum:
         return None
-    blocks = -(-codes.shape[0] // checksum_rows_per_block(w, large))
+    blocks = -(-codes.shape[0] // checksum_rows_per_block(w, k, codes.shape[0]))
     return torch.empty(blocks, dtype=torch.int64, device=codes.device)
 
 
@@ -767,7 +899,7 @@ def rowsort_rle(codes: torch.Tensor, k: int, canonical: bool = False, *,
     b, length = codes.shape
     idx = torch.empty((b, w), dtype=torch.int32, device=codes.device)
     cnt = torch.empty_like(idx)
-    chk = _checksum_out(codes, w, False, checksum)
+    chk = _checksum_out(codes, w, k, checksum)
     if b:
         launch_kernel("rowsort_rle", _library().cfrk_rowsort_rle, codes.device,
                       codes.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
@@ -795,7 +927,7 @@ def rowsort_rle_large(codes: torch.Tensor, k: int, canonical: bool = False, *,
     hi = torch.empty((b, w), dtype=torch.int32, device=codes.device)
     lo = torch.empty_like(hi)
     cnt = torch.empty_like(hi)
-    chk = _checksum_out(codes, w, True, checksum)
+    chk = _checksum_out(codes, w, k, checksum)
     if b:
         launch_kernel("rowsort_rle_large", _library().cfrk_rowsort_rle_large, codes.device,
                       codes.data_ptr(), hi.data_ptr(), lo.data_ptr(), cnt.data_ptr(),

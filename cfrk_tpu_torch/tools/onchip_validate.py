@@ -32,10 +32,16 @@ The checks, each named for what it holds on the card:
   the sparse accumulator) against scatter;
 * ``rowsort_key16_parity``: ``rowsort_rle``'s two-keys-a-register path
   (k <= 8, rows of up to 4096 keys) against its twin at k = 1, 4, 7 and
-  8, canonical or not, on rows of 32, 128, 256 and 4096 windows with
-  poly-T (the 16-bit padding value's key at k = 8), poly-A, all-N,
-  N-heavy and half-padded rows, and with its checksum; the probe's four
-  variants at k = 8 against ``rowsort_probe_plain``;
+  8, canonical or not, on rows of 32, 128, 256 and 4096 windows, and of
+  the widths that split into a head and a tail, two reads a word (W =
+  129, 143, 144, 160, 257 and 320, in odd batches that fill 512 blocks
+  of the split, and in small batches and one read short of it, which
+  keep the 2P-cell row; 161, one past the split at P = 128, and 65 and
+  80, which P = 64 leaves unsplit), with poly-T (the 16-bit padding
+  value's key at k = 8), poly-A, all-N, N-heavy and half-padded rows
+  and rows whose tail keys all lie below or all above their head's;
+  with its checksum (also on split batches); the probe's four variants
+  at k = 8 against ``rowsort_probe_plain``, on split batches too;
 * ``rowsort_prefix_parity``: ``rowsort_rle_large``'s prefix path (k > 15,
   rows of up to 256 keys sorted as 32-bit prefix-and-position words)
   against its twin at k = 16, 20, 30 and 31, canonical or not, on rows
@@ -265,32 +271,45 @@ def rowsort_key16_parity(device: torch.device) -> dict:
     against theirs."""
     rng = np.random.default_rng(7)
 
-    def rows(b, length):
+    def rows(b, length, head=None):
         codes = _codes(rng, (b, length), p_n=0.01)
         codes[0] = 3  # poly-T: the key 0xFFFF at k = 8
         codes[1] = 0  # poly-A: one long run
         codes[2] = -1  # all N: no real window
         codes[3][rng.random(length) < 0.4] = -1
         codes[4, length // 2:] = -1
+        if head:  # windows from `head` on start with A or C, the others G or T
+            codes[5, :head] = rng.integers(2, 4, head)
+            codes[5, head:] = rng.integers(0, 2, length - head)
+            codes[6, :head] = rng.integers(0, 2, head)
+            codes[6, head:] = rng.integers(2, 4, length - head)
         return torch.from_numpy(codes).to(device)
 
+    # Batches of at least 512 blocks of the split take it (16384 reads
+    # at P = 128, 8192 at P = 256; odd ones leave the last pair half
+    # empty), smaller ones the 2P-cell row (16383 reads: one fewer).
     cases = 0
     for k in (1, 4, 7, 8):
-        for w, b in ((32, 150), (128, 70), (256, 40), (4096, 6)):
-            x = rows(b, w + k - 1)
+        for w, b in ((32, 150), (128, 70), (256, 40), (4096, 6), (65, 71), (80, 33),
+                     (129, 45), (143, 37), (144, 41), (160, 43), (161, 39), (257, 19),
+                     (320, 23), (129, 16385), (143, 16385), (144, 16384), (143, 16383),
+                     (160, 16385), (161, 16385), (257, 8193), (320, 8193)):
+            head = 1 << (w - 1).bit_length() - 1 if w & (w - 1) else None
+            x = rows(b, w + k - 1, head)
             for canonical in (False, True):
                 _rows_vs_plain(x, k, canonical, f"k={k} canonical={canonical} {w} windows")
                 cases += 1
-    x = rows(37, 150)
-    assert_equal(rowsort_rle(x, 8, checksum=True), rowsort_rle_plain(x, 8, checksum=True),
-                 "k=8 with checksum")
+    for length, b in ((150, 37), (150, 16385), (167, 16385)):
+        x = rows(b, length, 128)
+        assert_equal(rowsort_rle(x, 8, checksum=True), rowsort_rle_plain(x, 8, checksum=True),
+                     f"k=8 {b} reads of {length} bp with checksum")
     variants = {}
-    for length in (150, 4103):
-        x = rows(40 if length == 150 else 6, length)
+    for length, b in ((150, 41), (4103, 6), (150, 16385), (167, 16385)):
+        x = rows(b, length, 128 if b > 41 else None)
         for variant in ("full", "sortonly", "rleonly", "noop"):
             chk = rowsort_probe(x, 8, variant)
             assert_equal(chk, rowsort_probe_plain(x, 8, variant), f"k=8 probe {variant}")
-            variants[f"{variant}_{length}"] = int(chk.sum())
+            variants[f"{variant}_{length}" + (f"_B{b}" if b > 41 else "")] = int(chk.sum())
     return {"cases": cases, "probe_checksums": variants}
 
 

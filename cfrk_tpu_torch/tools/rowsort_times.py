@@ -1,17 +1,21 @@
 """Times of the two rowsort kernels on a CUDA device, shape by shape.
 
     python cfrk_tpu_torch/tools/rowsort_times.py [--seed 0] [--iters 50] [--plain] \
-        [--shapes main short70 ...]
+        [--shapes main short70 ...] [--probe-lens 150 ...] [--probe-batch 8192]
 
 For each shape below, at k = 8 (``rowsort_rle``, two 16-bit keys a
 register up to 4096 keys a row), k = 12 (``rowsort_rle``, uint32 keys)
 and k = 31 canonical (``rowsort_rle_large``, uint64 keys): ms per launch
 of the kernel, and with ``--plain`` of its plain twin on the card.  Then the
-probe's four variants at k = 8 and k = 31 (``tools/rowsort_probe.py``).
-One JSON object per line; the first line is the card.
+probe's four variants at k = 8 and k = 31 (``tools/rowsort_probe.py``),
+at each read length of ``--probe-lens`` in batches of ``--probe-batch``
+reads: a sweep of the row width W = length - k + 1 (``--shapes`` with
+no name times no shape).  One JSON object per line; the first line is the card.
 
     main      [8192, 256]   150 bp reads (152 at k = 31) padded to the
                             256-column length bucket: the main path's batch
+    reads150  [8192, 150]   150 bp reads unpadded (W = 143 at k = 8)
+    cell150   [100000, 150] a shard of the benchmark's cfg2_k8 cell
     short70   [8192, 128]   70 bp reads in the 128-column bucket
     w512      [4096, 512]   random bases, every width the kernel treats
     w1024     [2048, 1024]  differently (see csrc/rowsort.cu)
@@ -48,6 +52,8 @@ __all__ = ["SHAPES", "shape_codes", "time_graph", "time_eager", "time_shape"]
 # "ceiling" = the widest row of one launch)
 SHAPES = {
     "main": (8192, 256, 150),
+    "reads150": (8192, 150, None),
+    "cell150": (100000, 150, None),
     "short70": (8192, 128, 70),
     "w512": (4096, 512, None),
     "w1024": (2048, 1024, None),
@@ -140,8 +146,12 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--plain", action="store_true",
                     help="also time the plain twins on the card")
-    ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES),
+    ap.add_argument("--shapes", nargs="*", default=list(SHAPES), choices=list(SHAPES),
                     help="the shapes to time (default: all)")
+    ap.add_argument("--probe-lens", nargs="+", type=int, default=[150],
+                    help="the probe's read lengths (default: 150)")
+    ap.add_argument("--probe-batch", type=int, default=8192,
+                    help="the probe's reads a batch (default: 8192)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("rowsort_times: no CUDA device is visible", file=sys.stderr)
@@ -160,8 +170,11 @@ def main(argv=None) -> int:
             print(json.dumps(time_shape(name, k, canonical, args.seed,
                                         args.iters, args.plain)), flush=True)
     for keys in (1, 2):
-        for variant in PROBE_VARIANTS:
-            print(json.dumps({"probe": probe(variant, keys=keys)}), flush=True)
+        for length in args.probe_lens:
+            for variant in PROBE_VARIANTS:
+                rec = probe(variant, keys=keys, length=length, batch=args.probe_batch)
+                print(json.dumps({"probe": rec, "length": length,
+                                  "batch": args.probe_batch}), flush=True)
     return 0
 
 

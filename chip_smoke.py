@@ -95,7 +95,11 @@ Phases, each of which exits non-zero on failure:
    a graph replay at k = 7, 8, 9, 10 on the random and the skewed
    batches; the per-read histogram kernel "b4", "fh" and unpacked, with
    its written GB/s, beside a ``zero_()`` of the same output and the
-   zero-then-scatter alternative: ``tools/hist_times.py``), each
+   zero-then-scatter alternative: ``tools/hist_times.py``); the k = 8
+   row kernel also on unpadded 150 bp reads, array-equal to the plain
+   route, at the benchmark cell's 100 000 reads (``rowsort_rle_split``)
+   and at 8192 (``rowsort_rle_pairs``), rows ``rowsort_rle@<B>x150`` of
+   the ``kernels`` line; each
    kernel's bound (bytes over the memory rate, operations over the
    integer rate, whichever is larger, from the shape it was timed at),
    the spectrum kernel against the sorted route per batch at k = 9 and
@@ -440,7 +444,10 @@ def width_cases(batch, k: int) -> dict:
     keys a thread), 8192 is the first width of the shared-memory network
     and the last n the ceiling; 7 reads leave every block ragged, 1 and
     8193 reads are the least batch and one read past a multiple of every
-    block's rows."""
+    block's rows.  At k <= 8, 143 and 160 windows in 16385 reads and
+    320 in 8193 split into a head and a tail, two reads a word (at
+    least 512 blocks of the split, the last pair half empty); 143 in
+    16383 reads, one read short, keep the 2P-cell row."""
     import numpy as np
 
     from cfrk_tpu_torch.ops.cuda.rowsort import rowsort_max_windows
@@ -451,6 +458,8 @@ def width_cases(batch, k: int) -> dict:
     out = {f"n{n}_B7": batch(7, cols(n))
            for n in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192,
                      rowsort_max_windows(k))}
+    for n, b in ((143, 16385), (160, 16385), (320, 8193), (143, 16383)):
+        out[f"n{n}_B{b}"] = batch(b, cols(n))
     for n in (32, 256, 512):
         out[f"n{n}_B1"] = batch(1, cols(n))
     for n in (32, 256):
@@ -2535,12 +2544,13 @@ def run_probe(card: str) -> dict:
 
 
 # Widths of every launch layout of the rowsort kernels (``width_cases``):
-# a row of 16 keys, rows of 256 keys (8 or 16 a block), 4096 keys (16 keys
-# a thread), 8192 keys (one block a row, the shared-memory network), a
-# ragged last block of 8193 reads, one run of 4096, all N, and reads
-# shorter than k.
-CHECKSUM_WIDTHS = ("n16_B7", "n256_B7", "n4096_B7", "n8192_B7", "n256_B8193",
-                   "polyA_n4096", "all_N", "shorter_than_k")
+# a row of 16 keys, rows of 256 keys (8 or 16 a block), rows of 143 and
+# 320 keys in batches that split at k <= 8 (32 and 16 reads a block),
+# 4096 keys (16 keys a thread), 8192 keys (one block a row, the
+# shared-memory network), a ragged last block of 8193 reads, one run of
+# 4096, all N, and reads shorter than k.
+CHECKSUM_WIDTHS = ("n16_B7", "n256_B7", "n143_B16385", "n320_B8193", "n4096_B7", "n8192_B7",
+                   "n256_B8193", "polyA_n4096", "all_N", "shorter_than_k")
 
 
 def check_checksums(seed: int, card: str) -> dict:
@@ -2657,6 +2667,43 @@ def time_torch_sort(seed: int) -> dict:
                              generator=gen)
         name = str(dtype).removeprefix("torch.")
         out[f"torch_sort_{name}_ms"] = time_eager(lambda: torch.sort(keys, dim=-1))
+    return out
+
+
+def check_and_time_unpadded(r150, card: str) -> dict:
+    """Phase 8, the k = 8 row kernel on unpadded 150 bp reads (W = 143):
+    at the benchmark cell's 100 000 reads, which take
+    ``rowsort_rle_split``, and at the main batch's 8192, too small for
+    the split, which keep ``rowsort_rle_pairs``.  Each is array-equal to
+    the plain route and timed as graph replays beside it.  Returns
+    {``rowsort_rle@<B>x150``: {err, ms, plain_ms, bound, launches}}."""
+    import numpy as np
+    import torch
+
+    from cfrk_tpu_torch.ops.cuda import rowsort as R
+    from cfrk_tpu_torch.ops.roofline import rowsort_bound
+    from cfrk_tpu_torch.tools.rowsort_times import time_graph
+
+    out = {}
+    for b in (READS, BATCH):
+        name = f"rowsort_rle@{b}x150"
+        before = launch_counts()
+        codes = torch.from_numpy(np.ascontiguousarray(r150[:b])).cuda()
+        got = R.rowsort_rle(codes, 8, False)
+        want = R.rowsort_rle_plain(codes, 8, False)
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        if err:
+            fail(f"{name}: differs from plain by {err}")
+        del got, want
+        plain_ms = time_kernel(R.rowsort_rle_plain, codes, 8, False)
+        k1 = time_graph(lambda: R.rowsort_rle(codes, 8, False), 16)
+        k2 = time_graph(lambda: R.rowsort_rle(codes, 8, False), 16)
+        bound = rowsort_bound(b, 150, 8)
+        out[name] = {"err": err, "ms": (k1 + k2) / 2, "plain_ms": plain_ms, "bound": bound,
+                     "launches": launched(before, ("rowsort_rle",))["rowsort_rle"]}
+        log(f"time {name} k=8: array-equal to plain; kernel {k1:.5f}/{k2:.5f} ms as "
+            f"a graph replay, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({card})")
     return out
 
 
@@ -2811,6 +2858,10 @@ def main() -> int:
             f"{k1:.4f}/{k2:.4f} ms as a graph replay ({eager:.4f} ms in an eager "
             f"loop, which also times the host's launches), plain "
             f"{p1:.4f}/{p2:.4f} ms per batch ({card})")
+    unpadded = check_and_time_unpadded(r150, card)
+    for name, rec in unpadded.items():
+        errs[name], times[name] = rec["err"], (rec["ms"], rec["plain_ms"])
+        bounds[name], launches[name] = rec["bound"], rec["launches"]
     other_shapes = [time_shape(shape, k, canonical, args.seed, 50, plain=True)
                     for shape in ("short70", "contig4k")
                     for k, canonical in ((8, False), (31, True))]
@@ -2901,6 +2952,7 @@ def main() -> int:
     kernels = []
     for name, source, replaces in (
         ("rowsort_rle", "rowsort.cu", "cfrk_tpu/ops/pallas/rowsort.py:569"),
+        *((name, "rowsort.cu", "cfrk_tpu/ops/pallas/rowsort.py:569") for name in unpadded),
         ("rowsort_rle_large", "rowsort.cu", "cfrk_tpu/ops/pallas/rowsort.py:655"),
         ("spectrum_hist", "spectrum.cu", "cfrk_tpu/ops/pallas/spectrum.py:62"),
         # No TPU kernel: the JAX package's scatter route above k = 10.

@@ -68,19 +68,29 @@ def test_checksum_sum_matches_jax_kernel(k, canonical, length, b):
     for g, w in zip(got[:-1], bare):
         assert torch.equal(g, w)
     w = length - k + 1
-    blocks = -(-b // R.checksum_rows_per_block(w, k > 15))
+    blocks = -(-b // R.checksum_rows_per_block(w, k, b))
     assert got[-1].shape == (blocks,) and got[-1].dtype == torch.int64
 
 
 def test_checksum_blocks_follow_the_kernels_layout():
     """Reads a block of the CUDA launch (csrc/rowsort.cu ``launch``): 256
     threads of 8 keys (16 for uint32 rows of 256 keys and more, and any
-    row above 2048), one block a row above 4096 keys."""
-    layout = {(1, False): 64, (32, False): 64, (128, False): 16, (143, False): 16,
-              (249, False): 16, (122, True): 16, (226, True): 8, (2048, True): 1,
-              (2049, True): 1, (4096, False): 1, (4097, False): 1, (32768, False): 1}
-    for (w, large), rows in layout.items():
-        assert R.checksum_rows_per_block(w, large) == rows, (w, large)
+    row above 2048), one block a row above 4096 keys; at k <= 8, rows
+    just above a power of two P split, two reads on P / 8 threads, in
+    batches of at least 512 such blocks."""
+    layout = {(1, 12): 64, (32, 12): 64, (128, 12): 16, (143, 12): 16,
+              (249, 12): 16, (122, 31): 16, (226, 31): 8, (2048, 31): 1,
+              (2049, 31): 1, (4096, 12): 1, (4097, 12): 1, (32768, 12): 1,
+              (1, 8): 64, (128, 8): 16, (143, 8): 32, (144, 7): 32, (160, 8): 32,
+              (161, 8): 16, (249, 8): 16, (80, 8): 16, (320, 1): 16, (321, 8): 8,
+              (4096, 8): 1}
+    for (w, k), rows in layout.items():
+        assert R.checksum_rows_per_block(w, k, 100_000) == rows, (w, k)
+    small = {(143, 8, 7): 16, (143, 8, 16383): 16, (143, 8, 16384): 32,
+             (160, 8, 16385): 32, (320, 1, 8191): 8, (320, 1, 8192): 16,
+             (143, 12, 16384): 16}
+    for (w, k, b), rows in small.items():
+        assert R.checksum_rows_per_block(w, k, b) == rows, (w, k, b)
 
 
 def test_checksum_counts_run_starts_of_each_block():

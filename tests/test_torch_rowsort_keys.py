@@ -16,7 +16,13 @@ palindromic repeats (canonical ties).  At k <= 8 the kernel sorts two
 with the padding value 0xFFFF and the count of real windows, the packed
 network, the emit cut at that count -- is held against ``np.sort`` and
 against the plain rows (``rowsort_rle_plain``, ``rle_rows``), poly-T
-rows included, whose key TTTTTTTT is 0xFFFF at k = 8.  Above k = 15,
+rows included, whose key TTTTTTTT is 0xFFFF at k = 8.  Rows whose W lies
+just above a power of two P split into a head of P cells and a short
+tail, two reads a word (``rowsort_rle_split``): the model of its key
+build, its network and its merge is held against ``np.sort`` and the
+plain rows, on rows whose tail keys all lie below or above the head's,
+head-tail ties, poly-T, all-N and padded rows, in odd batches (the last
+pair half empty).  Above k = 15,
 rows of up to 256 keys sort 32-bit prefix-and-position words
 (``rowsort_rle_prefix``): the model of the word build, the flip-form
 sort, the gather of the full keys and the warp's repair is held
@@ -288,19 +294,156 @@ def test_pair_sort_network_sorts(width, words_per_thread):
         np.testing.assert_array_equal(R.sort_pairs_model(row, words_per_thread), np.sort(row))
 
 
+SPLIT_WINDOWS = (65, 80, 81, 129, 143, 144, 160, 161, 257, 320, 321)
+
+
 def test_key16_path_follows_the_launch_rule():
     """k <= 8 and rows of up to 4096 keys take the 16-bit path
     (csrc/rowsort.cu ``launch``); k 9-15, the uint64 keys and wider rows
     keep their kernels.  Its threads hold the uint32 path's keys, two a
     word, so the rows a block, and the checksum's layout, do not change
-    with k."""
+    with k, except where a row splits (``split_head``): k <= 8,
+    P < W <= P + P/4 for P = 128 and 256, and at least 512 blocks of
+    4096 / head reads, two reads on head / 8 threads."""
     for k in range(1, 32):
         for w in (1, 31, 32, 143, 256, 2049, 4096, 4097, 16384, 32768):
             assert R.key16_path(w, k) == (k <= 8 and w <= 4096), (w, k)
     for width in (32, 64, 128, 256, 512, 1024, 2048, 4096):
         keys = R.keys_per_thread(width, False)
         assert keys // 2 <= R.UNIT_BASES and width >= keys
-        assert R.checksum_rows_per_block(width, False) == 256 * keys // width
+        for k in (8, 12):
+            assert R.checksum_rows_per_block(width, k, 7) == 256 * keys // width
+    splits = {129: (128, 8),
+              136: (128, 8), 137: (128, 16), 143: (128, 16), 144: (128, 16),
+              145: (128, 32), 160: (128, 32), 257: (256, 8), 264: (256, 8),
+              265: (256, 16), 288: (256, 32), 289: (256, 64), 320: (256, 64)}
+    least = {128: 16384, 256: 8192}  # reads of 512 blocks
+    for k in range(1, 32):
+        for w in (1, 32, 33, 40, 64, *SPLIT_WINDOWS, *splits, 72, 73, 176, 192, 256, 384,
+                  512, 513, 520, 576, 4096):
+            for b in (1, 7, 8191, 8192, 16383, 16384, 100_000):
+                split = splits.get(w) if k <= 8 else None
+                want = split if split and b >= least[split[0]] else None
+                assert R.split_path(w, k, b) == want, (w, k, b)
+                if want:
+                    assert R.key16_path(w, k)
+                    assert R.checksum_rows_per_block(w, k, b) == 2 * 256 * 8 // want[0]
+                    tail_threads = want[1] // R._tail_words_per_thread(*want)
+                    assert tail_threads <= want[0] // 8 and w <= sum(want)
+
+
+# ------------------------------- two reads a word (k <= 8, split rows)
+
+
+def _split_rows(w: int, k: int) -> np.ndarray:
+    """[11, w + k - 1] int8 rows for a split width (an odd batch: the
+    last pair's high lanes hold no read): random with N, N-heavy,
+    poly-T, poly-A, all-N, rows cut by -1 inside the head, rows whose
+    tail windows all start with A or C and head windows with G or T
+    (every tail key below every head key) and the reverse, an ACGT and
+    an AAC repeat (keys shared by head and tail)."""
+    length = w + k - 1
+    head = 1 << (w - 1).bit_length() - 1
+    rng = np.random.default_rng(w * 100 + k)
+    rows = rng.integers(0, 4, size=(11, length)).astype(np.int8)
+    rows[0][rng.random(length) < 0.02] = -1
+    rows[1][rng.random(length) < 0.3] = -1
+    rows[2] = 3
+    rows[3] = 0
+    rows[4] = -1
+    rows[5, head // 3:] = -1
+    rows[6, :head] = rng.integers(2, 4, head)
+    rows[6, head:] = rng.integers(0, 2, length - head)
+    rows[7, :head] = rng.integers(0, 2, head)
+    rows[7, head:] = rng.integers(2, 4, length - head)
+    rows[8] = np.resize([0, 1, 2, 3], length)
+    rows[9] = np.resize([0, 0, 1], length)
+    rows[10, head - 3:] = 3  # a T run across the head's end, -1 after it
+    rows[10, head + 5:] = -1
+    return rows
+
+
+def _split_rows_model(rows, k, canonical, head, tail):
+    """The split path's rows by its model, two reads at a time (a read
+    past the batch packs as all invalid): packed, keys built, sorted and
+    merged two a word, emitted; the merged rows and the real windows."""
+    w = rows.shape[1] - k + 1
+    padded = np.concatenate([rows, np.full((1, rows.shape[1]), -1, np.int8)])
+    idx = np.empty((rows.shape[0], w), np.int32)
+    counts = np.empty_like(idx)
+    merged, n_valid = [], []
+    for a in range(0, rows.shape[0], 2):
+        packed = [R.pack_units_model(padded[r], R.packed_units(w)) for r in (a, a + 1)]
+        head_words, tail_words, nv = R.split_keys_model(*packed, head, tail, k, canonical)
+        for r, row, n in zip((a, a + 1), R.sort_split_model(head_words, tail_words), nv):
+            if r < rows.shape[0]:
+                idx[r], counts[r] = R.finish_pairs_model(row, n, w, k)
+                merged.append(row)
+                n_valid.append(n)
+    return idx, counts, np.array(merged), np.array(n_valid)
+
+
+SPLIT_CASES = [(k, canonical, w) for k in PAIR_KS for canonical in (False, True)
+               for w in SPLIT_WINDOWS]
+
+
+@pytest.mark.parametrize("k,canonical,w", SPLIT_CASES)
+def test_split_rows_equal_plain(k, canonical, w):
+    """The model of the split (two reads a word, head and tail sorted
+    apart and merged) gives np.sort's cells, the plain rows and the
+    plain rows' run-length encoding, and counts the real windows, at
+    W = P + 1, 143, 144 and each head's threshold P + P/4.  One past it
+    (161, 321), and at P = 64 (65, 80, 81), the kernel does not split:
+    there the model of the 2P-cell row it takes gives the plain rows."""
+    split = R.split_path(w, k, 100_000)
+    head = 1 << (w - 1).bit_length() - 1
+    assert (split is None) == (w - head > head // 4 or head < 128)
+    rows = _split_rows(w, k)
+    codes = torch.from_numpy(rows)
+    want_idx, want_counts = R.rowsort_rle_plain(codes, k, canonical)
+    if split is None:
+        idx, counts, n_valid = _pair_rows_model(rows, k, canonical)
+        np.testing.assert_array_equal(idx, want_idx.numpy())
+        np.testing.assert_array_equal(counts, want_counts.numpy())
+        np.testing.assert_array_equal(
+            n_valid, (window_indices(codes, k, canonical) >= 0).sum(1).numpy())
+        return
+    idx, counts, merged, n_valid = _split_rows_model(rows, k, canonical, *split)
+    keys = window_indices(codes, k, canonical).numpy()
+    np.testing.assert_array_equal(n_valid, (keys >= 0).sum(1))
+    cells = np.full((rows.shape[0], sum(split)), R.PAD16, np.int64)
+    cells[:, :w] = np.where(keys < 0, R.PAD16, keys)
+    np.testing.assert_array_equal(merged, np.sort(cells, axis=1))
+    np.testing.assert_array_equal(idx, want_idx.numpy())
+    np.testing.assert_array_equal(counts, want_counts.numpy())
+    real = torch.arange(w).expand(rows.shape[0], w) < torch.from_numpy(n_valid)[:, None]
+    rle_idx, rle_counts = R.rle_rows(torch.from_numpy(merged[:, :w]).to(torch.int32),
+                                     real, 4**k)
+    np.testing.assert_array_equal(idx, rle_idx.numpy())
+    np.testing.assert_array_equal(counts, rle_counts.numpy())
+
+
+@pytest.mark.parametrize("head,tail", [(128, 8), (128, 16), (128, 32), (256, 8), (256, 16),
+                                       (256, 32), (256, 64)])
+def test_split_sort_network_sorts(head, tail):
+    """The split's network and merge, as a numpy model, sort both lanes
+    at every head and tail the kernel splits: distinct
+    keys, many duplicates (ties across head and tail), padding with real
+    0xFFFF keys among it, every tail key below the head's, above it, and
+    a lane of padding beside a lane of keys."""
+    rng = np.random.default_rng(head * 1000 + tail)
+    n = head + tail
+    lanes = [rng.integers(0, 1 << 16, n), rng.integers(0, 7, n),
+             np.where(rng.random(n) < 0.5, R.PAD16, rng.integers(0, 1 << 16, n)),
+             np.concatenate([rng.integers(1000, 2000, head), rng.integers(0, 1000, tail)]),
+             np.concatenate([rng.integers(0, 1000, head), rng.integers(1000, 2000, tail)]),
+             np.full(n, R.PAD16)]
+    for a, b in zip(lanes, lanes[1:] + lanes[:1]):
+        a, b = a.astype(np.uint32), b.astype(np.uint32)
+        words = a | (b << np.uint32(16))
+        got_a, got_b = R.sort_split_model(words[:head], words[head:])
+        np.testing.assert_array_equal(got_a, np.sort(a))
+        np.testing.assert_array_equal(got_b, np.sort(b))
 
 
 # ------------------------- prefix-and-position words (k > 15, rows <= 256)
@@ -449,4 +592,4 @@ def test_prefix_path_follows_the_launch_rule():
     for width in (32, 64, 128, 256):
         keys = R.keys_per_thread(width, True)
         assert width // keys <= 32
-        assert R.checksum_rows_per_block(width, True) == 256 * keys // width
+        assert R.checksum_rows_per_block(width, 31, 7) == 256 * keys // width
