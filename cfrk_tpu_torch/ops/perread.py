@@ -23,6 +23,10 @@ torch is their port.  ``auto`` follows the JAX package: on a CUDA tensor
 its TPU policy (``compare`` for 4**k <= 64, the kernel for k >= 5,
 ``matmul`` at k = 4), elsewhere its off-TPU policy (``compare``, else
 ``host``).  The JAX package's tracer branches have no counterpart.
+
+A call is the span ``cfrk.perread`` around the route and its cast, one
+count of ``cfrk.perread.calls`` and one count of
+``cfrk.perread.route.<impl>`` for the route it takes.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..runtime.metrics import count, traced
 from .cuda.perread import MAX_PERREAD_K, perread_hist, perread_hist_plain
 from .encode import as_codes, split_k, window_indices
 
@@ -37,6 +42,7 @@ __all__ = ["count_perread", "MAX_PERREAD_K"]
 
 # float32 sums of 0/1 products are exact below this many windows per read.
 _F32_EXACT_WINDOWS = 2**24
+_IMPLS = ("compare", "scatter", "matmul", "host", "pallas")
 
 
 def _count_compare(codes: torch.Tensor, k: int, canonical: bool) -> torch.Tensor:
@@ -124,6 +130,18 @@ def count_perread(
             impl = "pallas"
         else:
             impl = "matmul"
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+    count("cfrk.perread.calls")
+    count("cfrk.perread.route." + impl)
+    return traced("cfrk.perread", _run_route, impl, codes, k, canonical, out_dtype)
+
+
+def _run_route(impl: str, codes: torch.Tensor, k: int, canonical: bool,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """The route ``impl`` and its cast to ``out_dtype``.  The route
+    functions are looked up at each call, so that a caller can put
+    another in a route's place."""
     if impl == "compare":
         return _count_compare(codes, k, canonical).to(out_dtype)
     if impl == "scatter":
@@ -132,7 +150,5 @@ def count_perread(
         return _count_host(codes, k, canonical, out_dtype)
     if impl == "matmul":
         return _count_matmul(codes, k, canonical).to(out_dtype)
-    if impl == "pallas":
-        # The int16 cast follows the kernel, as in the JAX package.
-        return perread_hist(codes, k, canonical).to(out_dtype)
-    raise ValueError(f"unknown impl {impl!r}")
+    # The int16 cast follows the kernel, as in the JAX package.
+    return perread_hist(codes, k, canonical).to(out_dtype)

@@ -20,6 +20,10 @@ The checks, each named for what it holds on the card:
   at k = 5 and 8;
 * ``perread_kernel_parity``: ``perread_hist`` unpacked, ``b4`` with its
   checksum, and canonical, each against ``perread_hist_plain``;
+* ``perread_dense_chunk``: ``count_perread(x, 8)`` (the ``auto`` route:
+  ``perread_hist`` unpacked on the card) on unpadded ``[8192, 150]``
+  codes (W = 143; 64 reads on the CPU) against ``perread_hist_plain``,
+  compared on the device; the route and launch counters;
 * ``spectrum_kernel_parity``: ``spectrum_hist`` against the scatter route
   at k=8;
 * ``spectrum_k15_parity``: ``spectrum(..., impl="auto")`` at k = 11, 12
@@ -184,6 +188,36 @@ def perread_kernel_parity(device: torch.device) -> dict:
                  perread_hist_plain(x, k, canonical=True), "canonical")
     return {"k": k, "modes": ["dense", "b4+checksum", "canonical"],
             "checksum": int(chk.sum())}
+
+
+DENSE_CHUNK = (8192, 150)  # the reference CFRK's chunk of 150 bp reads
+LAUNCHES = "cfrk.perread_hist.launches"
+
+
+def perread_dense_chunk(device: torch.device) -> dict:
+    """``count_perread(x, 8)`` on one unpadded chunk of the reference
+    CFRK's size (8192 reads of 150 bp, W = 143; 64 reads on the CPU,
+    where the output is 2.15 GB of plain-route table otherwise) against
+    ``perread_hist_plain``, compared on the device; on the card it takes
+    the route ``pallas`` and launches ``perread_hist`` once."""
+    reads, length = DENSE_CHUNK if device.type == "cuda" else (64, DENSE_CHUNK[1])
+    x = torch.from_numpy(_codes(np.random.default_rng(10), (reads, length), p_n=0.002)).to(device)
+    route = "cfrk.perread.route." + ("pallas" if device.type == "cuda" else "host")
+    before = counters()
+    got = count_perread(x, 8)
+    after = counters()
+    want = perread_hist_plain(x, 8)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
+    if not torch.equal(got, want):
+        bad = torch.nonzero(got != want)[0].tolist()
+        raise AssertionError(f"differs at {bad}: {int(got[tuple(bad)])} != {int(want[tuple(bad)])}")
+    launched = after.get(LAUNCHES, 0) - before.get(LAUNCHES, 0)
+    routed = after.get(route, 0) - before.get(route, 0)
+    if routed != 1 or launched != (1 if device.type == "cuda" else 0):
+        raise AssertionError(f"{route} {routed}, perread_hist launches {launched}")
+    return {"shape": [reads, length], "k": 8, "windows": length - 8 + 1,
+            "counted": int(want.sum(dtype=torch.int64)), route: routed, LAUNCHES: launched}
 
 
 def spectrum_kernel_parity(device: torch.device) -> dict:
@@ -461,6 +495,7 @@ CHECKS = {fn.__name__: fn for fn in (
     golden_byte_exact,
     perread_impl_parity,
     perread_kernel_parity,
+    perread_dense_chunk,
     spectrum_kernel_parity,
     spectrum_k15_parity,
     sorted_spectrum_parity,

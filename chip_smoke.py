@@ -99,7 +99,10 @@ Phases, each of which exits non-zero on failure:
    row kernel also on unpadded 150 bp reads, array-equal to the plain
    route, at the benchmark cell's 100 000 reads (``rowsort_rle_split``)
    and at 8192 (``rowsort_rle_pairs``), rows ``rowsort_rle@<B>x150`` of
-   the ``kernels`` line; each
+   the ``kernels`` line; the per-read histogram on one unpadded chunk of
+   the reference CFRK's size through ``count_perread(x, 8)`` (8192 x 150
+   bp, unpacked, one launch), array-equal to the plain twin and timed
+   beside it, row ``perread_hist@8192x150``; each
    kernel's bound (bytes over the memory rate, operations over the
    integer rate, whichever is larger, from the shape it was timed at),
    the spectrum kernel against the sorted route per batch at k = 9 and
@@ -2707,6 +2710,48 @@ def check_and_time_unpadded(r150, card: str) -> dict:
     return out
 
 
+def check_and_time_dense_chunk(r150, card: str) -> dict:
+    """Phase 8, the dense per-read histogram on one unpadded chunk of
+    the reference CFRK's size (8192 reads of 150 bp, W = 143), through
+    ``count_perread(x, 8)``, the call a library user makes, which takes
+    ``perread_hist`` unpacked: array-equal to ``perread_hist_plain`` on
+    the same codes, one launch of ``perread_hist`` for the call, and
+    timed (CUDA events around eager calls) beside the plain twin.
+    Returns {``perread_hist@8192x150``: {err, ms, plain_ms, bound,
+    launches}}."""
+    import numpy as np
+    import torch
+
+    from cfrk_tpu_torch.ops.cuda import perread as P
+    from cfrk_tpu_torch.ops.perread import count_perread
+    from cfrk_tpu_torch.ops.roofline import perread_bound
+
+    name = f"perread_hist@{BATCH}x150"
+    codes = torch.from_numpy(np.ascontiguousarray(r150[:BATCH])).cuda()
+    before = launch_counts()
+    got = count_perread(codes, 8)
+    launches = launched(before, ("perread_hist",))["perread_hist"]
+    if launches != 1:
+        fail(f"{name}: count_perread launched perread_hist {launches} times, not once")
+    want = P.perread_hist_plain(codes, 8, False)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {tuple(got.shape)} {got.dtype} != plain's "
+             f"{tuple(want.shape)} {want.dtype}")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err:
+        fail(f"{name}: differs from plain by {err}")
+    del got, want
+    k1 = time_kernel(lambda c, k, can: count_perread(c, k, canonical=can), codes, 8, False)
+    plain_ms = time_kernel(P.perread_hist_plain, codes, 8, False, iters=5)
+    k2 = time_kernel(lambda c, k, can: count_perread(c, k, canonical=can), codes, 8, False)
+    bound = perread_bound(BATCH, 150, 8, None)
+    log(f"time {name} k=8 unpacked through count_perread: array-equal to plain; "
+        f"{k1:.5f}/{k2:.5f} ms a call, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+        f"({card})")
+    return {name: {"err": err, "ms": (k1 + k2) / 2, "plain_ms": plain_ms, "bound": bound,
+                   "launches": launches}}
+
+
 def time_kernel(fn, codes, k: int, canonical: bool, iters: int = 20) -> float:
     """ms per call on the card: CUDA events around ``iters`` calls after
     a warm-up."""
@@ -2859,7 +2904,8 @@ def main() -> int:
             f"loop, which also times the host's launches), plain "
             f"{p1:.4f}/{p2:.4f} ms per batch ({card})")
     unpadded = check_and_time_unpadded(r150, card)
-    for name, rec in unpadded.items():
+    dense_chunk = check_and_time_dense_chunk(r150, card)
+    for name, rec in (unpadded | dense_chunk).items():
         errs[name], times[name] = rec["err"], (rec["ms"], rec["plain_ms"])
         bounds[name], launches[name] = rec["bound"], rec["launches"]
     other_shapes = [time_shape(shape, k, canonical, args.seed, 50, plain=True)
@@ -2958,6 +3004,7 @@ def main() -> int:
         # No TPU kernel: the JAX package's scatter route above k = 10.
         ("spectrum_large", "spectrum.cu", "cfrk_tpu/ops/spectrum.py:51"),
         ("perread_hist", "perread.cu", "cfrk_tpu/ops/pallas/perread.py:166"),
+        *((name, "perread.cu", "cfrk_tpu/ops/pallas/perread.py:166") for name in dense_chunk),
         ("rowsort_probe", "rowsort.cu", "tools/rowsort_probe.py:173"),
     ):
         kernels.append({
